@@ -1,0 +1,198 @@
+// Prime-field arithmetic on 32-bit limbs held in registers, one field element
+// per CUDA thread.  Shared by every kernel of the library (Montgomery
+// multiply, modular add/sub/neg, binary-Euclid inverse) and meant to be
+// included by later kernels (fixed-exponent power, curve adds, inversion
+// trees).
+//
+// Boundary layout (see gingerlib_tpu_torch/fields/fp.py): an element is ND
+// little-endian 16-bit digits, each stored in an int64, so R = 2^(16*ND).
+// Two digits make one limb: L = ND/2 limbs of 32 bits share the same R, which
+// is why only even ND is built.
+#pragma once
+
+#include <stdint.h>
+
+namespace gl {
+
+// Per-field constants, passed to kernels by value so that they sit in the
+// kernel-parameter constant bank: fully unrolled loops index them with
+// compile-time offsets and they cost no registers.
+template <int L>
+struct FpConst {
+  uint32_t p[L];   // modulus, little-endian limbs
+  uint32_t inv;    // -p^-1 mod 2^32
+};
+
+template <int L>
+__device__ __forceinline__ void load_digits(const long long* __restrict__ src,
+                                            uint32_t (&x)[L]) {
+  const longlong2* s2 = reinterpret_cast<const longlong2*>(src);
+#pragma unroll
+  for (int i = 0; i < L; i++) {
+    longlong2 d = s2[i];  // rows are 16-byte aligned: ND even, 8-byte digits
+    x[i] = ((uint32_t)d.x & 0xFFFFu) | ((uint32_t)d.y << 16);
+  }
+}
+
+template <int L>
+__device__ __forceinline__ void store_digits(long long* __restrict__ dst,
+                                             const uint32_t (&x)[L]) {
+  longlong2* d2 = reinterpret_cast<longlong2*>(dst);
+#pragma unroll
+  for (int i = 0; i < L; i++) {
+    longlong2 d;
+    d.x = (long long)(x[i] & 0xFFFFu);
+    d.y = (long long)(x[i] >> 16);
+    d2[i] = d;
+  }
+}
+
+// r = a + b, returns the carry out of the top limb.
+template <int L>
+__device__ __forceinline__ uint32_t add_limbs(const uint32_t (&a)[L],
+                                              const uint32_t (&b)[L],
+                                              uint32_t (&r)[L]) {
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < L; i++) {
+    c += (uint64_t)a[i] + b[i];
+    r[i] = (uint32_t)c;
+    c >>= 32;
+  }
+  return (uint32_t)c;
+}
+
+// r = a - b, returns the borrow out of the top limb (1 where b > a).
+template <int L>
+__device__ __forceinline__ uint32_t sub_limbs(const uint32_t (&a)[L],
+                                              const uint32_t (&b)[L],
+                                              uint32_t (&r)[L]) {
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < L; i++) {
+    uint64_t d = (uint64_t)a[i] - b[i] - borrow;
+    r[i] = (uint32_t)d;
+    borrow = (uint32_t)(d >> 63);
+  }
+  return borrow;
+}
+
+// x in [0, 2p) given as L limbs plus a top bit -> x mod p.
+template <int L>
+__device__ __forceinline__ void cond_sub_p(uint32_t (&x)[L], uint32_t top,
+                                           const uint32_t (&p)[L]) {
+  uint32_t d[L];
+  uint32_t borrow = sub_limbs<L>(x, p, d);
+  // x >= p  <=>  the subtraction over L limbs plus the top bit does not
+  // go negative
+  bool ge = top >= borrow;
+#pragma unroll
+  for (int i = 0; i < L; i++) x[i] = ge ? d[i] : x[i];
+}
+
+template <int L>
+__device__ __forceinline__ void add_mod(const uint32_t (&a)[L],
+                                        const uint32_t (&b)[L],
+                                        const uint32_t (&p)[L],
+                                        uint32_t (&r)[L]) {
+  uint32_t top = add_limbs<L>(a, b, r);
+  cond_sub_p<L>(r, top, p);
+}
+
+template <int L>
+__device__ __forceinline__ void sub_mod(const uint32_t (&a)[L],
+                                        const uint32_t (&b)[L],
+                                        const uint32_t (&p)[L],
+                                        uint32_t (&r)[L]) {
+  uint32_t borrow = sub_limbs<L>(a, b, r);
+  uint32_t fixed[L];
+  add_limbs<L>(r, p, fixed);  // wraps mod 2^(32L), as wanted
+#pragma unroll
+  for (int i = 0; i < L; i++) r[i] = borrow ? fixed[i] : r[i];
+}
+
+template <int L>
+__device__ __forceinline__ bool is_zero(const uint32_t (&a)[L]) {
+  uint32_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < L; i++) acc |= a[i];
+  return acc == 0;
+}
+
+template <int L>
+__device__ __forceinline__ bool is_one(const uint32_t (&a)[L]) {
+  uint32_t acc = a[0] ^ 1u;
+#pragma unroll
+  for (int i = 1; i < L; i++) acc |= a[i];
+  return acc == 0;
+}
+
+// Montgomery product a*b*R^-1 mod p, R = 2^(32L), by coarsely integrated
+// operand scanning (CIOS): for each limb of b, one row of the product and
+// one row of the reduction, carried in 64-bit accumulators.  The result is
+// canonical (< p) whenever a*b < R*p, i.e. one operand may be any value
+// below R as long as the other is below p.
+template <int L>
+__device__ __forceinline__ void mont_mul(const uint32_t (&a)[L],
+                                         const uint32_t (&b)[L],
+                                         const uint32_t (&p)[L], uint32_t inv,
+                                         uint32_t (&r)[L]) {
+  uint32_t t[L + 2];
+#pragma unroll
+  for (int i = 0; i < L + 2; i++) t[i] = 0;
+
+#pragma unroll
+  for (int i = 0; i < L; i++) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < L; j++) {
+      uint64_t s = (uint64_t)a[j] * b[i] + t[j] + c;
+      t[j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    uint64_t s = (uint64_t)t[L] + c;
+    t[L] = (uint32_t)s;
+    t[L + 1] = (uint32_t)(s >> 32);
+
+    uint32_t m = t[0] * inv;
+    s = (uint64_t)m * p[0] + t[0];
+    c = s >> 32;
+#pragma unroll
+    for (int j = 1; j < L; j++) {
+      s = (uint64_t)m * p[j] + t[j] + c;
+      t[j - 1] = (uint32_t)s;
+      c = s >> 32;
+    }
+    s = (uint64_t)t[L] + c;
+    t[L - 1] = (uint32_t)s;
+    t[L] = t[L + 1] + (uint32_t)(s >> 32);
+  }
+
+#pragma unroll
+  for (int i = 0; i < L; i++) r[i] = t[i];
+  cond_sub_p<L>(r, t[L], p);
+}
+
+// x >>= 1 with `top` shifted into the highest bit.
+template <int L>
+__device__ __forceinline__ void shr1(uint32_t (&x)[L], uint32_t top) {
+#pragma unroll
+  for (int i = 0; i < L - 1; i++) x[i] = (x[i] >> 1) | (x[i + 1] << 31);
+  x[L - 1] = (x[L - 1] >> 1) | (top << 31);
+}
+
+// w/2 mod p for w < p: w/2 if even, (w+p)/2 if odd.
+template <int L>
+__device__ __forceinline__ void half_mod(uint32_t (&w)[L],
+                                         const uint32_t (&p)[L]) {
+  uint32_t top = 0;
+  if (w[0] & 1u) {
+    uint32_t s[L];
+    top = add_limbs<L>(w, p, s);
+#pragma unroll
+    for (int i = 0; i < L; i++) w[i] = s[i];
+  }
+  shr1<L>(w, top);
+}
+
+}  // namespace gl

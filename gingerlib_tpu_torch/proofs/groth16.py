@@ -1,0 +1,304 @@
+"""Groth16 zk-SNARK: setup and prove on the device.
+
+Counterpart of ``gingerlib_tpu/proofs/groth16.py`` and the same dataflow:
+the generator's scalar bookkeeping (Lagrange coefficients at the toxic
+point, per-variable QAP accumulation, query scalars) is exact host python-int
+arithmetic; the device does batched fixed-base scalar multiplication, the
+seven-FFT witness map, the variable-base MSMs and the assembly.  Randomness
+(alpha..delta, t, r, s) enters as explicit python ints, so proofs are
+reproducible.
+
+Batching: in eager PyTorch a 768-step double-and-add loop takes about the
+same wall time for one lane as for thousands, so independent lanes of one
+group share a loop.  Setup runs one loop over G1 (all five queries and the
+three single elements) and one over G2; the prover runs one loop over G1
+(four MSMs and three multiples of delta), one over G2, and a second,
+two-lane loop over G1 for s*A + r*B1.  The results are those of the JAX
+package's one-after-another calls.
+
+Verification needs the pairing, which is not ported yet: ``verify_proof``
+raises, and ``VerifyingKey.alpha_g1_beta_g2`` stays ``None``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..curves.instances import Engine
+from ..device import resolve_device
+from ..fields import fp as fpmod
+from ..ops import limbs
+from ..ops import msm as msm_mod
+from ..relations.r1cs import ConstraintSystem, CompiledR1CS, eval_matrix
+from . import groth16_host
+
+
+@dataclass
+class VerifyingKey:
+    alpha_g1_beta_g2: torch.Tensor | None   # GT element; None until the
+    #                                         pairing is ported
+    gamma_g2: tuple                         # G2 affine (x, y)
+    delta_g2: tuple
+    gamma_abc_g1: tuple                     # (xs, ys) [num_inputs, 1, nd]
+
+
+@dataclass
+class Parameters:
+    vk: VerifyingKey
+    alpha_g1: tuple       # affine (x, y), each [K, nd]
+    beta_g1: tuple
+    beta_g2: tuple
+    delta_g1: tuple
+    delta_g2: tuple
+    a_query: tuple        # (xs, ys, inf) over all variables
+    b_g1_query: tuple
+    b_g2_query: tuple
+    h_query: tuple        # length domain_size - 1
+    l_query: tuple        # aux variables only
+    num_inputs: int = 0
+    domain_size: int = 0
+
+
+@dataclass
+class Proof:
+    a: tuple  # G1 affine (x, y)
+    b: tuple  # G2 affine
+    c: tuple  # G1 affine
+
+
+def _engine_device(engine: Engine, device) -> torch.device:
+    device = resolve_device(device)
+    for g in (engine.g1, engine.g2):
+        if g.device != device:
+            raise ValueError(f"{g.name} lives on {g.device}, not on the "
+                             f"requested device {device}")
+    return device
+
+
+def _scalar_digits(fr, ks, device):
+    return torch.from_numpy(limbs.to_digits_batch(
+        [k % fr.modulus for k in ks], fr.n_digits)).to(device)
+
+
+# ---------------------------------------------------------------------------
+# setup
+# ---------------------------------------------------------------------------
+
+def _fixed_base_affine(curve, groups):
+    """[k]G, affine, for every scalar of every list in ``groups``: one
+    double-and-add loop and one shared inversion for all of them.  Returns
+    one (xs, ys, inf) per group, inf marking k == 0."""
+    fr = curve.scalar_field
+    ks = [k % fr.modulus for g in groups for k in g]
+    sd = _scalar_digits(fr, ks, curve.device)
+    pts = msm_mod.fixed_base_msm(curve, curve.generator_affine, sd)
+    xs, ys = curve.to_affine(pts)
+    inf = torch.tensor([k == 0 for k in ks], dtype=torch.bool,
+                       device=curve.device)
+    sizes = [len(g) for g in groups]
+    return list(zip(xs.split(sizes), ys.split(sizes), inf.split(sizes)))
+
+
+def generate_parameters(engine: Engine, cs: ConstraintSystem,
+                        alpha: int, beta: int, gamma: int, delta: int,
+                        t: int, device=None) -> Parameters:
+    """CRS generation with explicit toxic waste."""
+    _engine_device(engine, device)
+    g1, g2 = engine.g1, engine.g2
+    p = g1.scalar_field.modulus
+    ni = cs.num_inputs
+
+    a, b, c, zt, m = groth16_host.qap_at(cs, t)
+    gamma_inv = pow(gamma, -1, p)
+    delta_inv = pow(delta, -1, p)
+    gamma_abc = [(beta * a[i] + alpha * b[i] + c[i]) * gamma_inv % p
+                 for i in range(ni)]
+    l = [(beta * a[i] + alpha * b[i] + c[i]) * delta_inv % p
+         for i in range(ni, cs.num_variables)]
+    h = []
+    ti = zt * delta_inv % p
+    for _ in range(m - 1):
+        h.append(ti)
+        ti = ti * t % p
+
+    a_q, b1_q, h_q, l_q, abc_q, single1 = _fixed_base_affine(
+        g1, [a, b, h, l, gamma_abc, [alpha, beta, delta]])
+    b2_q, single2 = _fixed_base_affine(g2, [b, [beta, gamma, delta]])
+
+    def pick(group, i):
+        return (group[0][i], group[1][i])
+
+    vk = VerifyingKey(
+        alpha_g1_beta_g2=None,
+        gamma_g2=pick(single2, 1),
+        delta_g2=pick(single2, 2),
+        gamma_abc_g1=(abc_q[0], abc_q[1]),
+    )
+    return Parameters(
+        vk=vk, alpha_g1=pick(single1, 0), beta_g1=pick(single1, 1),
+        beta_g2=pick(single2, 0), delta_g1=pick(single1, 2),
+        delta_g2=pick(single2, 2),
+        a_query=a_q, b_g1_query=b1_q, b_g2_query=b2_q,
+        h_query=h_q, l_query=l_q,
+        num_inputs=ni, domain_size=m,
+    )
+
+
+# ---------------------------------------------------------------------------
+# proving
+# ---------------------------------------------------------------------------
+
+def _blind(fr, d1: int, d2: int, d3: int, device):
+    if not (d1 or d2 or d3):
+        return None
+    return tuple(
+        torch.from_numpy(fpmod.fp_from_int(fr, v % fr.modulus)).to(device)
+        for v in (d1, d2, d3 + d1 * d2))
+
+
+def witness_map(compiled: CompiledR1CS, z, d1: int = 0, d2: int = 0,
+                d3: int = 0):
+    """QAP witness map -> h coefficients [m-1, nd], Montgomery
+    (d1 = d2 = d3 = 0 in an ordinary proof)."""
+    return _witness_map_core(
+        compiled, z, _blind(compiled.field, d1, d2, d3, z.device))
+
+
+def _witness_map_core(compiled: CompiledR1CS, z, blind):
+    """blind: None or (d1, d2, d3 + d1*d2) as Montgomery tensors;
+    h_extra(x) = d2*a(x) + d1*b(x) - (d3 + d1*d2)."""
+    fr = compiled.field
+    domain = compiled.domain()
+    m = domain.size
+    nc = compiled.num_constraints
+    ni = compiled.num_inputs
+
+    a_ev = eval_matrix(fr, compiled.a, z)   # [m, nd]
+    b_ev = eval_matrix(fr, compiled.b, z)
+    a_ev[nc:nc + ni] = z[:ni]               # input consistency rows
+
+    a_poly = domain.ifft(a_ev)
+    b_poly = domain.ifft(b_ev)
+    ab = domain.mul_in_evaluation_domain(domain.coset_fft(a_poly),
+                                         domain.coset_fft(b_poly))
+
+    c_cos = domain.coset_fft(domain.ifft(eval_matrix(fr, compiled.c, z)))
+    ab = fpmod.sub_mod(fr, ab, c_cos)
+    ab = domain.divide_by_vanishing_poly_on_coset(ab)
+    h = domain.coset_ifft(ab)  # [m, nd]; the top coefficient is zero
+
+    if blind is not None:
+        d1d, d2d, corr = blind
+        extra = fpmod.add_mod(fr, fpmod.mont_mul(fr, a_poly, d2d),
+                              fpmod.mont_mul(fr, b_poly, d1d))
+        extra[0] = fpmod.sub_mod(fr, extra[0], corr)
+        h = fpmod.add_mod(fr, h, extra)
+    return h[:m - 1]
+
+
+def create_proof(engine: Engine, params: Parameters,
+                 compiled: CompiledR1CS, assignment, r: int, s: int,
+                 d1: int = 0, d2: int = 0, d3: int = 0,
+                 device=None) -> Proof:
+    """assignment: the full value list (python ints) or a Montgomery tensor
+    [nvars, nd] on the device.  r, s: blinding scalars (ints; pin them for a
+    reproducible proof)."""
+    device = _engine_device(engine, device)
+    if compiled.device != device:
+        raise ValueError(f"compiled circuit lives on {compiled.device}, "
+                         f"not on {device}")
+    fr = engine.g1.scalar_field
+    if isinstance(assignment, (list, tuple)):
+        z = torch.from_numpy(fpmod.fp_from_ints(fr, assignment)).to(device)
+    else:
+        z = assignment
+    rd, sd, rsd = _scalar_digits(fr, [r, s, r * s], device).split(1)
+    a, b, c = _create_proof_device(engine, compiled, params, z, rd, sd, rsd,
+                                   _blind(fr, d1, d2, d3, device))
+    return Proof(a=a, b=b, c=c)
+
+
+def _create_proof_device(engine, compiled, params: Parameters, z, rd, sd,
+                         rsd, blind):
+    g1, g2 = engine.g1, engine.g2
+    fr = g1.scalar_field
+    ni = compiled.num_inputs
+
+    h = _witness_map_core(compiled, z, blind)
+
+    # scalars to standard form for the MSMs
+    z_std = fpmod.from_mont(fr, z)
+    h_std = fpmod.from_mont(fr, h)
+    aux_std = z_std[ni:]
+
+    def job(query, scalars):
+        xs, ys, inf = query
+        return (xs, ys, scalars, inf)
+
+    def single(affine, kd):
+        return (affine[0][None], affine[1][None], kd, None)
+
+    # G1: a, b1, l, h queries and the three multiples of delta, one loop
+    a_acc, b1_acc, l_acc, h_acc, r_delta, s_delta, rs_delta = \
+        msm_mod.msm_batched(g1, [
+            job(params.a_query, z_std), job(params.b_g1_query, z_std),
+            job(params.l_query, aux_std), job(params.h_query, h_std),
+            single(params.delta_g1, rd), single(params.delta_g1, sd),
+            single(params.delta_g1, rsd)])
+    # G2: b2 query and s*delta, one loop
+    b2_acc, s_delta2 = msm_mod.msm_batched(g2, [
+        job(params.b_g2_query, z_std), single(params.delta_g2, sd)])
+
+    g_a = g1.add_mixed(g1.add(a_acc, r_delta), params.alpha_g1)
+    g1_b = g1.add_mixed(g1.add(b1_acc, s_delta), params.beta_g1)
+    g2_b = g2.add_mixed(g2.add(b2_acc, s_delta2), params.beta_g2)
+
+    # s*A + r*B1: two lanes, one loop
+    pair = tuple(torch.stack([u, v]) for u, v in zip(g_a, g1_b))
+    prod = g1.mul_scalar_digits(pair, torch.cat([sd, rd], dim=0))
+    s_ga = tuple(c[0] for c in prod)
+    r_g1b = tuple(c[1] for c in prod)
+    g_c = g1.add(s_ga, r_g1b)
+    g_c = g1.add(g_c, g1.neg(rs_delta))
+    g_c = g1.add(g_c, l_acc)
+    g_c = g1.add(g_c, h_acc)
+
+    # A and C share one inversion
+    xs, ys = g1.to_affine(tuple(torch.stack([u, v])
+                                for u, v in zip(g_a, g_c)))
+    return (xs[0], ys[0]), g2.to_affine(g2_b), (xs[1], ys[1])
+
+
+# ---------------------------------------------------------------------------
+# verification
+# ---------------------------------------------------------------------------
+
+def verify_proof(engine: Engine, vk: VerifyingKey, proof: Proof,
+                 public_inputs) -> bool:
+    raise NotImplementedError(
+        "verify_proof needs the MNT4 pairing (Fq4 tower, Miller loop, final "
+        "exponentiation), which arrives with the pairing slice of the port; "
+        "until then hold proofs against proofs.groth16_host.expected_proof")
+
+
+# ---------------------------------------------------------------------------
+# host views
+# ---------------------------------------------------------------------------
+
+def affine_to_ints(curve, xy):
+    """Device affine point (x, y) [K, nd] -> ([x comps], [y comps]) in
+    standard form, or None for the (0, 0) encoding of infinity."""
+    x = fpmod.fp_to_ints(curve.fp, xy[0])
+    y = fpmod.fp_to_ints(curve.fp, xy[1])
+    if not any(x) and not any(y):
+        return None
+    return (x, y)
+
+
+def proof_to_ints(engine: Engine, proof: Proof) -> dict:
+    """The proof in the host oracle's form."""
+    return {"a": affine_to_ints(engine.g1, proof.a),
+            "b": affine_to_ints(engine.g2, proof.b),
+            "c": affine_to_ints(engine.g1, proof.c)}

@@ -1,0 +1,214 @@
+"""Python-int Groth16 oracle: what a proof must be, computed in closed form
+from the toxic waste.
+
+Independent of all tensor code.  With the setup secrets known, a proof is
+three scalar multiplications:
+
+    A = [alpha + a(t) + r*delta] G1
+    B = [beta  + b(t) + s*delta] G2
+    C = [sum_aux z_i*(beta*a_i + alpha*b_i + c_i)(t)/delta
+         + h(t)*Z(t)/delta + s*A_s + r*B_s - r*s*delta] G1
+
+with a(t) = sum_i z_i a_i(t) (likewise b, c), h(t) = (a(t) b(t) - c(t))/Z(t),
+and A_s, B_s the scalars of A and B.  This is what the device proof is held
+against, coordinate for coordinate, at sizes where a python-int prover with
+its six MSMs would take far too long.
+
+Also here: the host half of setup (Lagrange coefficients and per-variable
+QAP evaluations at the toxic point), shared with ``proofs/groth16.py``, and
+affine curve arithmetic over Fq and Fq2 in python ints.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from .. import params as PP
+from ..params._gen import curves_gen as CG, towers_gen as TG
+
+
+# ---------------------------------------------------------------------------
+# Fq / Fq2 elements as lists of ints (length 1 or 2), and affine EC on them
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class HostField:
+    p: int
+    nr: int | None = None   # X^2 = nr for the quadratic extension; None: Fq
+
+    def mul(self, a, b):
+        p = self.p
+        if self.nr is None:
+            return [a[0] * b[0] % p]
+        return [(a[0] * b[0] + self.nr * a[1] * b[1]) % p,
+                (a[0] * b[1] + a[1] * b[0]) % p]
+
+    def inv(self, a):
+        p = self.p
+        if self.nr is None:
+            return [pow(a[0], -1, p)]
+        n = pow((a[0] * a[0] - self.nr * a[1] * a[1]) % p, -1, p)
+        return [a[0] * n % p, -a[1] * n % p]
+
+    def sub(self, a, b):
+        return [(x - y) % self.p for x, y in zip(a, b)]
+
+
+@dataclass(frozen=True)
+class HostCurve:
+    """y^2 = x^3 + a x + b over ``F``; points are (x, y) of component lists,
+    None is infinity."""
+    F: HostField
+    a: tuple
+    gen: tuple
+
+    def double(self, P):
+        if P is None:
+            return None
+        F, p = self.F, self.F.p
+        x, y = P
+        if all(v == 0 for v in y):
+            return None
+        num = [(3 * u + v) % p for u, v in zip(F.mul(x, x), self.a)]
+        lam = F.mul(num, F.inv([2 * u % p for u in y]))
+        x3 = F.sub(F.sub(F.mul(lam, lam), x), x)
+        y3 = F.sub(F.mul(lam, F.sub(x, x3)), y)
+        return (x3, y3)
+
+    def add(self, P, Q):
+        if P is None:
+            return Q
+        if Q is None:
+            return P
+        F, p = self.F, self.F.p
+        if P[0] == Q[0]:
+            if all((u + v) % p == 0 for u, v in zip(P[1], Q[1])):
+                return None
+            return self.double(P)
+        lam = F.mul(F.sub(Q[1], P[1]), F.inv(F.sub(Q[0], P[0])))
+        x3 = F.sub(F.sub(F.mul(lam, lam), P[0]), Q[0])
+        y3 = F.sub(F.mul(lam, F.sub(P[0], x3)), P[1])
+        return (x3, y3)
+
+    def mul(self, P, k: int):
+        acc = None
+        for bit in bin(k)[2:] if k else "":
+            acc = self.double(acc)
+            if bit == "1":
+                acc = self.add(acc, P)
+        return acc
+
+    def neg(self, P):
+        if P is None:
+            return None
+        return (P[0], [(-v) % self.F.p for v in P[1]])
+
+
+_FAMILIES = {
+    "mnt4753": (CG.MNT4753, TG.MNT4753_FQ2, PP.MNT4753_FQ, PP.MNT4753_FR),
+    "bls12_377": (CG.BLS12_377, TG.BLS12_377_FQ2, PP.BLS12_377_FQ,
+                  PP.BLS12_377_FR),
+}
+
+
+def host_curves(family: str):
+    """(G1 curve, G2 curve, Fr parameters) of ``family`` in python ints."""
+    c, tw, fq, fr = _FAMILIES[family]
+    p = fq.modulus
+    g1 = HostCurve(HostField(p), (c["a"] % p,),
+                   ([c["g1_x"]], [c["g1_y"]]))
+    g2 = HostCurve(HostField(p, tw["nonresidue"] % p),
+                   tuple(v % p for v in c["g2_a"]),
+                   (list(c["g2_x"]), list(c["g2_y"])))
+    return g1, g2, fr
+
+
+# ---------------------------------------------------------------------------
+# host half of setup
+# ---------------------------------------------------------------------------
+
+def domain_generator(fr, m: int) -> int:
+    lg = m.bit_length() - 1
+    return pow(fr.root_of_unity, 1 << (fr.two_adicity - lg), fr.modulus)
+
+
+def lagrange_at(fr, m: int, gen: int, t: int):
+    """(l_i(t) for i < m, Z(t)) as python ints, one modular inverse in all:
+    l_i(t) = Z(t) * w^i / (m * (t - w^i))."""
+    p = fr.modulus
+    zt = (pow(t, m, p) - 1) % p
+    denoms = []
+    w = 1
+    for _ in range(m):
+        denoms.append((t - w) % p)
+        w = w * gen % p
+    prefix = [1] * (m + 1)
+    for i in range(m):
+        prefix[i + 1] = prefix[i] * denoms[i] % p
+    inv_all = pow(prefix[m], -1, p)
+    invs = [0] * m
+    for i in range(m - 1, -1, -1):
+        invs[i] = inv_all * prefix[i] % p
+        inv_all = inv_all * denoms[i] % p
+    m_inv = pow(m, -1, p)
+    out = []
+    w = 1
+    for i in range(m):
+        out.append(zt * m_inv % p * w % p * invs[i] % p)
+        w = w * gen % p
+    return out, zt
+
+
+def qap_at(cs, t: int):
+    """Per-variable QAP evaluations a_i(t), b_i(t), c_i(t), the vanishing
+    value Z(t) and the domain size m for constraint system ``cs``."""
+    fr = cs.field
+    p = fr.modulus
+    raw = cs.num_constraints + cs.num_inputs
+    m = 1 << max(0, (raw - 1).bit_length())
+    if pow(t, m, p) == 1:
+        raise ValueError("t lies in the evaluation domain")
+    u, zt = lagrange_at(fr, m, domain_generator(fr, m), t)
+    nvars = cs.num_variables
+    a = [0] * nvars
+    b = [0] * nvars
+    c = [0] * nvars
+    for i in range(cs.num_inputs):
+        a[i] = u[cs.num_constraints + i]
+    for i in range(cs.num_constraints):
+        for v, k in cs.at[i]:
+            a[v] = (a[v] + u[i] * k) % p
+        for v, k in cs.bt[i]:
+            b[v] = (b[v] + u[i] * k) % p
+        for v, k in cs.ct[i]:
+            c[v] = (c[v] + u[i] * k) % p
+    return a, b, c, zt, m
+
+
+# ---------------------------------------------------------------------------
+# the oracle
+# ---------------------------------------------------------------------------
+
+def expected_proof(family: str, cs, alpha: int, beta: int, gamma: int,
+                   delta: int, t: int, r: int, s: int) -> dict:
+    """The Groth16 proof of ``cs``'s assignment under the given toxic waste
+    and blinding scalars: {"a": G1, "b": G2, "c": G1}, each an affine (x, y)
+    of component lists in standard form.  ``gamma`` does not enter a proof
+    and is taken only so that the call mirrors setup."""
+    g1, g2, fr = host_curves(family)
+    p = fr.modulus
+    a, b, c, zt, _ = qap_at(cs, t)
+    z = cs.assignment()
+    ni = cs.num_inputs
+    dot = lambda q: sum(x * y for x, y in zip(z, q)) % p
+    a_t, b_t, c_t = dot(a), dot(b), dot(c)
+    d_inv = pow(delta, -1, p)
+    h_t = (a_t * b_t - c_t) * pow(zt, -1, p) % p
+    a_s = (alpha + a_t + r * delta) % p
+    b_s = (beta + b_t + s * delta) % p
+    l_acc = sum(z[i] * (beta * a[i] + alpha * b[i] + c[i])
+                for i in range(ni, len(z))) % p * d_inv % p
+    c_s = (l_acc + h_t * zt % p * d_inv + s * a_s + r * b_s
+           - r * s % p * delta) % p
+    return {"a": g1.mul(g1.gen, a_s), "b": g2.mul(g2.gen, b_s),
+            "c": g1.mul(g1.gen, c_s)}

@@ -1,0 +1,113 @@
+"""Carrying proving keys and compiled circuits across from other
+representations into the port's tensors.
+
+Takes numpy arrays and python ints only.  Two sources are understood:
+
+* array form: a parameters object whose points are digit arrays
+  ``[..., K, nd]`` in Montgomery form (any integer dtype; the JAX package's
+  ``groth16.Parameters`` after ``np.asarray``) -- a cast and an upload;
+* host form: python-int affine points ``([x comps], [y comps])`` or ``None``
+  for infinity (the JAX package's ``HostParams``) -- converted to Montgomery
+  digits here.
+
+Both are read by attribute name, so nothing of the other package is
+imported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..fields import fp as fpmod
+from ..ops.limbs import NP_DTYPE
+from ..proofs.groth16 import Parameters, VerifyingKey
+from ..relations.r1cs import CompiledR1CS, CooMatrix
+
+_SINGLES = ("alpha_g1", "beta_g1", "beta_g2", "delta_g1", "delta_g2")
+_QUERIES = ("a_query", "b_g1_query", "b_g2_query", "h_query", "l_query")
+
+
+def _upload(arr, device, dtype=NP_DTYPE):
+    return torch.from_numpy(np.ascontiguousarray(
+        np.asarray(arr).astype(dtype))).to(device)
+
+
+def _host_points(curve, pts, device):
+    """List of host affine points (or None) -> (xs, ys, inf) tensors."""
+    K = curve.F.K
+    flat_x, flat_y, inf = [], [], []
+    for pt in pts:
+        inf.append(pt is None)
+        x, y = pt if pt is not None else ([0] * K, [0] * K)
+        flat_x.extend(x)
+        flat_y.extend(y)
+    shape = (len(pts), K, curve.fp.n_digits)
+    xs = fpmod.fp_from_ints(curve.fp, flat_x).reshape(shape)
+    ys = fpmod.fp_from_ints(curve.fp, flat_y).reshape(shape)
+    return (_upload(xs, device), _upload(ys, device),
+            torch.tensor(inf, dtype=torch.bool, device=device))
+
+
+def params_from_numpy(engine, src, device=None) -> Parameters:
+    """Proving key ``src`` (array form or host form, see the module
+    docstring) -> the port's ``Parameters`` on ``device``."""
+    device = resolve_device(device)
+
+    def curve_of(name):
+        return engine.g2 if "g2" in name else engine.g1
+
+    host_form = isinstance(getattr(src, "a_query"), list)
+    out = {}
+    if host_form:
+        for name in _SINGLES:
+            xs, ys, _ = _host_points(curve_of(name), [getattr(src, name)],
+                                     device)
+            out[name] = (xs[0], ys[0])
+        for name in _QUERIES:
+            out[name] = _host_points(curve_of(name), getattr(src, name),
+                                     device)
+        vk_src = src.vk
+        gx, gy, _ = _host_points(engine.g2, [vk_src["gamma_g2"],
+                                             vk_src["delta_g2"]], device)
+        abc = _host_points(engine.g1, vk_src["gamma_abc"], device)
+        vk = VerifyingKey(alpha_g1_beta_g2=None,
+                          gamma_g2=(gx[0], gy[0]), delta_g2=(gx[1], gy[1]),
+                          gamma_abc_g1=(abc[0], abc[1]))
+    else:
+        for name in _SINGLES:
+            x, y = getattr(src, name)
+            out[name] = (_upload(x, device), _upload(y, device))
+        for name in _QUERIES:
+            xs, ys, inf = getattr(src, name)
+            out[name] = (_upload(xs, device), _upload(ys, device),
+                         _upload(inf, device, np.bool_))
+        v = src.vk
+        vk = VerifyingKey(
+            alpha_g1_beta_g2=None,
+            gamma_g2=tuple(_upload(c, device) for c in v.gamma_g2),
+            delta_g2=tuple(_upload(c, device) for c in v.delta_g2),
+            gamma_abc_g1=tuple(_upload(c, device) for c in v.gamma_abc_g1))
+    return Parameters(vk=vk, num_inputs=int(src.num_inputs),
+                      domain_size=int(src.domain_size), **out)
+
+
+def compiled_from_numpy(field, src, device=None) -> CompiledR1CS:
+    """A compiled R1CS whose COO matrices are numpy arrays (the JAX
+    package's ``CompiledR1CS``) -> the port's, on ``device``.  ``field`` is
+    the port's own ``FpParams`` of the scalar field."""
+    device = resolve_device(device)
+
+    def coo(m):
+        return CooMatrix(rows=_upload(m.rows, device),
+                         cols=_upload(m.cols, device),
+                         coeffs=_upload(m.coeffs, device),
+                         num_rows=int(m.num_rows),
+                         max_row_nnz=int(m.max_row_nnz))
+
+    return CompiledR1CS(field=field, num_inputs=int(src.num_inputs),
+                        num_aux=int(src.num_aux),
+                        num_constraints=int(src.num_constraints),
+                        domain_size=int(src.domain_size),
+                        a=coo(src.a), b=coo(src.b), c=coo(src.c))

@@ -1,0 +1,105 @@
+"""The port stands alone and keeps its device rule.
+
+* No module of ``gingerlib_tpu_torch`` and not ``chip_smoke.py`` imports
+  ``jax``, ``gingerlib_tpu`` or anything outside the package by a relative
+  import.  Checked on the syntax trees (what is in ``sys.modules`` says
+  nothing: an interpreter start-up hook may have imported jax already).
+* ``device=None`` means the GPU: on a machine without one, every entry point
+  raises instead of running on the CPU.
+"""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "gingerlib_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "gingerlib_tpu", "flax", "optax"}
+
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def imports_of(path: pathlib.Path):
+    """(top-level module name or None, relative level, line) per import."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], 0, node.lineno
+        elif isinstance(node, ast.ImportFrom):
+            top = node.module.split(".")[0] if node.module else None
+            yield top, node.level, node.lineno
+
+
+def test_sources_found():
+    names = {p.name for p in SOURCES}
+    assert {"fp.py", "sw.py", "groth16.py", "chip_smoke.py"} <= names
+
+
+@pytest.mark.parametrize(
+    "path", SOURCES, ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_no_import_of_jax_or_the_jax_package(path):
+    depth = len(path.relative_to(ROOT).parts) - 1   # packages above the file
+    for top, level, line in imports_of(path):
+        if level == 0:
+            assert top not in FORBIDDEN, f"{path}:{line} imports {top}"
+        else:
+            # a relative import may climb to the package root, not past it
+            assert path != ROOT / "chip_smoke.py" and level <= depth, \
+                f"{path}:{line} leaves the package"
+
+
+def _cpu_case():
+    from gingerlib_tpu_torch import params as TP
+    from gingerlib_tpu_torch.circuits import benchmark_circuit
+    from gingerlib_tpu_torch.curves import instances as CI
+    cs, _ = benchmark_circuit(TP.BLS12_377_FR, 1, 1)
+    return CI.bls12_377_engine("cpu"), cs
+
+
+ENTRY_POINTS = ["compile_r1cs", "Domain", "mnt4753_g1", "mnt4753_g2",
+                "bls12_377_g1", "mnt4753_engine", "generate_parameters",
+                "create_proof", "params_from_numpy", "compiled_from_numpy"]
+
+
+@pytest.mark.parametrize("entry", ENTRY_POINTS)
+def test_device_none_raises_without_a_gpu(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from gingerlib_tpu_torch import params as TP
+    from gingerlib_tpu_torch.curves import instances as CI
+    from gingerlib_tpu_torch.ops.fft import Domain
+    from gingerlib_tpu_torch.proofs import groth16
+    from gingerlib_tpu_torch.relations.r1cs import compile_r1cs
+    from gingerlib_tpu_torch.utils import convert
+    eng, cs = _cpu_case()
+    toxic = dict(alpha=2, beta=3, gamma=5, delta=7, t=11)
+    calls = {
+        "compile_r1cs": lambda: compile_r1cs(cs),
+        "Domain": lambda: Domain(TP.BLS12_377_FR, 8),
+        "mnt4753_g1": CI.mnt4753_g1,
+        "mnt4753_g2": CI.mnt4753_g2,
+        "bls12_377_g1": CI.bls12_377_g1,
+        "mnt4753_engine": CI.mnt4753_engine,
+        "generate_parameters":
+            lambda: groth16.generate_parameters(eng, cs, **toxic),
+        # params and compiled are not reached: the device is resolved first
+        "create_proof": lambda: groth16.create_proof(
+            eng, None, compile_r1cs(cs, device="cpu"), cs.assignment(),
+            r=1, s=2),
+        "params_from_numpy": lambda: convert.params_from_numpy(eng, None),
+        "compiled_from_numpy":
+            lambda: convert.compiled_from_numpy(TP.BLS12_377_FR, None),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
+
+
+def test_engine_on_another_device_is_refused():
+    from gingerlib_tpu_torch.proofs import groth16
+    eng, cs = _cpu_case()
+    with pytest.raises(ValueError, match="requested device"):
+        groth16.generate_parameters(eng, cs, alpha=2, beta=3, gamma=5,
+                                    delta=7, t=11, device="meta")
