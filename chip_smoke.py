@@ -8,18 +8,29 @@ What it does, in order (any failure raises, so the exit code is non-zero):
 1. requires a CUDA device, prints its name and power limit, and builds the
    CUDA kernels of ``gingerlib_tpu_torch/csrc`` from source;
 2. holds every kernel against its plain PyTorch version on the device, at the
-   shapes the proving path gives it, with exact equality (integer arithmetic:
-   tolerance 0), and times both with CUDA events;
-3. drives the port's main path through its public entry points: Groth16 over
-   MNT4-753 on the chained-multiplication benchmark circuit, first a small
-   rung (2^6 constraints), then the headline size (2^10 constraints, 4
-   inputs): ``compile_r1cs`` -> ``generate_parameters`` -> ``create_proof``
-   with pinned toxic waste and blinding;
-4. checks the result: the device proof equals the closed-form python-int
+   shapes each proving path below gives it, with exact equality (integer
+   arithmetic: tolerance 0), and times both with CUDA events: the field
+   kernels (multiply, add/sub/neg, binary-Euclid inverse) at the 2^10 rung's
+   shapes and at the 2^16 rung's (2^17-row FFT passes, the setup loops'
+   327,697 G1 lanes and 65,544 Fq2 lanes), and the curve kernels (projective
+   addition, affine addition before and after its shared inversion, one
+   level of the inversion's up and down sweeps) on real curve points with
+   every special lane mixed in;
+3. holds the Pippenger MSMs (``msm_hybrid`` on G1 at two cutoffs,
+   ``msm_affine`` on G2) against ``msm_naive`` at 2^12 points, and times one
+   2^16-point MSM of each (``msm`` line; G1 at three cutoffs);
+4. drives the port's main path through its public entry points: Groth16 over
+   MNT4-753 on the chained-multiplication benchmark circuit at 2^6, 2^10 and
+   2^16 constraints (4 inputs): ``compile_r1cs`` -> ``generate_parameters``
+   -> ``create_proof`` with pinned toxic waste and blinding.  Below 2^12
+   points an MSM is a double-and-add loop; the 2^16 rung goes through the
+   Pippenger paths and the curve kernels;
+5. checks the result: each device proof equals the closed-form python-int
    oracle coordinate for coordinate, a repeat gives the same proof, a proof
-   with another ``s`` differs, and the launch counters show that the path
-   went through every kernel;
-5. prints the kernel table as one JSON line, and as the last line
+   with another ``s`` differs, and the launch counters, set to zero before
+   each rung, show that the 2^10 rung went through every field kernel and
+   the 2^16 rung through every curve kernel as well;
+6. prints the kernel table as one JSON line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Nothing here runs on the CPU except the python-int oracle.
@@ -67,7 +78,8 @@ def main():
     from gingerlib_tpu_torch.circuits import benchmark_circuit
     from gingerlib_tpu_torch.curves import instances as CI
     from gingerlib_tpu_torch.fields import fp
-    from gingerlib_tpu_torch.ops import cuda_lib, limbs
+    from gingerlib_tpu_torch.ops import cuda_lib, ec_kernels, limbs
+    from gingerlib_tpu_torch.ops import msm as msm_mod
     from gingerlib_tpu_torch.proofs import groth16, groth16_host
     from gingerlib_tpu_torch.relations.r1cs import compile_r1cs
 
@@ -82,6 +94,8 @@ def main():
     cuda_lib.build()
     print(f"built {len(cuda_lib.SOURCES)} kernel libraries with nvcc in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # registers, stack frame and spills of every kernel, as ptxas reports them
+    print("ptxas " + json.dumps(cuda_lib.resource_usage()), flush=True)
 
     # ------------------------------------------------------------------
     # 2. kernels against their plain versions, on the device
@@ -90,6 +104,10 @@ def main():
     nd, L = fq.n_digits, fq.n_digits // 2
     p, R = fq.modulus, 1 << (16 * fq.n_digits)
     gen = torch.Generator().manual_seed(2024)
+    eng = CI.mnt4753_engine()
+    fr = eng.g1.scalar_field
+    g1, g2 = eng.g1, eng.g2
+    MUL_OPS = (2 * L * L + L) * 2      # 32-bit integer operations a multiply
 
     def rand_elems(n, bound=p):
         """n uniform integers below ``bound`` as digits on the device."""
@@ -112,6 +130,14 @@ def main():
         e1.record()
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / reps
+
+    def bound(nbytes, nops):
+        """(bound_ms, bound_by): the larger of the bytes over the memory
+        rate and the 32-bit integer operations over their peak rate."""
+        by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        by_ops = nops / PEAK_INT32_OPS_PER_S * 1e3
+        return max(by_bytes, by_ops), \
+            "bytes" if by_bytes >= by_ops else "operations"
 
     def compare(name, got, want):
         torch.cuda.synchronize()
@@ -221,10 +247,123 @@ def main():
     # figure where it matters (the large-batch line below).
     elem_bytes = nd * 2
     layout_bytes = nd * 8
+
+    # The same five at the shapes the 2^16-constraint rung gives them: its
+    # setup runs one double-and-add loop over 327,697 G1 lanes and one over
+    # 65,544 Fq2 lanes, its witness map FFT passes over 2^17 rows.  (The
+    # inverse is only ever called on one element, on either path.)
+    G1_LOOP_LANES, G2_LOOP_LANES = 327697, 65544
+    field_ops = {
+        # name: (kernel, plain version, 32-bit integer operations an element)
+        "mont_mul": (lambda a, b: fp.mont_mul(fq, a, b),
+                     lambda a, b: fp.mont_mul_plain(fq, a, b), MUL_OPS),
+        "fp_add": (lambda a, b: fp.add_mod(fq, a, b),
+                   lambda a, b: fp.add_mod_plain(fq, a, b), 2 * L),
+        "fp_sub": (lambda a, b: fp.sub_mod(fq, a, b),
+                   lambda a, b: fp.sub_mod_plain(fq, a, b), 2 * L),
+        "fp_neg": (lambda a, b: fp.neg_mod(fq, a),
+                   lambda a, b: fp.neg_mod_plain(fq, a), L),
+    }
+
+    def field_kernels_at_2p16_shapes():
+        """Returns ({kernel: max error over the cases}, the timed cases as
+        rows, {kernel: its row at the G1 loop's shape}).  A function so that
+        its gigabytes die with it."""
+        def elems(rows):
+            """Uniform digits with the top one zero: below 2^752 < p."""
+            raw = torch.randint(0, 1 << 16, (rows, nd), generator=gen,
+                                dtype=torch.int64)
+            raw[:, -1] = 0
+            out = raw.to(dev)
+            out[:3] = digits(edge)
+            return out
+
+        def plain_by_chunks(plain, a, b, rows=1 << 15):
+            """The plain version over chunks of rows: it is elementwise, and
+            its temporaries are a hundred times its operands."""
+            if b is None:
+                shape, fa = a.shape, a.reshape(-1, nd)
+                fb = fa
+            else:
+                a_e, b_e = torch.broadcast_tensors(a, b)
+                shape = a_e.shape
+                fa, fb = a_e.reshape(-1, nd), b_e.reshape(-1, nd)
+            return torch.cat([plain(fa[i:i + rows], fb[i:i + rows])
+                              for i in range(0, fa.shape[0], rows)]
+                             ).reshape(shape)
+
+        n17 = 1 << 17
+        x17, y17 = elems(n17), elems(n17)
+        cases = [("[2^17,48] dense", name, x17,
+                  None if name == "fp_neg" else y17, True)
+                 for name in field_ops]
+        twiddles = y17[:n17 // 2]
+        for h in (1, 1 << 8, 1 << 16):      # first, a middle and last pass
+            y = x17.reshape(n17 // (2 * h), 2, h, nd)
+            E, O = y[:, 0], y[:, 1]
+            t = y17[n17 // 2:].reshape(O.shape)
+            cases += [
+                (f"fft pass, half-length {h}: odd half x twiddles",
+                 "mont_mul", O, twiddles[0:n17 // 2:n17 // (2 * h)], False),
+                (f"fft pass, half-length {h}: even half + t", "fp_add", E, t,
+                 False),
+                (f"fft pass, half-length {h}: even half - t", "fp_sub", E, t,
+                 False)]
+        a1 = elems(G1_LOOP_LANES).reshape(-1, 1, nd)
+        b1 = elems(G1_LOOP_LANES).reshape(-1, 1, nd)
+        cases += [(f"g1 loop [{G1_LOOP_LANES},1,48]", name, a1,
+                   None if name == "fp_neg" else b1, True)
+                  for name in field_ops]
+        cases.append((f"g1 loop [{G1_LOOP_LANES},1,48] x the curve's a",
+                      "mont_mul", a1, g1.a, True))
+        q = elems(G2_LOOP_LANES * 3).reshape(-1, 3, nd)
+        r = elems(G2_LOOP_LANES * 3).reshape(-1, 3, nd)
+        fq2 = f"fq2 loop [{G2_LOOP_LANES},"
+        cases += [
+            (fq2 + "3,48] stacked Karatsuba products", "mont_mul", q, r, True),
+            (fq2 + "1,48] component views a0 + a1", "fp_add", q[:, 0:1],
+             q[:, 1:2], True),
+            (fq2 + "1,48] component views t - v0", "fp_sub", q[:, 2:3],
+             r[:, 0:1], True),
+            (fq2 + "1,48] component view x the non-residue", "mont_mul",
+             q[:, 1:2], g2.F.tensor("nonresidue", dev), False),
+            (fq2 + "2,48] two components of three", "fp_add", q[:, :2],
+             r[:, 1:], False),
+            (fq2 + "2,48] two components of three", "fp_sub", q[:, :2],
+             r[:, 1:], False),
+            (fq2 + "1,48] component view", "fp_neg", q[:, 1:2], None, True)]
+
+        errs16 = dict.fromkeys(field_ops, 0)
+        rows, at_g1 = [], {}
+        for label, name, a, b, timed_case in cases:
+            kern, plain, ops_each = field_ops[name]
+            got = kern(a, b)
+            err = compare(f"{name} {label}", got,
+                          plain_by_chunks(plain, a, b))
+            errs16[name] = max(errs16[name], err)
+            if not timed_case:
+                continue
+            n_in = a.numel() + (0 if b is None else b.numel())
+            n_out = got.numel() // nd
+            b_ms, b_by = bound((n_in // nd + n_out) * elem_bytes,
+                               n_out * ops_each)
+            row = {"name": name, "case": label, "rows": n_out,
+                   "max_abs_err": err, "ms": time_ms(lambda: kern(a, b), 20),
+                   "plain_ms": time_ms(
+                       lambda: plain_by_chunks(plain, a, b), 1),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            rows.append(row)
+            if label == f"g1 loop [{G1_LOOP_LANES},1,48]":
+                at_g1[name] = row
+        return errs16, rows, at_g1
+
+    errs16, field_rows, at_g1 = field_kernels_at_2p16_shapes()
+    print("field_kernel_shapes " + json.dumps(field_rows), flush=True)
+
     halv, subs = bea_steps(limbs.from_digits(inv_one[0]))
     work = {
         # name: (bytes moved, 32-bit integer operations)
-        "mont_mul": (3 * N * elem_bytes, N * (2 * L * L + L) * 2),
+        "mont_mul": (3 * N * elem_bytes, N * MUL_OPS),
         "fp_add": (3 * N * elem_bytes, N * 2 * L),
         "fp_sub": (3 * N * elem_bytes, N * 2 * L),
         "fp_neg": (2 * N * elem_bytes, N * L),
@@ -256,39 +395,41 @@ def main():
         "fp_neg": ("gingerlib_tpu_torch/csrc/fp_addsub.cu",
                    "gingerlib_tpu/fields/fp.py:181"),
     }
+    # ms, plain_ms and bound_ms: at the 2^10 path's shape ([2^11,48], one
+    # element for the inverse); at_2p16_shape: the same three at the 2^16
+    # path's G1-loop shape; max_abs_err: over every shape of both paths
     kernels = []
     for name, (kern, plain, reps, plain_reps) in timed.items():
-        nbytes, nops = work[name]
-        by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        by_ops = nops / PEAK_INT32_OPS_PER_S * 1e3
-        kernels.append({
+        b_ms, b_by = bound(*work[name])
+        row = {
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": 0,
-            "max_abs_err": errs[name],
+            "max_abs_err": max(errs[name], errs16.get(name, 0)),
             "ms": time_ms(kern, reps), "plain_ms": time_ms(plain, plain_reps),
-            "bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_ms": b_ms, "bound_by": b_by,
             # no single PyTorch call computes a 753-bit modular operation
             "library_ms": None,
-        })
+        }
+        at16 = at_g1.get(name) or dict(row, case="[1,48], as on the 2^10 path",
+                                       rows=1)
+        row["at_2p16_shape"] = {k: at16[k] for k in (
+            "case", "rows", "ms", "plain_ms", "bound_ms", "bound_by")}
+        kernels.append(row)
+    inv_bea_ms = kernels[-1]["ms"]
     print("kernels agree with their plain versions on the device "
           "(tolerance 0)", flush=True)
 
     # Beside the path's shapes, where a launch costs more than the work:
-    # the multiply at a batch that fills the card, against the same bound.
-    big_n = 1 << 17
-    big_a, big_b = rand_elems(big_n), rand_elems(big_n)
-    big_ms = time_ms(lambda: fp.mont_mul(fq, big_a, big_b), 20)
-    big_bytes_ms = 3 * big_n * elem_bytes / PEAK_BYTES_PER_S * 1e3
-    big_ops_ms = big_n * (2 * L * L + L) * 2 / PEAK_INT32_OPS_PER_S * 1e3
-    big_bound = max(big_bytes_ms, big_ops_ms)
+    # the multiply at a batch that fills the card, against its bound.
+    dense17 = next(r for r in field_rows if r["name"] == "mont_mul"
+                   and r["case"] == "[2^17,48] dense")
     print("mont_mul_large_batch " + json.dumps(
-        {"rows": big_n, "ms": big_ms, "bound_ms": big_bound,
-         "bound_by": "bytes" if big_bytes_ms >= big_ops_ms else "operations",
-         "share_of_bound": big_bound / big_ms,
+        {"rows": dense17["rows"], "ms": dense17["ms"],
+         "bound_ms": dense17["bound_ms"], "bound_by": dense17["bound_by"],
+         "share_of_bound": dense17["bound_ms"] / dense17["ms"],
          "int64_layout_bytes_ms":
-             3 * big_n * layout_bytes / PEAK_BYTES_PER_S * 1e3}), flush=True)
-    del big_a, big_b
+             3 * dense17["rows"] * layout_bytes / PEAK_BYTES_PER_S * 1e3}),
+        flush=True)
 
     # What the host pays per launch before the kernel is reached: the
     # current-stream lookup, and a whole call of the wrapper with the device
@@ -310,10 +451,371 @@ def main():
         flush=True)
 
     # ------------------------------------------------------------------
-    # 3./4. the main path
+    # 2b. the curve kernels against their plain versions, on the device
     # ------------------------------------------------------------------
-    eng = CI.mnt4753_engine()
-    fr = eng.g1.scalar_field
+
+    def multiples(curve, n, seed):
+        """n multiples [k]G of the generator with seeded 32-bit k: the
+        projective points as the loop leaves them (Z != 1), their affine
+        form, and the k."""
+        ks = torch.randint(1, 1 << 32, (n,), dtype=torch.int64,
+                           generator=torch.Generator().manual_seed(seed))
+        sd = torch.stack([ks & 0xFFFF, ks >> 16], dim=1).to(dev)
+        proj = msm_mod.fixed_base_msm(curve, curve.generator_affine, sd)
+        return proj, curve.to_affine(proj), ks.tolist()
+
+    def compare_all(name, got, want):
+        return max(compare(f"{name}[{i}]", g.to(torch.int64),
+                           w.to(torch.int64))
+                   for i, (g, w) in enumerate(zip(got, want)))
+
+    # lanes 0..6 of every curve-kernel input: equal points, opposite
+    # points, infinity on the right, on the left and on both sides, a
+    # doubling with y = 0 (no such point exists on these curves: fabricated
+    # coordinates, the kernels look at them lane by lane), and equal points
+    # in two projective forms (K4 only)
+    N_SPECIAL = 7
+
+    def proj_case(curve, proj, n):
+        """Operands of the projective addition: n lanes of distinct points,
+        the special lanes first."""
+        P = tuple(c[:n].clone() for c in proj)
+        Q = tuple(c[:n].roll(1, 0).clone() for c in proj)
+        zero = curve.zero((1,))
+        negP = curve.neg(P)
+        lam = proj[0][n - 1]                       # any non-zero element
+        for k in range(3):
+            Q[k][0] = P[k][0]
+            Q[k][1] = negP[k][1]
+            Q[k][2] = zero[k][0]
+            P[k][3] = zero[k][0]
+            P[k][4] = zero[k][0]
+            Q[k][4] = zero[k][0]
+            Q[k][6] = curve.F.mul(P[k][6], lam)
+        P[1][5] = 0
+        for k in range(3):
+            Q[k][5] = P[k][5]
+        return P, Q
+
+    def affine_case(curve, aff, n):
+        """Operands of the batched affine addition, as ((x, y), inf)."""
+        ax, ay = aff
+        x1, y1 = ax[:n].clone(), ay[:n].clone()
+        x2, y2 = ax[:n].roll(1, 0).clone(), ay[:n].roll(1, 0).clone()
+        inf1 = torch.zeros(n, dtype=torch.bool, device=dev)
+        inf2 = torch.zeros(n, dtype=torch.bool, device=dev)
+        x2[0], y2[0] = x1[0], y1[0]
+        x2[1], y2[1] = x1[1], curve.F.neg(y1[1])
+        inf2[2] = inf1[3] = inf1[4] = inf2[4] = True
+        for t in (x2, y2, x1, y1):
+            t[4] = 0
+        x2[2] = y2[2] = x1[3] = y1[3] = 0
+        y1[5] = 0
+        x2[5], y2[5] = x1[5], y1[5]
+        return ((x1, y1), inf1), ((x2, y2), inf2)
+
+    def curve_kernel_section():
+        """Holds K4-K6 against their plain versions at the path's shapes and
+        returns {kernel: its row at the shape the kernels line reports}.
+        A function so that its hundreds of megabytes die with it."""
+        big_lanes = 1 << 18
+        g1_proj, g1_aff, _ = multiples(g1, big_lanes, seed=7)
+        curve_rows = {}
+        shapes_line = []
+
+        # K4 at the Fenwick phase's width (8 windows x 2047 buckets) and at the
+        # first projective tree level below the default cutoff
+        for n in (8 * 2047, 1 << 15):
+            P, Q = proj_case(g1, g1_proj, n)
+            err = compare_all(f"ec_proj_add [{n}]",
+                              ec_kernels.proj_add(g1, P, Q),
+                              ec_kernels.proj_add_plain(g1, P, Q))
+            # strided halves, as the tree levels pass them
+            err = max(err, compare_all(
+                f"ec_proj_add [{n // 2}] even/odd",
+                ec_kernels.proj_add(g1, tuple(c[0::2] for c in P),
+                                    tuple(c[1::2] for c in Q)),
+                ec_kernels.proj_add_plain(g1, tuple(c[0::2] for c in P),
+                                          tuple(c[1::2] for c in Q))))
+            # lanes: 3 with an operand at infinity (no multiply), 2 that cancel
+            # or double a y = 0 point (5), 2 doublings (5 + 12), the rest 14
+            muls = 2 * 5 + 2 * 17 + (n - N_SPECIAL) * 14
+            b_ms, b_by = bound(9 * n * elem_bytes, muls * MUL_OPS)
+            row = {"lanes": n, "max_abs_err": err,
+                   "ms": time_ms(lambda: ec_kernels.proj_add(g1, P, Q), 20),
+                   "plain_ms": time_ms(
+                       lambda: ec_kernels.proj_add_plain(g1, P, Q), 3),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            shapes_line.append(dict(row, name="ec_proj_add"))
+            if n == 8 * 2047:
+                curve_rows["ec_proj_add"] = row
+        # the doubling of the window fold: P + P must be double(P)
+        compare_all("ec_proj_add P+P against double",
+                    ec_kernels.proj_add(g1, P, P), g1.double(P))
+
+        # K5 and K6 at the smallest and the largest affine tree level of a
+        # 2^16-point MSM (8 windows a chunk, default cutoff)
+        for n in (1 << 15, big_lanes):
+            a_pt, b_pt = affine_case(g1, g1_aff, n)
+            (x1, y1), inf1 = a_pt
+            (x2, y2), inf2 = b_pt
+            pre = ec_kernels.affine_pre(g1, x1, y1, x2, y2, inf1, inf2)
+            err_pre = compare_all(
+                f"ec_affine_pre [{n}]", pre,
+                ec_kernels.affine_pre_plain(g1, x1, y1, x2, y2, inf1, inf2))
+            num, den, inf3 = pre
+            den2 = den.reshape(n, nd)
+            if int((~(den2 != 0).any(-1)).sum()) < 3:
+                raise AssertionError("the inversion's input holds no zeros")
+            # the two inversion kernels, one level each, then the whole
+            # recursive inversion they make up
+            pre_packed, roots = ec_kernels.inv_up_cuda(fq, den2)
+            pre = ec_kernels.unpack_limbs(pre_packed)
+            want_pre, want_roots = ec_kernels.inv_up_plain(fq, den2)
+            err_up = max(
+                compare(f"inv_tree_up [{n}] prefix products", pre, want_pre),
+                compare(f"inv_tree_up [{n}] run products", roots, want_roots))
+            rinv = ec_kernels.batch_inverse(fq, roots)
+            err_down = compare(
+                f"inv_tree_down [{n}]",
+                ec_kernels.inv_down_cuda(fq, den2, pre_packed, rinv),
+                ec_kernels.inv_down_plain(fq, den2, pre, rinv))
+            before = dict(fp.launch_counts)
+            dinv2 = ec_kernels.batch_inverse(fq, den2)
+            inv_launches = {k: v - before[k]
+                            for k, v in fp.launch_counts.items()
+                            if v != before[k]}
+            err_inv = compare(f"batch_inverse [{n}]", dinv2,
+                              ec_kernels.batch_inverse_plain(fq, den2))
+            err_inv = max(err_inv, compare(
+                f"batch_inverse [{n - 3}] ragged", ec_kernels.batch_inverse(
+                    fq, den2[3:]), dinv2[3:]))
+            err_up, err_down = max(err_up, err_inv), max(err_down, err_inv)
+            head = limbs.from_digits_batch(fp.from_mont(fq, den2[:12]))
+            want = [pow(v, -1, p) if v else 0 for v in head]
+            if fp.fp_to_ints(fq, dinv2[:12]) != want:
+                raise AssertionError("batch_inverse disagrees with "
+                                     "pow(v, -1, p)")
+            dinv = dinv2.reshape(den.shape)
+            post_args = (num, dinv, x1, y1, x2, y2, inf1, inf2, inf3)
+            err_post = compare_all(
+                f"ec_affine_post [{n}]",
+                ec_kernels.affine_post(g1, *post_args),
+                ec_kernels.affine_post_plain(g1, *post_args))
+            (sx, sy), sinf = g1.batch_affine_add(
+                ((x1[0::2], y1[0::2]), inf1[0::2]),
+                ((x2[1::2], y2[1::2]), inf2[1::2]))
+            (wx, wy), winf = ec_kernels.batch_affine_add_plain(
+                g1, ((x1[0::2], y1[0::2]), inf1[0::2]),
+                ((x2[1::2], y2[1::2]), inf2[1::2]))
+            compare_all(f"batch_affine_add [{n // 2}] even/odd",
+                        (sx, sy, sinf), (wx, wy, winf))
+            live = int((~(inf1 | inf2 | inf3)).sum())
+            # multiplies of one inversion level: one going up and two going
+            # down for every non-zero element that is not the first of its
+            # run of INV_RUN
+            chained = (den2 != 0).any(-1)
+            chained[0::ec_kernels.INV_RUN] = False
+            chained = int(chained.sum())
+            n_runs = roots.shape[0]
+            rows = {
+                # six values and three flag bytes a lane; two subtractions
+                # everywhere, a squaring and four additions where it doubles
+                "ec_affine_pre": (
+                    err_pre, (6 * elem_bytes + 3) * n,
+                    n * 2 * 2 * L + 2 * (MUL_OPS + 4 * 2 * L),
+                    lambda: ec_kernels.affine_pre(g1, x1, y1, x2, y2, inf1,
+                                                  inf2),
+                    lambda: ec_kernels.affine_pre_plain(g1, x1, y1, x2, y2,
+                                                        inf1, inf2)),
+                # eight values and three flag bytes a lane; three multiplies
+                # and four subtractions where lambda is used
+                "ec_affine_post": (
+                    err_post, (8 * elem_bytes + 3) * n,
+                    live * (3 * MUL_OPS + 4 * 2 * L),
+                    lambda: ec_kernels.affine_post(g1, *post_args),
+                    lambda: ec_kernels.affine_post_plain(g1, *post_args)),
+                # reads the elements, writes prefix and run products
+                "inv_tree_up": (
+                    err_up, (2 * n + n_runs) * elem_bytes, chained * MUL_OPS,
+                    lambda: ec_kernels.inv_up_cuda(fq, den2),
+                    lambda: ec_kernels.inv_up_plain(fq, den2)),
+                # reads elements, prefix products and the run products'
+                # inverses, writes the inverses
+                "inv_tree_down": (
+                    err_down, (3 * n + n_runs) * elem_bytes,
+                    2 * chained * MUL_OPS,
+                    lambda: ec_kernels.inv_down_cuda(fq, den2, pre_packed,
+                                                     rinv),
+                    lambda: ec_kernels.inv_down_plain(fq, den2, pre, rinv)),
+            }
+            for name, (err, nbytes, nops, kern, plain) in rows.items():
+                b_ms, b_by = bound(nbytes, nops)
+                row = {"lanes": n, "max_abs_err": err, "ms": time_ms(kern, 10),
+                       "plain_ms": time_ms(plain, 2), "bound_ms": b_ms,
+                       "bound_by": b_by}
+                shapes_line.append(dict(row, name=name))
+                if n == big_lanes:
+                    curve_rows[name] = row
+            # the whole inversion: every level of both kernels, the root
+            # through the binary-Euclid kernel and one multiply
+            shapes_line.append({
+                "name": "batch_inverse", "lanes": n, "max_abs_err": err_inv,
+                "ms": time_ms(lambda: ec_kernels.batch_inverse(fq, den2), 10),
+                "plain_ms": time_ms(
+                    lambda: ec_kernels.batch_inverse_plain(fq, den2), 2),
+                "launches": inv_launches, "root_inv_bea_ms": inv_bea_ms})
+        print("curve_kernel_shapes " + json.dumps(shapes_line), flush=True)
+
+        # the narrower widths: BLS12-377 G1 (24 digits, a = 0) through all
+        # four, its scalar field (16 digits) through the inversion
+        b1 = CI.bls12_377_g1()
+        b_proj, b_aff, _ = multiples(b1, 256, seed=8)
+        P, Q = proj_case(b1, b_proj, 256)
+        compare_all("ec_proj_add bls12_377", ec_kernels.proj_add(b1, P, Q),
+                    ec_kernels.proj_add_plain(b1, P, Q))
+        a_pt, b_pt = affine_case(b1, b_aff, 256)
+        (bx, by), binf = b1.batch_affine_add(a_pt, b_pt)
+        (wx, wy), winf = ec_kernels.batch_affine_add_plain(b1, a_pt, b_pt)
+        compare_all("batch_affine_add bls12_377", (bx, by, binf),
+                    (wx, wy, winf))
+        fr377 = PP.BLS12_377_FR
+        xs = torch.from_numpy(limbs.to_digits_batch(
+            [0, 1, fr377.modulus - 1] + list(range(2, 40)),
+            fr377.n_digits)).to(dev)
+        compare("inv_tree bls12_377 Fr", ec_kernels.batch_inverse(fr377, xs),
+                ec_kernels.batch_inverse_plain(fr377, xs))
+        try:
+            ec_kernels.proj_add(g2, g2.zero((4,)), g2.zero((4,)))
+        except NotImplementedError:
+            pass
+        else:
+            raise AssertionError("the G1 kernel took a curve over Fq2")
+        print("curve kernels agree with their plain versions on the device "
+              "(tolerance 0)", flush=True)
+        return curve_rows
+
+    curve_rows = curve_kernel_section()
+
+    curve_meta = {
+        "ec_proj_add": ("gingerlib_tpu_torch/csrc/ec_add.cu",
+                        "gingerlib_tpu/ops/pallas_ec.py:580"),
+        "ec_affine_pre": ("gingerlib_tpu_torch/csrc/ec_affine.cu",
+                          "gingerlib_tpu/ops/pallas_ec.py:161"),
+        "ec_affine_post": ("gingerlib_tpu_torch/csrc/ec_affine.cu",
+                           "gingerlib_tpu/ops/pallas_ec.py:192"),
+        "inv_tree_up": ("gingerlib_tpu_torch/csrc/inv_tree.cu",
+                        "gingerlib_tpu/ops/pallas_ec.py:313"),
+        "inv_tree_down": ("gingerlib_tpu_torch/csrc/inv_tree.cu",
+                          "gingerlib_tpu/ops/pallas_ec.py:342"),
+    }
+    for name, (source, replaces) in curve_meta.items():
+        row = curve_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0, "lanes": row["lanes"],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            # no PyTorch call computes a curve addition or a 753-bit inverse
+            "library_ms": None,
+        })
+
+    # ------------------------------------------------------------------
+    # 3. Pippenger against double-and-add at 2^12 points; one 2^16-point
+    #    MSM of each kind, timed
+    # ------------------------------------------------------------------
+    def msm_section():
+        r_mod = fr.modulus
+
+        def fr_scalars(n, seed):
+            raw = torch.randint(
+                0, 1 << 16, (n, fr.n_digits + 4), dtype=torch.int64,
+                generator=torch.Generator().manual_seed(seed))
+            return [v % r_mod for v in limbs.from_digits_batch(raw)]
+
+        def closed_form(name, curve, host, got, ks, scalars):
+            """The MSM of the multiples [k_i]G is [sum k_i s_i]G: held
+            against python-int curve arithmetic."""
+            total = sum(k * s for k, s in zip(ks, scalars)) % r_mod
+            x, y = curve.to_affine(tuple(c[None] for c in got))
+            if groth16.affine_to_ints(curve, (x[0], y[0])) \
+                    != host.mul(host.gen, total):
+                raise AssertionError(f"{name}: not [sum k_i s_i]G")
+
+        def same_point(name, curve, got, want):
+            if not bool(curve.eq(got, want)):
+                raise AssertionError(f"{name}: not the same point")
+            ga = curve.to_affine(tuple(c[None] for c in got))
+            wa = curve.to_affine(tuple(c[None] for c in want))
+            compare_all(name + " affine digits", ga, wa)
+
+        def event_seconds(fn):
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn()
+            e1.record()
+            torch.cuda.synchronize()
+            return out, e0.elapsed_time(e1) / 1e3
+
+        n12 = 1 << 12
+        for curve in (g1, g2):
+            _, (ax, ay), _ = multiples(curve, n12, seed=9)
+            sc = fr_scalars(n12, seed=10)
+            ax[1], ay[1] = ax[0], ay[0]         # the same point twice ...
+            sc[1] = sc[0]                       # ... in the same buckets
+            sc[2] = 0
+            sd = torch.from_numpy(
+                limbs.to_digits_batch(sc, fr.n_digits)).to(dev)
+            inf = torch.zeros(n12, dtype=torch.bool, device=dev)
+            inf[5] = True
+            want = msm_mod.msm_naive(curve, ax, ay, sd, inf_mask=inf)
+            if curve is g1:
+                for cutoff in (1 << 15, 64):
+                    same_point(f"msm_hybrid 2^12 cutoff {cutoff}", g1,
+                               msm_mod.msm_hybrid(g1, ax, ay, sd, inf_mask=inf,
+                                                  affine_cutoff=cutoff), want)
+                same_point("msm_bucketed 2^12 g1", g1, msm_mod.msm_bucketed(
+                    g1, ax, ay, sd, inf_mask=inf), want)
+            else:
+                same_point("msm_affine 2^12 g2", g2, msm_mod.msm_affine(
+                    g2, ax, ay, sd, inf_mask=inf), want)
+        print("msm_hybrid (g1) and msm_affine (g2) equal msm_naive at 2^12 "
+              "points", flush=True)
+
+        n16 = 1 << 16
+        sc = fr_scalars(n16, seed=11)
+        sd = torch.from_numpy(limbs.to_digits_batch(sc, fr.n_digits)).to(dev)
+        msm_line = {"points": n16}
+        host_g1, host_g2, _ = groth16_host.host_curves("mnt4753")
+        _, (ax, ay), ks = multiples(g1, n16, seed=13)
+        msm_mod.msm_hybrid(g1, ax, ay, sd)    # warm-up: the allocator's pools
+        results = {}
+        for label, cutoff in (("default_2p15", 1 << 15), ("all_affine", 1),
+                              ("all_projective", 1 << 30)):
+            results[label], secs = event_seconds(lambda: msm_mod.msm_hybrid(
+                g1, ax, ay, sd, affine_cutoff=cutoff))
+            msm_line[f"g1_hybrid_{label}_s"] = secs
+            msm_line[f"g1_hybrid_{label}_points_per_s"] = n16 / secs
+        for label in ("all_affine", "all_projective"):
+            same_point(f"msm_hybrid 2^16 {label}", g1, results[label],
+                       results["default_2p15"])
+        closed_form("msm_hybrid 2^16", g1, host_g1, results["default_2p15"],
+                    ks, sc)
+        _, (bx, by), ks = multiples(g2, n16, seed=12)
+        res, secs = event_seconds(lambda: msm_mod.msm_affine(g2, bx, by, sd))
+        closed_form("msm_affine 2^16", g2, host_g2, res, ks, sc)
+        msm_line["g2_affine_s"] = secs
+        msm_line["g2_affine_points_per_s"] = n16 / secs
+        print("msm " + json.dumps(msm_line), flush=True)
+
+    msm_section()
+
+    # ------------------------------------------------------------------
+    # 4./5. the main path
+    # ------------------------------------------------------------------
 
     def prove(params, compiled, cs, s=S_BLIND):
         torch.cuda.synchronize()
@@ -323,12 +825,64 @@ def main():
         ints = groth16.proof_to_ints(eng, proof)   # fetch: completion barrier
         return ints, time.perf_counter() - t
 
-    def rung(log2):
+    class phase_clock:
+        """While active, times the calls that make up setup and prove --
+        the host's QAP evaluation, each fixed-base loop, each kind of MSM --
+        with a device synchronise on either side of each call (a dozen calls
+        a rung, so the synchronises cost nothing that shows)."""
+        targets = ((groth16_host, "qap_at"), (msm_mod, "fixed_base_msm"),
+                   (msm_mod, "_msm_lanes"), (msm_mod, "msm_hybrid"),
+                   (msm_mod, "msm_affine"), (groth16, "_witness_map_core"))
+
+        def __init__(self):
+            self.calls = []
+            self.loop_lanes = {}    # lanes of each fixed-base loop
+
+        def __enter__(self):
+            self.saved = [(m, n, getattr(m, n)) for m, n in self.targets]
+            for mod, name, real in self.saved:
+                setattr(mod, name, self.timed(name, real))
+            return self
+
+        def __exit__(self, *exc):
+            for mod, name, real in self.saved:
+                setattr(mod, name, real)
+
+        def timed(self, name, real):
+            def call(*a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = real(*a, **k)
+                torch.cuda.synchronize()
+                what = name.lstrip("_")
+                if a and hasattr(a[0], "F"):          # a curve comes first
+                    what += ".g1" if a[0].F.K == 1 else ".g2"
+                self.calls.append((what, time.perf_counter() - t))
+                if name == "fixed_base_msm":
+                    self.loop_lanes[what] = a[2].shape[0]
+                return out
+            return call
+
+        def take(self):
+            """{phase: [seconds of each call]} since the last take."""
+            out = {}
+            for what, secs in self.calls:
+                out.setdefault(what, []).append(secs)
+            self.calls = []
+            return out
+
+    def rung(log2, phases=None):
+        """Setup and prove at 2^log2 constraints; ``phases``: True to time
+        the calls inside with a ``phase_clock``."""
+        if phases is True:
+            with phase_clock() as clock:
+                return rung(log2, clock)
         cs, _ = benchmark_circuit(fr, NUM_INPUTS, 1 << log2)
         if not cs.is_satisfied():
             raise AssertionError("benchmark circuit is not satisfied")
         out = {"log2_constraints": log2}
         fp.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t = time.perf_counter()
         compiled = compile_r1cs(cs)
@@ -336,13 +890,21 @@ def main():
         torch.cuda.synchronize()
         out["setup_s"] = time.perf_counter() - t
         out["setup_launches"] = dict(fp.launch_counts)
+        if phases:
+            out["setup_phases_s"] = phases.take()
+            out["setup_loop_lanes"] = dict(phases.loop_lanes)
         proof, out["prove_first_s"] = prove(params, compiled, cs)
+        if phases:
+            out["prove_phases_s"] = phases.take()
         out["path_launches"] = dict(fp.launch_counts)
         out["prove_launches"] = {
             k: v - out["setup_launches"][k]
             for k, v in out["path_launches"].items()}
+        out["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        t = time.perf_counter()
         want = groth16_host.expected_proof("mnt4753", cs, **TOXIC,
                                            r=R_BLIND, s=S_BLIND)
+        out["oracle_host_s"] = time.perf_counter() - t
         if proof != want:
             raise AssertionError(f"2^{log2}: device proof differs from the "
                                  f"closed-form oracle")
@@ -385,6 +947,16 @@ def main():
                              "and keep A")
     print("rung " + json.dumps(big), flush=True)
 
+    # 2^16 constraints: every MSM of the prover is above the 2^12-point
+    # threshold, so G1 goes through msm_hybrid and the curve kernels and G2
+    # through msm_affine
+    full, _ = rung(16, phases=True)
+    print("rung " + json.dumps(full), flush=True)
+    if full["setup_loop_lanes"] != {"fixed_base_msm.g1": G1_LOOP_LANES,
+                                    "fixed_base_msm.g2": G2_LOOP_LANES}:
+        raise AssertionError("the field kernels were not held at the lane "
+                             "counts of this rung's setup loops")
+
     if args.time_plain_addsub:
         def setup_and_prove():
             torch.cuda.synchronize()
@@ -408,10 +980,16 @@ def main():
         out["kernels_after"] = setup_and_prove()
         print("plain_addsub " + json.dumps(out), flush=True)
 
+    # launches: of the field kernels on the 2^10 path, of the curve kernels
+    # on the 2^16 path, which is the one that reaches them; the 2^16 counts
+    # of all ten beside them
     for k in kernels:
-        k["launches"] = big["path_launches"][k["name"]]
-        if k["launches"] <= 0:
-            raise AssertionError(f"the main path never launched {k['name']}")
+        name = k["name"]
+        on_path = full if name in curve_meta else big
+        k["launches"] = on_path["path_launches"][name]
+        k["launches_2p16_path"] = full["path_launches"][name]
+        if k["launches"] <= 0 or k["launches_2p16_path"] <= 0:
+            raise AssertionError(f"the main path never launched {name}")
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,8 @@
 // Prime-field arithmetic on 32-bit limbs held in registers, one field element
-// per CUDA thread.  Shared by every kernel of the library (Montgomery
-// multiply, modular add/sub/neg, binary-Euclid inverse) and meant to be
-// included by later kernels (fixed-exponent power, curve adds, inversion
-// trees).
+// per CUDA thread.  Shared by every kernel of the library: Montgomery
+// multiply, modular add/sub/neg, binary-Euclid inverse (register forms, first
+// part), curve additions and inversion trees (memory-resident forms, second
+// part).
 //
 // Boundary layout (see gingerlib_tpu_torch/fields/fp.py): an element is ND
 // little-endian 16-bit digits, each stored in an int64, so R = 2^(16*ND).
@@ -11,6 +11,7 @@
 #pragma once
 
 #include <stdint.h>
+#include <string.h>
 
 namespace gl {
 
@@ -193,6 +194,114 @@ __device__ __forceinline__ void half_mod(uint32_t (&w)[L],
     for (int i = 0; i < L; i++) w[i] = s[i];
   }
   shr1<L>(w, top);
+}
+
+// ---------------------------------------------------------------------------
+// Memory-resident forms, for kernels that chain many field operations (curve
+// additions, inversion trees).  Such a kernel keeps its field elements as
+// L-limb arrays in thread-local memory and calls these functions, which are
+// NOT inlined: each loads its operands into registers, runs the register
+// form above and stores the result.  A curve addition then costs the
+// registers of ONE multiply (not of a dozen inlined ones with all their
+// operands alive), its code stays small, and the extra traffic -- 3L words
+// of cached local memory per multiply against 2*L*L + L multiply-adds -- is
+// a few percent.  The result may alias an operand.  ``p`` points to the
+// modulus limbs (the kernels keep them in shared memory).
+// ---------------------------------------------------------------------------
+
+// Constants of one curve (or of one field: a = 0), passed to a kernel by
+// value and copied by it into shared memory as [p | a | one].
+template <int L>
+struct CurveConst {
+  uint32_t p[L];    // modulus
+  uint32_t a[L];    // curve coefficient a, Montgomery form
+  uint32_t one[L];  // R mod p, the Montgomery form of 1
+  uint32_t inv;     // -p^-1 mod 2^32
+  int a_is_zero;
+};
+
+// Host side: the struct from the wrapper's limb array [p | a | one].
+template <int L>
+inline CurveConst<L> make_curve_const(const uint32_t* consts, uint32_t inv,
+                                      int a_is_zero) {
+  CurveConst<L> K;
+  memcpy(K.p, consts, sizeof(K.p));
+  memcpy(K.a, consts + L, sizeof(K.a));
+  memcpy(K.one, consts + 2 * L, sizeof(K.one));
+  K.inv = inv;
+  K.a_is_zero = a_is_zero;
+  return K;
+}
+
+// To be called by every thread of a block with at least L threads, before
+// any thread leaves the kernel: shared[0:L] = p, [L:2L] = a, [2L:3L] = one.
+template <int L>
+__device__ __forceinline__ void stage_consts(const CurveConst<L>& K,
+                                             uint32_t* shared) {
+  if (threadIdx.x < L) {
+    shared[threadIdx.x] = K.p[threadIdx.x];
+    shared[L + threadIdx.x] = K.a[threadIdx.x];
+    shared[2 * L + threadIdx.x] = K.one[threadIdx.x];
+  }
+  __syncthreads();
+}
+
+template <int L>
+__device__ __noinline__ void mont_mul_mem(const uint32_t* a, const uint32_t* b,
+                                          const uint32_t* p, uint32_t inv,
+                                          uint32_t* r) {
+  uint32_t x[L], y[L], m[L], o[L];
+#pragma unroll
+  for (int i = 0; i < L; i++) {
+    x[i] = a[i];
+    y[i] = b[i];
+    m[i] = p[i];
+  }
+  mont_mul<L>(x, y, m, inv, o);
+#pragma unroll
+  for (int i = 0; i < L; i++) r[i] = o[i];
+}
+
+template <int L>
+__device__ __noinline__ void add_mod_mem(const uint32_t* a, const uint32_t* b,
+                                         const uint32_t* p, uint32_t* r) {
+  uint32_t x[L], y[L], m[L], o[L];
+#pragma unroll
+  for (int i = 0; i < L; i++) {
+    x[i] = a[i];
+    y[i] = b[i];
+    m[i] = p[i];
+  }
+  add_mod<L>(x, y, m, o);
+#pragma unroll
+  for (int i = 0; i < L; i++) r[i] = o[i];
+}
+
+template <int L>
+__device__ __noinline__ void sub_mod_mem(const uint32_t* a, const uint32_t* b,
+                                         const uint32_t* p, uint32_t* r) {
+  uint32_t x[L], y[L], m[L], o[L];
+#pragma unroll
+  for (int i = 0; i < L; i++) {
+    x[i] = a[i];
+    y[i] = b[i];
+    m[i] = p[i];
+  }
+  sub_mod<L>(x, y, m, o);
+#pragma unroll
+  for (int i = 0; i < L; i++) r[i] = o[i];
+}
+
+template <int L>
+__device__ __forceinline__ void copy_limbs(const uint32_t* src, uint32_t* dst) {
+#pragma unroll
+  for (int i = 0; i < L; i++) dst[i] = src[i];
+}
+
+template <int L>
+__device__ __forceinline__ void zero_limbs(uint32_t* dst) {
+#pragma unroll
+  for (int i = 0; i < L; i++) dst[i] = 0;
 }
 
 }  // namespace gl

@@ -23,7 +23,7 @@ import torch
 
 from ..device import resolve_device
 from ..fields import towers as T
-from ..ops import limbs
+from ..ops import ec_kernels, limbs
 
 
 class SWCurveOps:
@@ -193,6 +193,24 @@ class SWCurveOps:
         if not bool((mask & ~p_inf).any()):
             return out
         return self._select(mask, self.double(P), out)
+
+    def batch_affine_add(self, a_pt, b_pt):
+        """Pairwise affine addition with ONE shared inversion for the whole
+        batch: about 4 multiplies an addition plus 3 for the inversion tree,
+        against 14 for the unified projective form.
+
+        a_pt, b_pt: ((x, y), inf) with x, y [N, K, nd] and inf [N] bool;
+        infinity is the flag, with (0, 0) as coordinates.  Right for equal
+        points, opposite points and infinity on either side.  Returns
+        ((x3, y3), inf3).
+
+        Curves over the base field go through the fused kernels on a GPU
+        (pre, inversion tree, post: ``ops/ec_kernels.py``) and through their
+        plain versions on the CPU; curves over an extension field (G2) run
+        the array form on either device."""
+        if self.F.K == 1:
+            return ec_kernels.batch_affine_add(self, a_pt, b_pt)
+        return ec_kernels.batch_affine_add_plain(self, a_pt, b_pt)
 
     def _select(self, mask, A, B):
         m = mask[..., None, None]

@@ -163,7 +163,10 @@ class FpParams:
 
 KERNEL_DIGITS = (16, 24, 48)   # digit counts the kernels are built for
 launch_counts = {"mont_mul": 0, "inv_bea": 0, "fp_add": 0, "fp_sub": 0,
-                 "fp_neg": 0}
+                 "fp_neg": 0,
+                 # the curve kernels of ops/ec_kernels.py count here too
+                 "ec_proj_add": 0, "ec_affine_pre": 0, "ec_affine_post": 0,
+                 "inv_tree_up": 0, "inv_tree_down": 0}
 
 
 def reset_launch_counts():

@@ -13,13 +13,15 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = ("mont_mul", "inv_bea", "fp_addsub")
+SOURCES = ("mont_mul", "inv_bea", "fp_addsub", "ec_add", "ec_affine",
+           "inv_tree")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -32,6 +34,16 @@ _SIGNATURES = {
     "gl_inv_bea": ("inv_bea", [_i, _vp, _vp, _i, _vp, _vp]),
     "gl_fp_addsub": ("fp_addsub", [_i, _i, _vp, _i, _ll, _vp, _i, _ll, _vp, _i,
                                    _vp, _vp]),
+    # pointer and stride tables are host arrays (ctypes arrays)
+    "gl_ec_proj_add": ("ec_add", [_i, _vp, _vp, _vp, _i, _vp, _u32, _i, _vp]),
+    "gl_ec_affine_pre": ("ec_affine", [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                                       _i, _vp, _u32, _vp]),
+    "gl_ec_affine_post": ("ec_affine", [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                                        _vp, _i, _vp, _u32, _vp]),
+    "gl_inv_tree_up": ("inv_tree", [_i, _vp, _vp, _vp, _i, _i, _vp, _u32,
+                                    _vp]),
+    "gl_inv_tree_down": ("inv_tree", [_i, _vp, _vp, _vp, _vp, _i, _i, _vp,
+                                      _u32, _vp]),
 }
 
 _functions: dict = {}
@@ -50,7 +62,8 @@ def _nvcc() -> str:
 
 
 def _stale(lib: str, name: str) -> bool:
-    if not os.path.exists(lib):
+    if not (os.path.exists(lib)
+            and os.path.exists(os.path.join(BUILD, name + ".log"))):
         return True
     t = os.path.getmtime(lib)
     deps = [os.path.join(CSRC, name + ".cu"),
@@ -58,10 +71,11 @@ def _stale(lib: str, name: str) -> bool:
     return any(os.path.getmtime(d) > t for d in deps)
 
 
-def build(verbose: bool = False) -> dict:
+def build() -> dict:
     """Compile every stale source, all ``nvcc`` processes started together.
-    Returns {name: path of the shared library}.  With ``verbose`` the
-    compiler also reports registers and spills of each kernel."""
+    Returns {name: path of the shared library}.  What the compiler printed
+    -- registers, stack frame and spills of each kernel, from ``ptxas -v``
+    -- is kept beside the library as ``build/<name>.log``."""
     os.makedirs(BUILD, exist_ok=True)
     libs = {n: os.path.join(BUILD, f"lib{n}.so") for n in SOURCES}
     procs = []
@@ -69,10 +83,8 @@ def build(verbose: bool = False) -> dict:
         if not _stale(libs[n], n):
             continue
         tmp = libs[n] + f".tmp{os.getpid()}"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC]
-        if verbose:
-            cmd += ["-Xptxas", "-v"]
-        cmd += ["-o", tmp, os.path.join(CSRC, n + ".cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", CSRC, "-o", tmp,
+               os.path.join(CSRC, n + ".cu")]
         procs.append((n, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -82,12 +94,33 @@ def build(verbose: bool = False) -> dict:
         if proc.returncode != 0:
             failed.append(f"{n}.cu (exit {proc.returncode}):\n{out}")
             continue
-        if verbose and out:
-            print(out, flush=True)
+        with open(os.path.join(BUILD, n + ".log"), "w") as f:
+            f.write(out)
         os.replace(tmp, libs[n])  # atomic: no reader sees a partial file
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return libs
+
+
+def resource_usage() -> dict:
+    """{kernel<template arguments>: {registers, stack_bytes, spill_store_bytes,
+    spill_load_bytes}} for every kernel, read from the logs of ``build``."""
+    out = {}
+    entry = re.compile(
+        r"Compiling entry function '\w*?\d([a-z_]+_kernel)ILi(\d+)"
+        r"(?:ELi(\d+))?E\w*'.*?"
+        r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+        r"(\d+) bytes spill loads.*?Used (\d+) registers", re.S)
+    for n in build():
+        with open(os.path.join(BUILD, n + ".log")) as f:
+            text = f.read()
+        for m in entry.finditer(text):
+            args = ",".join(g for g in m.group(2, 3) if g)
+            out[f"{m.group(1)}<{args}>"] = {
+                "registers": int(m.group(7)), "stack_bytes": int(m.group(4)),
+                "spill_store_bytes": int(m.group(5)),
+                "spill_load_bytes": int(m.group(6))}
+    return out
 
 
 def function(name: str):

@@ -1,10 +1,29 @@
-"""Multi-scalar multiplication: the part of ``gingerlib_tpu/ops/msm.py`` that
-the JAX package runs below 2^12 points -- batched double-and-add plus a tree
-reduction -- and the fixed-base form used by setup.
+"""Multi-scalar multiplication.  Counterpart of ``gingerlib_tpu/ops/msm.py``.
 
-The bucketed (Pippenger) paths for 2^12 points and more rest on the curve
-kernels that are not ported yet; ``msm_bucketed`` says so instead of running
-the small-size path at a size it was not meant for.
+Three forms and one dispatch:
+
+* ``msm_naive``: per-point double-and-add and a tree reduction.  The prover
+  takes it below 2^12 points (the JAX package's own threshold on its
+  accelerator path), several jobs sharing one loop (``msm_batched``); it is
+  also the oracle the bucketed forms are held against.
+* ``msm_hybrid``: Pippenger for curves over the base field (G1), built on the
+  fused curve kernels of ``ops/ec_kernels.py``.
+* ``msm_affine``: Pippenger with batched-affine additions as array code over
+  any tower field; the prover's path for G2.
+* ``fixed_base_msm``: [k_i]G for many scalars of one base, used by setup.
+
+The bucketed forms avoid scatters: per c-bit window the points are sorted by
+their window digit, a dyadic partial-sum tree is built over the sorted
+points, the prefix sum "all points with digit < b" is read off the tree for
+every bucket b at once (Fenwick decomposition), and the window sum follows
+from  sum_b b*S_b = sum_{b>=1} (Total - prefix_b).  A chunk of windows is
+flattened into the lane axis (window-major; N is padded to a power of two,
+so adjacent pairs never cross a window), so every tree level and every
+Fenwick step is ONE batched addition over chunk*N lanes, with one shared
+inversion where the addition is affine.
+
+The projective Pippenger ``msm()`` of the JAX package (its CPU path) and the
+windowed fixed-base table are not ported yet.
 """
 
 from __future__ import annotations
@@ -12,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..curves.sw import SWCurveOps
+from . import ec_kernels as EK
 
 NAIVE_BELOW = 1 << 12   # points; the JAX package's own threshold
 
@@ -57,28 +77,343 @@ def msm_naive(curve: SWCurveOps, xs, ys, scalar_digits, inf_mask=None):
     return _msm_lanes(curve, [(xs, ys, scalar_digits, inf_mask)])[0]
 
 
-def msm_batched(curve: SWCurveOps, jobs):
+# ---------------------------------------------------------------------------
+# what the two bucketed forms share
+# ---------------------------------------------------------------------------
+
+def default_window(n: int) -> int:
+    """Window width that keeps N + 2^c * log N per window small across the
+    nbits/c windows."""
+    if n < (1 << 8):
+        return 3
+    if n < (1 << 12):
+        return 6
+    if n < (1 << 16):
+        return 9
+    if n < (1 << 20):
+        return 11
+    return 13
+
+
+def _window_digits(scalar_digits, c: int, nbits: int):
+    """[N, nd] base-2^16 digits -> [W, N] c-bit window values (c <= 32)."""
+    W = -(-nbits // c)
+    nd = scalar_digits.shape[1]
+    out = []
+    for w in range(W):
+        j, r = divmod(w * c, 16)
+        v = scalar_digits[:, j] >> r
+        if j + 1 < nd:
+            v = v | (scalar_digits[:, j + 1] << (16 - r))
+        if j + 2 < nd and r > 0 and c > 32 - r:
+            v = v | (scalar_digits[:, j + 2] << (32 - r))
+        out.append(v & ((1 << c) - 1))
+    return torch.stack(out)
+
+
+def _window_chunks(curve, xs, ys, scalar_digits, c, nbits, inf_mask,
+                   window_chunk):
+    """Pads N to a power of two (with points at infinity) and the window
+    count to a multiple of the chunk (all-zero windows sum to infinity).
+    Returns (xs, ys, inf_mask, c, W, key chunks [n_chunks, wc, N])."""
+    if nbits is None:
+        nbits = curve.scalar_field.modulus_bits
+    nbits = min(nbits, 16 * scalar_digits.shape[1])   # all the digits hold
+    n = xs.shape[0]
+    if inf_mask is None:
+        inf_mask = torch.zeros(n, dtype=torch.bool, device=xs.device)
+    n2 = 1 << max(0, (n - 1).bit_length())
+    if n2 != n:
+        pad = n2 - n
+        xs = torch.cat([xs, xs.new_zeros((pad,) + xs.shape[1:])])
+        ys = torch.cat([ys, ys.new_zeros((pad,) + ys.shape[1:])])
+        scalar_digits = torch.cat([
+            scalar_digits,
+            scalar_digits.new_zeros((pad,) + scalar_digits.shape[1:])])
+        inf_mask = torch.cat([inf_mask, inf_mask.new_ones(pad)])
+        n = n2
+    if c is None:
+        c = default_window(n)
+    W = -(-nbits // c)
+    windows = _window_digits(scalar_digits, c, nbits)          # [W, N]
+    if window_chunk is None:
+        window_chunk = int(min(8, W, max(1, (1 << 23) // max(n, 1))))
+    Wp = -(-W // window_chunk) * window_chunk
+    if Wp != W:
+        windows = torch.cat([windows, windows.new_zeros((Wp - W, n))])
+    return (xs, ys, inf_mask, c, W,
+            windows.reshape(Wp // window_chunk, window_chunk, n))
+
+
+def _sorted_chunk(xs, ys, inf_mask, keys):
+    """One chunk of windows, keys [wc, N]: the points sorted by key inside
+    each window, flattened window-major to wc*N lanes, as (x, y, inf).
+    The sort is stable, so CPU and GPU pair up the same points.  Bucket-0
+    points never contribute: they are flagged, and the coordinates of all
+    flagged lanes are zeroed so that equal garbage cannot pass for a
+    doubling lane.  Also returns the sorted keys."""
+    keys_s, order = torch.sort(keys, dim=1, stable=True)
+    flat = order.reshape(-1)
+    inf = inf_mask.index_select(0, flat) | (keys_s.reshape(-1) == 0)
+    m = inf[:, None, None]
+    x = xs.index_select(0, flat).masked_fill_(m, 0)
+    y = ys.index_select(0, flat).masked_fill_(m, 0)
+    return keys_s, (x, y, inf)
+
+
+def _bucket_counts(keys_s, c: int):
+    """m[w, b-1] = number of points of window w with key < b, b = 1..2^c-1,
+    flattened to [wc * B]."""
+    wc = keys_s.shape[0]
+    bvals = torch.arange(1, 1 << c, dtype=keys_s.dtype, device=keys_s.device)
+    return torch.searchsorted(keys_s, bvals.expand(wc, -1).contiguous(),
+                              right=False).reshape(-1)
+
+
+def _halves(t3):
+    return tuple(t[0::2] for t in t3), tuple(t[1::2] for t in t3)
+
+
+def _gather(t3, idx):
+    return tuple(t.index_select(0, idx) for t in t3)
+
+
+def _aff_add(curve, a, b):
+    """batch_affine_add on flat (x, y, inf) triples."""
+    (x, y), inf = curve.batch_affine_add(((a[0], a[1]), a[2]),
+                                         ((b[0], b[1]), b[2]))
+    return x, y, inf
+
+
+def _aff_select(mask, a, b):
+    m = mask[:, None, None]
+    return (torch.where(m, a[0], b[0]), torch.where(m, a[1], b[1]),
+            torch.where(mask, a[2], b[2]))
+
+
+def _aff_to_proj(curve, a):
+    """(x, y, inf) -> projective, infinity as (0, 1, 0)."""
+    x, y, inf = a
+    m = inf[:, None, None]
+    one = curve.F.tensor("one", x.device)
+    return (x.masked_fill(m, 0), torch.where(m, one, y),
+            one.expand(x.shape).masked_fill(m, 0))
+
+
+def _fenwick_prefixes(levels, n: int, counts, n_buckets: int, acc, step):
+    """Prefix sums at ``counts`` [wc * B] over the stored tree levels of a
+    chunk: each count decomposes into dyadic blocks, one masked batched
+    addition per level, the per-window root (level log2 N) included.
+    ``step(acc, level, node_index, take)`` returns acc plus the level's
+    nodes at ``node_index`` in the lanes of ``take``, acc elsewhere."""
+    win_id = torch.arange(counts.shape[0], dtype=counts.dtype,
+                          device=counts.device) // n_buckets
+    offset = torch.zeros_like(counts)
+    for l in range(len(levels) - 1, -1, -1):
+        nodes_per_win = n >> l
+        bit = (counts >> l) & 1
+        idx = torch.clamp(offset >> l, max=nodes_per_win - 1)
+        acc = step(acc, levels[l], win_id * nodes_per_win + idx, bit == 1)
+        offset = offset + (bit << l)
+    return acc
+
+
+def _fold_windows(curve, wsums, c: int):
+    """sum_w 2^(c*w) * S_w over projective window sums [W, K, nd], most
+    significant window first, c doublings a window.  Over the base field
+    every step is one launch of the projective-addition kernel on a GPU
+    (P + P takes its doubling branch: the values of ``double``)."""
+    if curve.F.K == 1:
+        def add(p, q):
+            return EK.proj_add(curve, p, q)
+
+        def double(p):
+            return EK.proj_add(curve, p, p)
+    else:
+        add, double = curve.add, curve.double
+    W = wsums[0].shape[0]
+    res = tuple(t[W - 1:W] for t in wsums)
+    for w in range(W - 2, -1, -1):
+        for _ in range(c):
+            res = double(res)
+        res = add(res, tuple(t[w:w + 1] for t in wsums))
+    return tuple(t[0] for t in res)
+
+
+# ---------------------------------------------------------------------------
+# hybrid Pippenger: curves over the base field, fused kernels
+# ---------------------------------------------------------------------------
+
+def msm_hybrid(curve: SWCurveOps, xs, ys, scalar_digits,
+               c: int | None = None, nbits: int | None = None,
+               inf_mask=None, window_chunk: int | None = None,
+               affine_cutoff: int = 1 << 15):
+    """Variable-base MSM  sum_i [k_i]P_i  for a curve over the base field.
+
+    xs, ys: affine coordinates [N, 1, nd]; scalar_digits: standard-form
+    digits [N, nd_r]; inf_mask: optional [N] bool of points at infinity.
+    Returns a projective point.
+
+    Tree levels with at least ``affine_cutoff`` output lanes use the batched
+    affine addition (pre kernel, shared inversion, post kernel: ~7
+    multiplies a lane and one field inversion a level); smaller levels, the
+    Fenwick walk and the bucket fold use the fused projective addition (14
+    multiplies a lane, no inversion).  The window sum is
+    B*Total - sum_b prefix_b: one negation instead of B per-bucket
+    subtractions.  The default cutoff is the JAX package's, kept so that
+    results stay comparable; it is not tuned for this card.
+    """
+    if curve.F.K != 1:
+        raise NotImplementedError(
+            f"msm_hybrid: {curve.name} is over a degree-{curve.F.K} "
+            f"extension; use msm_affine")
+    xs, ys, inf_mask, c, W, chunks = _window_chunks(
+        curve, xs, ys, scalar_digits, c, nbits, inf_mask, window_chunk)
+    n = xs.shape[0]
+    wc = chunks.shape[1]
+    B = (1 << c) - 1
+
+    def padd(p, q):
+        return EK.proj_add(curve, p, q)
+
+    def fenwick_step(acc, level, gidx, take):
+        kind, v = level
+        node = _gather(v, gidx)
+        if kind == "aff":
+            node = _aff_to_proj(curve, node)
+        return curve.select(take, padd(acc, node), acc)
+
+    def one_chunk(keys):
+        """(Total, sum_b prefix_b) per window of the chunk, projective
+        [wc, 1, nd].  The tree levels live only as long as this call."""
+        keys_s, pt = _sorted_chunk(xs, ys, inf_mask, keys)
+        cur = ("aff", pt)
+        levels = [cur]
+        cols = wc * n
+        while cols > wc:
+            kind, v = cur
+            if kind == "aff" and cols // 2 >= affine_cutoff:
+                cur = ("aff", _aff_add(curve, *_halves(v)))
+            else:
+                if kind == "aff":
+                    v = _aff_to_proj(curve, v)
+                cur = ("proj", padd(*_halves(v)))
+            levels.append(cur)
+            cols //= 2
+        kind, total = cur
+        if kind == "aff":
+            total = _aff_to_proj(curve, total)
+
+        acc = _fenwick_prefixes(levels, n, _bucket_counts(keys_s, c), B,
+                                curve.zero((wc * B,)), fenwick_step)
+        # pad B -> 2^c per window with infinity, then c fold levels
+        zero = curve.zero((wc, 1))
+        acc = tuple(torch.cat([a.reshape((wc, B) + a.shape[1:]), z], dim=1)
+                    .reshape((wc * (B + 1),) + a.shape[1:])
+                    for a, z in zip(acc, zero))
+        cols = wc * (B + 1)
+        while cols > wc:
+            acc = padd(*_halves(acc))
+            cols //= 2
+        return total, acc
+
+    parts = [one_chunk(keys) for keys in chunks]
+    total = tuple(torch.cat([p[0][k] for p in parts])[:W] for k in range(3))
+    psum = tuple(torch.cat([p[1][k] for p in parts])[:W] for k in range(3))
+    wsums = padd(curve.mul_const(total, B), curve.neg(psum))
+    return _fold_windows(curve, wsums, c)
+
+
+# ---------------------------------------------------------------------------
+# batched-affine Pippenger: any tower field, array code
+# ---------------------------------------------------------------------------
+
+def _affine_tree_levels(curve, pt, stop: int):
+    """Dyadic up-sweep over flat (x, y, inf) lanes until ``stop`` lanes are
+    left: levels[l] holds the sums of 2^l adjacent sorted points."""
+    levels = [pt]
+    while pt[0].shape[0] > stop:
+        pt = _aff_add(curve, *_halves(pt))
+        levels.append(pt)
+    return levels
+
+
+def msm_affine(curve: SWCurveOps, xs, ys, scalar_digits,
+               c: int | None = None, nbits: int | None = None,
+               inf_mask=None, window_chunk: int | None = None):
+    """Variable-base MSM with batched-affine additions throughout: every
+    addition is ``curve.batch_affine_add`` (~7 field multiplies with the
+    shared inversion, against 14 for the unified projective form).  Same
+    contract as ``msm_hybrid``, over any tower field (xs, ys [N, K, nd]).
+    A chunk of windows shares each addition, hence each root inversion."""
+    xs, ys, inf_mask, c, W, chunks = _window_chunks(
+        curve, xs, ys, scalar_digits, c, nbits, inf_mask, window_chunk)
+    n = xs.shape[0]
+    wc = chunks.shape[1]
+    B = (1 << c) - 1
+    F = curve.F
+
+    def fenwick_step(acc, level, gidx, take):
+        return _aff_select(take, _aff_add(curve, acc, _gather(level, gidx)),
+                           acc)
+
+    def one_chunk(keys):
+        """Window sums of the chunk as affine (x, y, inf) [wc]."""
+        keys_s, pt = _sorted_chunk(xs, ys, inf_mask, keys)
+        levels = _affine_tree_levels(curve, pt, wc)
+        total = levels[-1]
+        lanes = wc * B
+        zero = xs.new_zeros((lanes,) + xs.shape[1:])
+        acc = (zero, zero, torch.ones(lanes, dtype=torch.bool,
+                                      device=xs.device))
+        px, py, pinf = _fenwick_prefixes(
+            levels, n, _bucket_counts(keys_s, c), B, acc, fenwick_step)
+        # suffix_b = Total - prefix_b ; window sum = sum_b suffix_b
+        win_id = torch.arange(lanes, device=xs.device) // B
+        suffix = _aff_add(curve, _gather(total, win_id),
+                          (px, F.neg(py), pinf))
+        # pad B = 2^c - 1 to 2^c per window with infinity, then reduce
+        pad = (suffix[0].new_zeros((wc, 1) + xs.shape[1:]),) * 2 + (
+            pinf.new_ones((wc, 1)),)
+        padded = tuple(torch.cat([s.reshape((wc, B) + s.shape[1:]), z], dim=1)
+                       .reshape((wc * (B + 1),) + s.shape[1:])
+                       for s, z in zip(suffix, pad))
+        return _affine_tree_levels(curve, padded, wc)[-1]
+
+    parts = [one_chunk(keys) for keys in chunks]
+    wx, wy, winf = (torch.cat([p[k] for p in parts])[:W] for k in range(3))
+    return _fold_windows(curve, _aff_to_proj(curve, (wx, wy, winf)), c)
+
+
+# ---------------------------------------------------------------------------
+# prover-facing entries
+# ---------------------------------------------------------------------------
+
+def msm_batched(curve: SWCurveOps, jobs, c: int | None = None):
     """Prover-facing entry for several independent MSMs over one curve.
 
     jobs: list of (xs, ys, scalar_digits, inf_mask or None).  Returns one
-    projective point per job; the values are those of separate
-    ``msm_naive`` calls.  Every job must be below 2^12 points, where the
-    JAX package takes the double-and-add form on its accelerator path too;
-    larger jobs raise ``NotImplementedError``.
+    projective point per job.  The jobs below 2^12 points share one
+    double-and-add loop (the values of separate ``msm_naive`` calls); each
+    larger job goes to Pippenger on its own: ``msm_hybrid`` where the fused
+    curve kernels cover the curve, else ``msm_affine``.
     """
-    for xs, _, _, _ in jobs:
-        if xs.shape[0] >= NAIVE_BELOW:
-            raise NotImplementedError(
-                f"MSM of {xs.shape[0]} points: the hybrid Pippenger path "
-                f"for >= {NAIVE_BELOW} points arrives with the "
-                f"curve-addition and inversion-tree kernels (next slice of "
-                f"the port)")
-    return _msm_lanes(curve, jobs)
+    out = [None] * len(jobs)
+    small = [i for i, j in enumerate(jobs) if j[0].shape[0] < NAIVE_BELOW]
+    if small:
+        for i, res in zip(small, _msm_lanes(curve, [jobs[i] for i in small])):
+            out[i] = res
+    bucketed = msm_hybrid if EK.supports(curve) else msm_affine
+    for i, (xs, ys, sd, inf) in enumerate(jobs):
+        if out[i] is None:
+            out[i] = bucketed(curve, xs, ys, sd, c=c, inf_mask=inf)
+    return out
 
 
-def msm_bucketed(curve: SWCurveOps, xs, ys, scalar_digits, inf_mask=None):
+def msm_bucketed(curve: SWCurveOps, xs, ys, scalar_digits, inf_mask=None,
+                 c: int | None = None):
     """Prover-facing entry for one MSM: ``msm_batched`` with one job."""
-    return msm_batched(curve, [(xs, ys, scalar_digits, inf_mask)])[0]
+    return msm_batched(curve, [(xs, ys, scalar_digits, inf_mask)], c=c)[0]
 
 
 def fixed_base_msm(curve: SWCurveOps, base_affine, scalar_digits):

@@ -11,9 +11,13 @@ reproducible.
 Batching: in eager PyTorch a 768-step double-and-add loop takes about the
 same wall time for one lane as for thousands, so independent lanes of one
 group share a loop.  Setup runs one loop over G1 (all five queries and the
-three single elements) and one over G2; the prover runs one loop over G1
-(four MSMs and three multiples of delta), one over G2, and a second,
-two-lane loop over G1 for s*A + r*B1.  The results are those of the JAX
+three single elements) and one over G2.  The prover hands its MSMs to
+``ops.msm.msm_batched``: a query below 2^12 points is multiplied out in a
+loop shared with the other small jobs of its group (the three multiples of
+delta are always among them); a query of 2^12 points or more goes to
+Pippenger on its own -- ``msm_hybrid`` with the fused curve kernels for the
+G1 queries (a, b1, l, h), ``msm_affine`` for the G2 query (b2).  A second,
+two-lane loop over G1 gives s*A + r*B1.  The results are those of the JAX
 package's one-after-another calls.
 
 Verification needs the pairing, which is not ported yet: ``verify_proof``
@@ -240,14 +244,15 @@ def _create_proof_device(engine, compiled, params: Parameters, z, rd, sd,
     def single(affine, kd):
         return (affine[0][None], affine[1][None], kd, None)
 
-    # G1: a, b1, l, h queries and the three multiples of delta, one loop
+    # G1: a, b1, l, h queries and the three multiples of delta (small jobs
+    # share one loop, large ones take Pippenger)
     a_acc, b1_acc, l_acc, h_acc, r_delta, s_delta, rs_delta = \
         msm_mod.msm_batched(g1, [
             job(params.a_query, z_std), job(params.b_g1_query, z_std),
             job(params.l_query, aux_std), job(params.h_query, h_std),
             single(params.delta_g1, rd), single(params.delta_g1, sd),
             single(params.delta_g1, rsd)])
-    # G2: b2 query and s*delta, one loop
+    # G2: b2 query and s*delta, likewise
     b2_acc, s_delta2 = msm_mod.msm_batched(g2, [
         job(params.b_g2_query, z_std), single(params.delta_g2, sd)])
 

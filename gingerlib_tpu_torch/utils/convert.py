@@ -12,6 +12,11 @@ Takes numpy arrays and python ints only.  Two sources are understood:
 
 Both are read by attribute name, so nothing of the other package is
 imported.
+
+``points_from_numpy`` / ``points_to_numpy`` carry point batches across: an
+affine batch ``((x, y), inf)`` or a projective triple ``(X, Y, Z)`` of numpy
+arrays becomes the same nesting of tensors (digits int64, flags bool) and
+back, so that one set of seeded inputs can go through both packages.
 """
 
 from __future__ import annotations
@@ -48,6 +53,31 @@ def _host_points(curve, pts, device):
     ys = fpmod.fp_from_ints(curve.fp, flat_y).reshape(shape)
     return (_upload(xs, device), _upload(ys, device),
             torch.tensor(inf, dtype=torch.bool, device=device))
+
+
+def points_from_numpy(pt, device=None):
+    """A point batch as nested tuples of numpy arrays (digit arrays of any
+    integer dtype, bool flags) -> the same nesting of tensors on
+    ``device``: digits int64, flags bool."""
+    device = resolve_device(device)
+
+    def walk(v):
+        if isinstance(v, (tuple, list)):
+            return tuple(walk(c) for c in v)
+        a = np.asarray(v)
+        return _upload(a, device, np.bool_ if a.dtype == np.bool_
+                       else NP_DTYPE)
+
+    return walk(pt)
+
+
+def points_to_numpy(pt, dtype=np.uint32):
+    """The inverse of ``points_from_numpy``: digit tensors come back as
+    ``dtype`` (the JAX package keeps uint32), flags as bool."""
+    if isinstance(pt, (tuple, list)):
+        return tuple(points_to_numpy(c, dtype) for c in pt)
+    a = pt.detach().cpu().numpy()
+    return a if a.dtype == np.bool_ else a.astype(dtype)
 
 
 def params_from_numpy(engine, src, device=None) -> Parameters:

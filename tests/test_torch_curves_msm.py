@@ -174,12 +174,20 @@ def test_msm_bucketed_and_batched_equal_naive(curves, msm_case):
 
 
 def test_msm_bucketed_refuses_large_sizes(curves):
+    """No size is refused: 2^12 points and more go to Pippenger (here with
+    all-zero scalars, which must give infinity).  What is refused is the
+    hybrid form on a curve over an extension field, whose kernels exist for
+    the base field only."""
     _, tg = curves
     n = 1 << 12
     xs = tg.generator_affine[0].expand(n, -1, -1)
+    ys = tg.generator_affine[1].expand(n, -1, -1)
     sd = torch.zeros((n, 1), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="Pippenger"):
-        tmsm.msm_bucketed(tg, xs, xs, sd)
+    assert bool(tg.is_zero(tmsm.msm_bucketed(tg, xs, ys, sd)))
+    g2 = TCI.bls12_377_g2("cpu")
+    with pytest.raises(NotImplementedError, match="msm_affine"):
+        tmsm.msm_hybrid(g2, g2.generator_affine[0][None],
+                        g2.generator_affine[1][None], sd[:1])
 
 
 def test_fixed_base_msm_matches_jax(curves, jax_mul):

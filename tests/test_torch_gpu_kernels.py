@@ -1,0 +1,79 @@
+"""The port's curve kernels against their plain PyTorch versions, under
+pytest, on a machine with an NVIDIA GPU:
+
+    python -m pytest --noconftest tests/test_torch_gpu_kernels.py -q
+
+(``--noconftest`` because tests/conftest.py sets up JAX, which such a machine
+need not have; this file imports only torch and the port.)  Without a CUDA
+device every case skips: a CUDA kernel has no CPU form, and the CPU tests
+hold the plain versions against the JAX package instead.  Integer
+arithmetic: tolerance 0.
+"""
+
+import pytest
+import torch
+
+from gingerlib_tpu_torch.ops import ec_kernels as EK, msm as tmsm
+from test_torch_cases import affine_pairs, proj_pairs
+
+pytestmark = pytest.mark.gpu
+N = 64
+
+
+@pytest.fixture(scope="module", params=["bls12_377", "mnt4753"])
+def curve(request):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the curve kernels have no CPU form")
+    from gingerlib_tpu_torch.curves import instances as CI
+    return getattr(CI, request.param + "_g1")()
+
+
+@pytest.fixture(scope="module")
+def points(curve):
+    """N projective multiples of the generator and their affine form."""
+    k = torch.randint(1, 1 << 16, (N, 1), dtype=torch.int64,
+                      generator=torch.Generator().manual_seed(3))
+    proj = curve.mul_scalar_digits(curve.generator((N,)),
+                                   k.to(curve.device))
+    return proj, curve.to_affine(proj)
+
+
+def test_proj_add_matches_plain(curve, points):
+    P, Q = proj_pairs(curve, points[0])
+    for got, want in zip(EK.proj_add(curve, P, Q),
+                         EK.proj_add_plain(curve, P, Q)):
+        assert torch.equal(got, want)
+
+
+def test_batch_affine_add_matches_plain(curve, points):
+    a_pt, b_pt = affine_pairs(curve, points[1])
+    (gx, gy), ginf = curve.batch_affine_add(a_pt, b_pt)
+    (wx, wy), winf = EK.batch_affine_add_plain(curve, a_pt, b_pt)
+    assert torch.equal(gx, wx) and torch.equal(gy, wy) \
+        and torch.equal(ginf, winf)
+
+
+def test_inversion_levels_match_plain(curve, points):
+    """One level of the up and of the down kernel, on a ragged batch with
+    zeros, against their array forms."""
+    fp_params = curve.fp
+    x = points[1][0][:N - 3, 0].clone()
+    x[1] = x[8] = x[N - 4] = 0
+    pre_packed, roots = EK.inv_up_cuda(fp_params, x)
+    pre = EK.unpack_limbs(pre_packed)
+    want_pre, want_roots = EK.inv_up_plain(fp_params, x)
+    assert torch.equal(pre, want_pre) and torch.equal(roots, want_roots)
+    rinv = EK.batch_inverse(fp_params, roots)
+    assert torch.equal(EK.inv_down_cuda(fp_params, x, pre_packed, rinv),
+                       EK.inv_down_plain(fp_params, x, pre, rinv))
+    assert torch.equal(EK.batch_inverse(fp_params, x),
+                       EK.batch_inverse_plain(fp_params, x))
+
+
+def test_msm_hybrid_matches_naive(curve, points):
+    xs, ys = points[1]
+    sd = torch.randint(0, 1 << 16, (N, 2), dtype=torch.int64,
+                       generator=torch.Generator().manual_seed(4))
+    sd = sd.to(curve.device)
+    got = tmsm.msm_hybrid(curve, xs, ys, sd, c=4, affine_cutoff=16)
+    assert bool(curve.eq(got, tmsm.msm_naive(curve, xs, ys, sd)))

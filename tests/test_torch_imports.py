@@ -18,7 +18,11 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "gingerlib_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "gingerlib_tpu", "flax", "optax"}
 
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the package, the smoke script, and the tests that run on a machine with a
+# GPU, which need not have jax
+SOURCES = sorted(PKG.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu_kernels.py",
+    ROOT / "tests" / "test_torch_cases.py"]
 
 
 def imports_of(path: pathlib.Path):
@@ -35,7 +39,8 @@ def imports_of(path: pathlib.Path):
 
 def test_sources_found():
     names = {p.name for p in SOURCES}
-    assert {"fp.py", "sw.py", "groth16.py", "chip_smoke.py"} <= names
+    assert {"fp.py", "sw.py", "groth16.py", "chip_smoke.py", "ec_kernels.py",
+            "msm.py", "convert.py"} <= names
 
 
 @pytest.mark.parametrize(
@@ -47,7 +52,7 @@ def test_no_import_of_jax_or_the_jax_package(path):
             assert top not in FORBIDDEN, f"{path}:{line} imports {top}"
         else:
             # a relative import may climb to the package root, not past it
-            assert path != ROOT / "chip_smoke.py" and level <= depth, \
+            assert path.is_relative_to(PKG) and level <= depth, \
                 f"{path}:{line} leaves the package"
 
 
@@ -61,7 +66,8 @@ def _cpu_case():
 
 ENTRY_POINTS = ["compile_r1cs", "Domain", "mnt4753_g1", "mnt4753_g2",
                 "bls12_377_g1", "mnt4753_engine", "generate_parameters",
-                "create_proof", "params_from_numpy", "compiled_from_numpy"]
+                "create_proof", "params_from_numpy", "compiled_from_numpy",
+                "points_from_numpy"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
@@ -92,6 +98,7 @@ def test_device_none_raises_without_a_gpu(entry):
         "params_from_numpy": lambda: convert.params_from_numpy(eng, None),
         "compiled_from_numpy":
             lambda: convert.compiled_from_numpy(TP.BLS12_377_FR, None),
+        "points_from_numpy": lambda: convert.points_from_numpy(()),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
