@@ -8,7 +8,7 @@ What it does, in order (any failure raises, so the exit code is non-zero):
 1. requires a CUDA device, prints its name and power limit, and builds the
    CUDA kernels of ``gingerlib_tpu_torch/csrc`` from source;
 2. holds every kernel against its plain PyTorch version on the device, at the
-   shapes each proving path below gives it, with exact equality (integer
+   shapes each path below gives it, with exact equality (integer
    arithmetic: tolerance 0), and times both with CUDA events: the field
    kernels (multiply, add/sub/neg, binary-Euclid inverse) at the 2^10 rung's
    shapes and at the 2^16 rung's (2^17-row FFT passes, the setup loops'
@@ -18,22 +18,31 @@ What it does, in order (any failure raises, so the exit code is non-zero):
    every special lane mixed in;
 3. holds the Pippenger MSMs (``msm_hybrid`` on G1 at two cutoffs,
    ``msm_affine`` on G2) against ``msm_naive`` at 2^12 points, and times one
-   2^16-point MSM of each (``msm`` line; G1 at three cutoffs);
-4. drives the port's main path through its public entry points: Groth16 over
+   2^16-point MSM of each (``msm`` line; G1 at three cutoffs); then the pow
+   chain at [1, 48] and [4096, 48] (Legendre and square-root exponents of
+   MNT4-753 Fq and Fr, a short one) and the Poseidon permutation on the zero
+   state and on 2^15 seeded sponges with special lanes, both parameter sets;
+4. drives the port's paths through their public entry points: Groth16 over
    MNT4-753 on the chained-multiplication benchmark circuit at 2^6, 2^10 and
    2^16 constraints (4 inputs): ``compile_r1cs`` -> ``generate_parameters``
-   -> ``create_proof`` with pinned toxic waste and blinding.  Below 2^12
+   -> ``create_proof`` with pinned toxic waste and blinding (below 2^12
    points an MSM is a double-and-add loop; the 2^16 rung goes through the
-   Pippenger paths and the curve kernels;
-5. checks the result: each device proof equals the closed-form python-int
+   Pippenger paths and the curve kernels); ``legendre`` and ``sqrt_mod`` on
+   2^12 elements of MNT4-753 Fr and Fq; and a 2^16-leaf MNT4-753 Poseidon
+   Merkle tree of height 17 (``merkle`` line);
+5. checks the results: each device proof equals the closed-form python-int
    oracle coordinate for coordinate, a repeat gives the same proof, a proof
-   with another ``s`` differs, and the launch counters, set to zero before
-   each rung, show that the 2^10 rung went through every field kernel and
-   the 2^16 rung through every curve kernel as well;
+   with another ``s`` differs; the Legendre symbols, roots and masks agree
+   with python ints; the tree equals the one the plain permutation builds on
+   the device, sixteen sampled paths verify and hash to its root in python
+   ints, a wrong leaf is refused, a 2^10-leaf tree equals the python-int tree
+   node for node, and the phantom root holds; and the launch counters, set to
+   zero before each path, show that every kernel was launched on the path
+   that reaches it;
 6. prints the kernel table as one JSON line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
-Nothing here runs on the CPU except the python-int oracle.
+Nothing here runs on the CPU except the python-int oracles.
 
 ``--time-plain-addsub`` adds one measurement (minutes long) before the last
 lines: setup and prove at 2^6 constraints with the modular add, subtract and
@@ -80,6 +89,14 @@ def main():
     from gingerlib_tpu_torch.fields import fp
     from gingerlib_tpu_torch.ops import cuda_lib, ec_kernels, limbs
     from gingerlib_tpu_torch.ops import msm as msm_mod
+    from gingerlib_tpu_torch.ops import poseidon_kernels as PK
+    from gingerlib_tpu_torch.params._gen import poseidon_gen
+    from gingerlib_tpu_torch.params._gen.merkle_gen import \
+        MNT4753_PHANTOM_MERKLE_ROOT
+    from gingerlib_tpu_torch.primitives.merkle import FieldBasedMerkleTree
+    from gingerlib_tpu_torch.primitives.poseidon import (PoseidonHash,
+                                                         PoseidonParams)
+    from gingerlib_tpu_torch.primitives.poseidon_host import PoseidonHost
     from gingerlib_tpu_torch.proofs import groth16, groth16_host
     from gingerlib_tpu_torch.relations.r1cs import compile_r1cs
 
@@ -130,6 +147,18 @@ def main():
         e1.record()
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / reps
+
+    def event_seconds(fn):
+        """(result, seconds) of one call, between CUDA events: for work too
+        long to repeat."""
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return out, e0.elapsed_time(e1) / 1e3
 
     def bound(nbytes, nops):
         """(bound_ms, bound_by): the larger of the bytes over the memory
@@ -222,11 +251,11 @@ def main():
         compare(f"inv_bea {small.name}", fp.inv_bea(small, xs),
                 fp.inv_bea_plain(small, xs))
 
-    def bea_steps(v):
+    def bea_steps(v, modulus):
         """(halvings, subtractions) the binary Euclid loop needs for v."""
         if v == 0:
             return 0, 0
-        u, w, halv, subs = v, p, 0, 0
+        u, w, halv, subs = v, modulus, 0, 0
         while u != 1 and w != 1:
             while u % 2 == 0:
                 u //= 2
@@ -360,7 +389,7 @@ def main():
     errs16, field_rows, at_g1 = field_kernels_at_2p16_shapes()
     print("field_kernel_shapes " + json.dumps(field_rows), flush=True)
 
-    halv, subs = bea_steps(limbs.from_digits(inv_one[0]))
+    halv, subs = bea_steps(limbs.from_digits(inv_one[0]), p)
     work = {
         # name: (bytes moved, 32-bit integer operations)
         "mont_mul": (3 * N * elem_bytes, N * MUL_OPS),
@@ -750,16 +779,6 @@ def main():
             wa = curve.to_affine(tuple(c[None] for c in want))
             compare_all(name + " affine digits", ga, wa)
 
-        def event_seconds(fn):
-            torch.cuda.synchronize()
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            out = fn()
-            e1.record()
-            torch.cuda.synchronize()
-            return out, e0.elapsed_time(e1) / 1e3
-
         n12 = 1 << 12
         for curve in (g1, g2):
             _, (ax, ay), _ = multiples(curve, n12, seed=9)
@@ -812,6 +831,188 @@ def main():
         print("msm " + json.dumps(msm_line), flush=True)
 
     msm_section()
+
+    # ------------------------------------------------------------------
+    # 3b. the pow chain (K3) and the Poseidon permutation (K9) against
+    #     their plain versions, on the device
+    # ------------------------------------------------------------------
+
+    def field_elems(F, n, seed, bound=None):
+        """n seeded integers below ``bound`` (default p) of field F: the
+        python ints and their digits on the device (standard form)."""
+        raw = torch.randint(0, 1 << 16, (n, F.n_digits + 4), dtype=torch.int64,
+                            generator=torch.Generator().manual_seed(seed))
+        vals = [v % (bound or F.modulus) for v in limbs.from_digits_batch(raw)]
+        return vals, torch.from_numpy(
+            limbs.to_digits_batch(vals, F.n_digits)).to(dev)
+
+    POW_N = 1 << 12          # the field-API phase's batch
+
+    def pow_section():
+        """K3 against ``pow_const_plain`` at [1, 48] and [4096, 48] for the
+        Legendre and square-root exponents of MNT4-753 Fq and Fr and one
+        short exponent; returns (max error, the rows)."""
+        cases = []
+        for F in (fq, fr):
+            cases += [(F, "legendre", F.legendre_exp_bits),
+                      (F, "sqrt", F.sqrt_exp_bits)]
+        cases.append((fq, "short 0x9e3779b9",
+                      limbs.bits_msb_first(0x9E3779B9, 32)))
+        err, rows = 0, []
+        for F, label, bits in cases:
+            _, a = field_elems(F, POW_N, seed=21)
+            a[:3] = torch.from_numpy(limbs.to_digits_batch(
+                [0, F.r, F.modulus - 1], F.n_digits)).to(dev)
+            nbits, ones = len(bits), int(bits.sum())
+            for n in (1, POW_N):
+                x = a[5:6] if n == 1 else a
+                got = fp.pow_const(F, x, bits)
+                want, plain_s = event_seconds(
+                    lambda: fp.pow_const_plain(F, x, bits))
+                case_err = compare(f"pow_const {F.name} {label} [{n},48]",
+                                   got, want)
+                err = max(err, case_err)
+                # bits squarings and popcount multiplies an element
+                b_ms, b_by = bound(2 * n * elem_bytes,
+                                   n * (nbits + ones) * MUL_OPS)
+                rows.append({"field": F.name, "exponent": label,
+                             "bits": nbits, "rows": n,
+                             "max_abs_err": case_err,
+                             "ms": time_ms(lambda: fp.pow_const(F, x, bits),
+                                           5),
+                             "plain_ms": plain_s * 1e3, "bound_ms": b_ms,
+                             "bound_by": b_by})
+        for small in (PP.BLS12_377_FQ, PP.BLS12_377_FR):
+            _, x = field_elems(small, 64, seed=22)
+            bits = small.legendre_exp_bits
+            err = max(err, compare(
+                f"pow_const {small.name}", fp.pow_const(small, x, bits),
+                fp.pow_const_plain(small, x, bits)))
+        return err, rows
+
+    pow_err, pow_rows = pow_section()
+    print("pow_kernel_shapes " + json.dumps(pow_rows), flush=True)
+
+    P4 = PoseidonParams.mnt4753()
+    P6 = PoseidonParams.mnt6753()
+    host4 = PoseidonHost.mnt4753()
+    host6 = PoseidonHost.mnt6753()
+    POS_B = 1 << 15          # the 2^16-leaf tree's largest level
+
+    def plain_permute_roots(P, state):
+        """Runs ``permute_plain`` and returns (its output, the plain
+        integers its shared inversions took, one a round): the inputs of
+        the function's own inversions."""
+        roots, real = [], fp.inv_bea
+
+        def record(F, a):
+            roots.append(a)
+            return real(F, a)
+        fp.inv_bea = record
+        try:
+            out = PK.permute_plain(P, state)
+        finally:
+            fp.inv_bea = real
+        return out, [limbs.from_digits(r[0].cpu()) for r in roots]
+
+    def permute_work(P, n, roots):
+        """(bytes, 32-bit integer operations) the permutation of n sponges
+        needs: 3 elements in and out a sponge; a round's S-box by ONE
+        shared inversion for the whole batch, 3 multiplies for each element
+        it inverts (3 a sponge in a full round, 1 in a partial one) and the
+        binary-Euclid halvings (3L) and subtractions (4L) of the round's
+        root, counted as K2's row counts them; 9 multiplies and 6 modular
+        additions for the mix of each round but the last, and 3 additions
+        of round constants a round."""
+        muls = n * (9 * (2 * P.r_f) + 3 * P.r_p + 9 * (P.n_rounds - 1))
+        adds = n * (6 * (P.n_rounds - 1) + 3 * P.n_rounds)
+        bea = sum(h * 3 * L + s * 4 * L for h, s in
+                  (bea_steps(v, P.field.modulus) for v in roots))
+        return (2 * n * 3 * elem_bytes, muls * MUL_OPS + adds * 2 * L + bea)
+
+    def poseidon_section():
+        """K9 against ``permute_plain``: the zero state of both parameter
+        sets, then 2^15 seeded sponges with special lanes, some lanes also
+        against the python-int oracle; returns (max error, the rows)."""
+        err, rows = 0, []
+        for name, P, host in (("mnt4753", P4, host4), ("mnt6753", P6, host6)):
+            F = P.field
+            zero = torch.zeros((1, 3, nd), dtype=torch.int64, device=dev)
+            got = PK.permute(P, zero)
+            err = max(err, compare(f"poseidon {name} zero state", got,
+                                   PK.permute_plain(P, zero)))
+            if not torch.equal(got[0], P.after_zero_perm):
+                raise AssertionError(f"poseidon {name}: the zero state does "
+                                     f"not give AFTER_ZERO_PERM")
+            vals, flat = field_elems(F, 3 * POS_B, seed=23)
+            state = fp.to_mont(F, flat).reshape(POS_B, 3, nd)
+            p_1 = fp.to_mont(F, torch.from_numpy(limbs.to_digits_batch(
+                [F.modulus - 1], nd)).to(dev))[0]
+            neg_rc0 = fp.neg_mod(F, P.rc[0])
+            state[0] = 0                       # the all-zero state
+            state[1] = neg_rc0                 # zero after the first add
+            state[2, 1] = neg_rc0[1]           # one element zero after it
+            state[3] = p_1                     # p - 1 everywhere
+            state[4, 0] = p_1
+            state[5, 2] = 0
+            got = PK.permute_cuda(P, state)
+            want, plain_s = event_seconds(lambda: PK.permute_plain(P, state))
+            _, roots = plain_permute_roots(P, state)
+            if len(roots) != P.n_rounds:
+                raise AssertionError(f"poseidon {name}: the plain version "
+                                     f"inverted {len(roots)} times, not once "
+                                     f"a round")
+            err = max(err, compare(f"poseidon {name} [{POS_B},3,48]", got,
+                                   want))
+            head = fp.fp_to_ints(F, state[:8].reshape(-1, nd).cpu())
+            outs = fp.fp_to_ints(F, got[:8].reshape(-1, nd).cpu())
+            for i in range(8):
+                lane = slice(3 * i, 3 * i + 3)
+                if host.permute(head[lane]) != outs[lane]:
+                    raise AssertionError(f"poseidon {name} lane {i}: not the "
+                                         f"python-int permutation")
+            b_ms, b_by = bound(*permute_work(P, POS_B, roots))
+            row = {"params": name, "sponges": POS_B, "max_abs_err": err,
+                   "ms": time_ms(lambda: PK.permute(P, state), 5),
+                   "plain_ms": plain_s * 1e3, "bound_ms": b_ms,
+                   "bound_by": b_by,
+                   # diagnostic, not the bound: the kernel's design inverts
+                   # once a round in every sponge, the function once a round
+                   "inversions_by_the_kernel": POS_B * P.n_rounds,
+                   "inversions_the_function_needs": P.n_rounds}
+            _, plain1_s = event_seconds(
+                lambda: PK.permute_plain(P, state[6:7]))
+            _, roots1 = plain_permute_roots(P, state[6:7])
+            b1_ms, b1_by = bound(*permute_work(P, 1, roots1))
+            row["one_sponge"] = {
+                "ms": time_ms(lambda: PK.permute(P, state[6:7]), 10),
+                "plain_ms": plain1_s * 1e3, "bound_ms": b1_ms,
+                "bound_by": b1_by}
+            rows.append(row)
+        return err, rows
+
+    pos_err, pos_rows = poseidon_section()
+    print("poseidon_kernel_shapes " + json.dumps(pos_rows), flush=True)
+    print("pow chain and Poseidon kernels agree with their plain versions on "
+          "the device (tolerance 0)", flush=True)
+    for name, row, source, replaces in (
+            ("pow_const", next(r for r in pow_rows if r["rows"] == POW_N
+                               and r["field"] == fq.name
+                               and r["exponent"] == "legendre"),
+             "gingerlib_tpu_torch/csrc/pow_const.cu",
+             "gingerlib_tpu/ops/pallas_mont.py:864"),
+            ("poseidon_permute", pos_rows[0],
+             "gingerlib_tpu_torch/csrc/poseidon.cu",
+             "gingerlib_tpu/ops/pallas_poseidon.py:503")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0,
+            "max_abs_err": pow_err if name == "pow_const" else pos_err,
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            # no PyTorch call computes a modular power or a permutation
+            "library_ms": None,
+        })
 
     # ------------------------------------------------------------------
     # 4./5. the main path
@@ -957,6 +1158,160 @@ def main():
         raise AssertionError("the field kernels were not held at the lane "
                              "counts of this rung's setup loops")
 
+    # ------------------------------------------------------------------
+    # 4b. the field API: Legendre symbol and square root (K3)
+    # ------------------------------------------------------------------
+
+    def field_api_phase():
+        """``legendre`` and ``sqrt_mod`` on 2^12 elements of MNT4-753 Fr and
+        Fq, half of them squares, one of them zero, held against python
+        ints: Euler's criterion, x^2 = a, and the mask."""
+        inputs = {}
+        for seed, F in enumerate((fr, fq)):
+            xs, _ = field_elems(F, POW_N, seed=31 + seed)
+            others, _ = field_elems(F, POW_N, seed=41 + seed)
+            p_ = F.modulus
+            vals = [x * x % p_ for x in xs[:POW_N // 2]] + others[POW_N // 2:]
+            vals[0] = 0
+            inputs[F.name] = (F, vals, torch.from_numpy(
+                fp.fp_from_ints(F, vals)).to(dev))
+        out = {"elements": POW_N}
+        fp.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        results = {name: (fp.legendre(F, a), *fp.sqrt_mod(F, a))
+                   for name, (F, _, a) in inputs.items()}
+        torch.cuda.synchronize()
+        out["seconds"] = time.perf_counter() - t
+        out["path_launches"] = {k: v for k, v in fp.launch_counts.items()
+                                if v}
+        for name, (F, vals, _) in inputs.items():
+            leg, root, ok = results[name]
+            p_ = F.modulus
+            roots = fp.fp_to_ints(F, root.cpu())
+            squares = 0
+            for v, sym, r, has in zip(vals, leg.tolist(), roots, ok.tolist()):
+                e = pow(v, (p_ - 1) // 2, p_)
+                want = 0 if v == 0 else (1 if e == 1 else -1)
+                if sym != want or has != (want >= 0):
+                    raise AssertionError(f"{name}: legendre or the sqrt "
+                                         f"mask disagrees with Euler's "
+                                         f"criterion")
+                if has and r * r % p_ != v:
+                    raise AssertionError(f"{name}: sqrt_mod root squared is "
+                                         f"not the input")
+                squares += has
+            if squares < POW_N // 2:
+                raise AssertionError(f"{name}: fewer squares than were made")
+            out[f"{name}_squares"] = squares
+        return out
+
+    field_api = field_api_phase()
+    print("field_api " + json.dumps(field_api), flush=True)
+
+    # ------------------------------------------------------------------
+    # 4c. the Poseidon Merkle tree (K9): 2^16 leaves, height 17
+    # ------------------------------------------------------------------
+
+    class PlainHash(PoseidonHash):
+        """The same sponge over the plain permutation (array code)."""
+        def permute(self, state):
+            return PK.permute_plain(self.p, state)
+
+    def host_root(leaves, height):
+        """Levels and root of the tree by the python-int oracle."""
+        levels = [list(leaves)]
+        while len(levels[-1]) > 1:
+            cur = levels[-1]
+            levels.append([host4.evaluate([cur[i], cur[i + 1]])
+                           for i in range(0, len(cur), 2)])
+        root = levels[-1][0]
+        empty = host4.evaluate([1])
+        for _ in range(len(levels), height):
+            root = host4.evaluate([root, empty])
+        return levels, root
+
+    def merkle_rung(log2=16):
+        F = P4.field
+        h = PoseidonHash(P4)
+        n, height = 1 << log2, log2 + 1
+        leaf_ints, _ = field_elems(F, n, seed=51)
+        leaves = torch.from_numpy(fp.fp_from_ints(F, leaf_ints)).to(dev)
+        out = {"leaves": n, "height": height}
+        fp.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tree = FieldBasedMerkleTree(h, height).build(leaves)
+        torch.cuda.synchronize()
+        out["build_first_s"] = time.perf_counter() - t
+        out["path_launches"] = {k: v for k, v in fp.launch_counts.items()
+                                if v}
+        out["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        hashes = n - 1 + len(tree.padding)
+        t = time.perf_counter()
+        again = FieldBasedMerkleTree(h, height).build(leaves)
+        torch.cuda.synchronize()
+        out["build_steady_s"] = time.perf_counter() - t
+        out["hashes"] = hashes
+        out["hashes_per_s"] = hashes / out["build_steady_s"]
+        if not torch.equal(again.root(), tree.root()):
+            raise AssertionError("merkle: two builds gave two roots")
+        plain, out["plain_build_s"] = event_seconds(
+            lambda: FieldBasedMerkleTree(PlainHash(P4), height).build(leaves))
+        for lvl, (a, b) in enumerate(zip(tree.levels, plain.levels)):
+            compare(f"merkle level {lvl}", a, b)
+        compare("merkle root", tree.root(), plain.root())
+        # one 2 -> 1 hash at a batch of one and at the largest level's
+        for b in (1, n // 2):
+            out[f"hash_2_1_ms_batch_{b}"] = time_ms(
+                lambda: h.hash_2_1(leaves[0:2 * b:2], leaves[1:2 * b:2]), 3)
+        # sampled paths, on the device and by the python-int oracle
+        root_int = fp.fp_to_int(F, tree.root().cpu())
+        picks = torch.randint(0, n, (16,), generator=torch.Generator()
+                              .manual_seed(52)).tolist()
+        for i in picks:
+            path = tree.generate_proof(i)
+            if not tree.verify_proof(tree.root(), leaves[i], path):
+                raise AssertionError(f"merkle: the path of leaf {i} does not "
+                                     f"verify")
+            cur = leaf_ints[i]
+            for sib, right in path:
+                s_ = fp.fp_to_int(F, sib.cpu())
+                cur = host4.evaluate([s_, cur] if right else [cur, s_])
+            if cur != root_int:
+                raise AssertionError(f"merkle: the path of leaf {i} does not "
+                                     f"hash to the root in python ints")
+        wrong = fp.add_mod(F, leaves[picks[0]], fp.to_mont(
+            F, torch.from_numpy(limbs.to_digits(1, nd)).to(dev)))
+        if tree.verify_proof(tree.root(), wrong,
+                             tree.generate_proof(picks[0])):
+            raise AssertionError("merkle: a wrong leaf verified")
+        out["paths_verified"] = len(picks)
+        # 2^10 leaves at height 12 (one padding hash): every node against the
+        # python-int oracle
+        small = FieldBasedMerkleTree(h, 12).build(leaves[:1 << 10])
+        want_levels, want_root = host_root(leaf_ints[:1 << 10], 12)
+        for lvl, (got, want) in enumerate(zip(small.levels, want_levels)):
+            if fp.fp_to_ints(F, got.cpu()) != want:
+                raise AssertionError(f"merkle 2^10: level {lvl} differs from "
+                                     f"the python-int tree")
+        if len(small.padding) != 1 or \
+                fp.fp_to_int(F, small.root().cpu()) != want_root:
+            raise AssertionError("merkle 2^10: root differs from the "
+                                 "python-int tree")
+        # the phantom root (field_based_mht/mod.rs:300-315)
+        magic = (b"This represents an empty Merkle Root for a "
+                 b"MNT4753PoseidonHash based Merkle Tree.")
+        x = int.from_bytes(magic + b"\x00" * ((753 + 15) // 8 - len(magic)),
+                           "little")
+        if h.evaluate_ints([[x]])[0] != MNT4753_PHANTOM_MERKLE_ROOT:
+            raise AssertionError("merkle: the phantom root does not hold")
+        return out
+
+    merkle = merkle_rung()
+    print("merkle " + json.dumps(merkle), flush=True)
+
     if args.time_plain_addsub:
         def setup_and_prove():
             torch.cuda.synchronize()
@@ -980,15 +1335,23 @@ def main():
         out["kernels_after"] = setup_and_prove()
         print("plain_addsub " + json.dumps(out), flush=True)
 
-    # launches: of the field kernels on the 2^10 path, of the curve kernels
-    # on the 2^16 path, which is the one that reaches them; the 2^16 counts
-    # of all ten beside them
+    # launches, each kernel on the path that reaches it: the field kernels
+    # on the 2^10 path, the curve kernels on the 2^16 path, K3 on the field
+    # API, K9 on the Merkle rung; the 2^16 counts of the Groth16 kernels
+    # beside them
+    paths = {"groth16_2p10": big, "groth16_2p16": full,
+             "field_api": field_api, "merkle_2p16": merkle}
+    path_of = dict.fromkeys(curve_meta, "groth16_2p16")
+    path_of.update(pow_const="field_api", poseidon_permute="merkle_2p16")
     for k in kernels:
         name = k["name"]
-        on_path = full if name in curve_meta else big
-        k["launches"] = on_path["path_launches"][name]
-        k["launches_2p16_path"] = full["path_launches"][name]
-        if k["launches"] <= 0 or k["launches_2p16_path"] <= 0:
+        k["path"] = path_of.get(name, "groth16_2p10")
+        k["launches"] = paths[k["path"]]["path_launches"].get(name, 0)
+        if k["path"].startswith("groth16"):
+            k["launches_2p16_path"] = full["path_launches"][name]
+            if k["launches_2p16_path"] <= 0:
+                raise AssertionError(f"the 2^16 path never launched {name}")
+        if k["launches"] <= 0:
             raise AssertionError(f"the main path never launched {name}")
 
     print(card)

@@ -5,7 +5,9 @@
 // The TPU kernel runs a fixed bound of masked iterations over a whole tile
 // because its lanes cannot branch; a CUDA thread can, so each thread runs
 // the textbook data-dependent loop on its own element (u, v, b, c in
-// registers as 32-bit limbs) and stops when u or v reaches 1.
+// registers as 32-bit limbs) and stops when u or v reaches 1.  The loop is
+// gl::inv_bea_mem of fp_limbs.cuh, which the Poseidon kernel (poseidon.cu)
+// runs per thread as well.
 //
 // This is a latency kernel: on the proving path the batch is ONE element
 // (the root of a shared-inversion tree, or the Z of one point), so a single
@@ -28,56 +30,15 @@ __global__ void __launch_bounds__(64)
 inv_bea_kernel(const long long* __restrict__ a, long long* __restrict__ out,
                int n, const gl::FpConst<ND / 2> K) {
   constexpr int L = ND / 2;
+  __shared__ uint32_t P[L];
+  if (threadIdx.x < L) P[threadIdx.x] = K.p[threadIdx.x];
+  __syncthreads();
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  uint32_t u[L], v[L], b[L], c[L], t[L];
-  gl::load_digits<L>(a + (size_t)i * ND, u);
-#pragma unroll
-  for (int j = 0; j < L; j++) {
-    v[j] = K.p[j];
-    b[j] = 0;
-    c[j] = 0;
-  }
-  b[0] = 1;
-
-  if (!gl::is_zero<L>(u)) {
-    // every pass of the outer loop removes at least one bit from u or v,
-    // so 2 * 32 * L + 2 passes suffice for any input coprime to p; the cap
-    // only keeps a malformed input (a multiple of p) from spinning forever
-    int guard = 64 * L + 2;
-    while (!gl::is_one<L>(u) && !gl::is_one<L>(v) && guard-- > 0) {
-      while ((u[0] & 1u) == 0 && !gl::is_zero<L>(u)) {
-        gl::shr1<L>(u, 0);
-        gl::half_mod<L>(b, K.p);
-      }
-      while ((v[0] & 1u) == 0) {
-        gl::shr1<L>(v, 0);
-        gl::half_mod<L>(c, K.p);
-      }
-      uint32_t borrow = gl::sub_limbs<L>(u, v, t);
-      if (borrow == 0) {  // u >= v
-#pragma unroll
-        for (int j = 0; j < L; j++) u[j] = t[j];
-        gl::sub_mod<L>(b, c, K.p, t);
-#pragma unroll
-        for (int j = 0; j < L; j++) b[j] = t[j];
-      } else {
-        gl::sub_limbs<L>(v, u, t);
-#pragma unroll
-        for (int j = 0; j < L; j++) v[j] = t[j];
-        gl::sub_mod<L>(c, b, K.p, t);
-#pragma unroll
-        for (int j = 0; j < L; j++) c[j] = t[j];
-      }
-    }
-    bool take_b = gl::is_one<L>(u);
-#pragma unroll
-    for (int j = 0; j < L; j++) t[j] = take_b ? b[j] : c[j];
-  } else {
-#pragma unroll
-    for (int j = 0; j < L; j++) t[j] = 0;
-  }
-  gl::store_digits<L>(out + (size_t)i * ND, t);
+  uint32_t x[L], y[L];
+  gl::load_digits<L>(a + (size_t)i * ND, x);
+  gl::inv_bea_mem<L>(x, P, y);
+  gl::store_digits<L>(out + (size_t)i * ND, y);
 }
 
 template <int ND>

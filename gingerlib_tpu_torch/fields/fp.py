@@ -16,8 +16,8 @@ packed into one 32-bit limb (same ``R``), which is why the kernels exist for
 even ``n_digits`` only.
 
 Dispatch (the one place where CPU and GPU part ways): ``mont_mul``,
-``add_mod``, ``sub_mod``, ``neg_mod`` and ``inv_bea`` look at where their
-tensors live.  If any operand is a CUDA tensor the call goes to the
+``add_mod``, ``sub_mod``, ``neg_mod``, ``inv_bea`` and ``pow_const`` look at
+where their tensors live.  If any operand is a CUDA tensor the call goes to the
 hand-written kernel in ``csrc/``, whose wrapper raises unless all operands
 are on that device; CPU tensors go to the plain PyTorch version beside it.
 There is no fallback and no switch.
@@ -37,6 +37,11 @@ Kernels held here (source notes in the ``.cu`` files):
 * ``add_mod/sub_mod/neg_mod`` -> ``csrc/fp_addsub.cu``; no TPU kernel of
   their own (XLA fused them), added because eager launches of their plain
   form would dominate the prover.  Bound by bytes.
+* ``pow_const`` -> ``csrc/pow_const.cu``; replaces ``pow_const_pallas``.  One
+  thread per element runs the whole square-and-multiply ladder of a fixed
+  exponent in one launch; bound by its multiplies (``bits + popcount`` an
+  element), a dependent chain per thread.  It carries ``legendre`` and
+  ``sqrt_mod``.
 
 Each wrapper counts its launches in ``launch_counts``.
 """
@@ -128,6 +133,28 @@ class FpParams:
         back to Montgomery form with one multiply."""
         return limbs.to_digits(pow(self.r, 3, self.modulus), self.n_digits)
 
+    # exponent bit arrays (MSB first) for the fixed-exponent ladder
+    @functools.cached_property
+    def inv_exp_bits(self) -> np.ndarray:  # p - 2
+        e = self.modulus - 2
+        return limbs.bits_msb_first(e, e.bit_length())
+
+    @functools.cached_property
+    def legendre_exp_bits(self) -> np.ndarray:  # (p-1)/2
+        e = (self.modulus - 1) >> 1
+        return limbs.bits_msb_first(e, e.bit_length())
+
+    @functools.cached_property
+    def sqrt_exp_bits(self) -> np.ndarray:  # (t-1)/2 for Tonelli-Shanks
+        e = (self.t - 1) >> 1
+        return limbs.bits_msb_first(e, max(1, e.bit_length()))
+
+    @functools.cached_property
+    def ts_c_mont(self) -> np.ndarray:
+        """Tonelli-Shanks initial c = generator^t, in Montgomery form."""
+        c = pow(self.generator, self.t, self.modulus)
+        return limbs.to_digits(c * self.r % self.modulus, self.n_digits)
+
     # --- what the kernels take: the modulus as 32-bit limbs (host memory)
     # and -p^-1 mod 2^32 ---
     @functools.cached_property
@@ -145,6 +172,15 @@ class FpParams:
     @functools.cached_property
     def inv32(self) -> int:
         return self.nprime & 0xFFFFFFFF
+
+    @functools.cached_property
+    def kernel_consts(self) -> np.ndarray:
+        """[p | 0 | one] as 32-bit limbs in host memory: the [p | a | one]
+        that the kernels of a curve take, for the field alone (a = 0)."""
+        n = (self.n_digits + 1) // 2
+        return np.concatenate([
+            self.modulus_limbs32, np.zeros(n, dtype="<u4"),
+            np.frombuffer(self.r.to_bytes(4 * n, "little"), dtype="<u4")])
 
     def tensor(self, name: str, device) -> torch.Tensor:
         """The constant digit vector ``name`` (``modulus_digits``,
@@ -166,7 +202,9 @@ launch_counts = {"mont_mul": 0, "inv_bea": 0, "fp_add": 0, "fp_sub": 0,
                  "fp_neg": 0,
                  # the curve kernels of ops/ec_kernels.py count here too
                  "ec_proj_add": 0, "ec_affine_pre": 0, "ec_affine_post": 0,
-                 "inv_tree_up": 0, "inv_tree_down": 0}
+                 "inv_tree_up": 0, "inv_tree_down": 0, "pow_const": 0,
+                 # and the Poseidon kernel of ops/poseidon_kernels.py
+                 "poseidon_permute": 0}
 
 
 def reset_launch_counts():
@@ -521,6 +559,160 @@ def inv_mod(params: FpParams, a):
     Montgomery form."""
     y = inv_bea(params, a)
     return mont_mul(params, y, params.tensor("r3_digits", a.device))
+
+
+# ---------------------------------------------------------------------------
+# exponentiation, Legendre symbol, square root
+# ---------------------------------------------------------------------------
+
+POW_MAX_BITS = 1024   # the longest exponent the kernel takes
+
+
+def pow_const_plain(params: FpParams, a, exp_bits):
+    """a^e for a fixed exponent given as an MSB-first bit array, Montgomery
+    in and out, in plain PyTorch: square, and multiply where the bit is
+    set."""
+    r = params.tensor("one_mont", a.device).expand(a.shape)
+    for bit in np.asarray(exp_bits).tolist():
+        r = mont_mul_plain(params, r, r)
+        if bit:
+            r = mont_mul_plain(params, r, a)
+    return r
+
+
+def pow_const_cuda(params: FpParams, a, exp_bits):
+    """Launch the pow-chain kernel on a CUDA tensor: the whole ladder in one
+    launch."""
+    _check_operand(params, a, "pow_const")
+    bits = np.ascontiguousarray(np.asarray(exp_bits) != 0, dtype=np.uint8)
+    if bits.ndim != 1 or bits.size > POW_MAX_BITS:
+        raise ValueError(f"pow_const: the kernel takes one exponent of at "
+                         f"most {POW_MAX_BITS} bits, got shape {bits.shape}")
+    a_c = a.contiguous()
+    if a_c.data_ptr() & 15:
+        a_c = a_c.clone()
+    out = torch.empty_like(a_c)
+    n = out.numel() // params.n_digits
+    rc = _kernel("gl_pow_const")(
+        params.n_digits, a_c.data_ptr(), out.data_ptr(), n, bits.ctypes.data,
+        bits.size, params.kernel_consts.ctypes.data, params.inv32,
+        _raw_stream(a))
+    if rc != 0:
+        raise RuntimeError(f"pow_const: kernel launch failed (code {rc})")
+    if n:
+        launch_counts["pow_const"] += 1
+    return out
+
+
+def pow_const(params: FpParams, a, exp_bits):
+    """a^e, Montgomery in and out, for a fixed exponent given as an
+    MSB-first bit array (host numpy): kernel on the GPU, plain on the CPU."""
+    if a.is_cuda:
+        return pow_const_cuda(params, a, exp_bits)
+    return pow_const_plain(params, a, exp_bits)
+
+
+def pow_dyn(params: FpParams, a, exp_digits):
+    """a^e with an exponent per element, given as standard-form digits
+    [..., k]: the bits of all k digits, MSB first, each a squaring and a
+    selected multiply (array code over ``mont_mul``)."""
+    n_bits = exp_digits.shape[-1] * DIGIT_BITS
+    r = params.tensor("one_mont", a.device).expand(a.shape)
+    for i in range(n_bits - 1, -1, -1):
+        r = mont_sqr(params, r)
+        bit = (exp_digits[..., i // DIGIT_BITS] >> (i % DIGIT_BITS)) & 1
+        r = torch.where((bit != 0).unsqueeze(-1), mont_mul(params, r, a), r)
+    return r
+
+
+def legendre(params: FpParams, a):
+    """Legendre symbol of each element: 1 (a non-zero square), -1 (not a
+    square), 0 (zero), as int32."""
+    s = pow_const(params, a, params.legendre_exp_bits)
+    one = torch.ones((), dtype=torch.int32, device=a.device)
+    sym = torch.where(limbs.eq(s, params.tensor("one_mont", a.device)),
+                      one, -one)
+    return torch.where(limbs.is_zero(s), torch.zeros_like(sym), sym)
+
+
+def sqrt_mod(params: FpParams, a):
+    """Tonelli-Shanks square root, Montgomery in and out: (root, mask).  The
+    mask is False where ``a`` is not a square, and the root there is
+    whatever the iterations left.
+
+    The masked iterations of the JAX package (``two_adicity`` rounds, each
+    finding the least k with b^(2^k) = 1 and squaring z m - k - 1 times),
+    with each loop stopped once no lane would change any more: the same
+    roots, fewer launches."""
+    s = params.two_adicity
+    dev = a.device
+    one = params.tensor("one_mont", dev)
+
+    w = pow_const(params, a, params.sqrt_exp_bits)     # a^((t-1)/2)
+    x = mont_mul(params, a, w)                         # a^((t+1)/2)
+    b = mont_mul(params, x, w)                         # a^t
+    z = params.tensor("ts_c_mont", dev).expand(a.shape)  # c = g^t
+    m = torch.full(a.shape[:-1], s, dtype=torch.int32, device=dev)
+
+    for _ in range(max(s, 1)):
+        # k: squarings of b until it is one (stops counting at one)
+        v, k = b, torch.zeros_like(m)
+        done = torch.zeros(m.shape, dtype=torch.bool, device=dev)
+        for _ in range(s + 1):
+            done = done | limbs.eq(v, one)
+            if bool(done.all()):
+                break
+            k = torch.where(done, k, k + 1)
+            v = torch.where(done.unsqueeze(-1), v, mont_sqr(params, v))
+        active = k != 0
+        if not bool(active.any()):
+            break                       # no lane changes from here on
+        times = m - k - 1               # squarings of z that give w
+        w = z
+        for i in range(max(s, 1)):
+            if not bool((i < times).any()):
+                break
+            w = torch.where((i < times).unsqueeze(-1), mont_sqr(params, w), w)
+        x2 = mont_mul(params, x, w)
+        zw = mont_sqr(params, w)
+        b2 = mont_mul(params, b, zw)
+        sel = active.unsqueeze(-1)
+        x = torch.where(sel, x2, x)
+        z = torch.where(sel, zw, z)
+        b = torch.where(sel, b2, b)
+        m = torch.where(active, k, m)
+
+    is_zero = limbs.is_zero(a)
+    x = torch.where(is_zero.unsqueeze(-1), torch.zeros_like(x), x)
+    # x^2 = a decides the mask: no x squares to a non-square
+    return x, limbs.eq(mont_sqr(params, x), a) | is_zero
+
+
+# ---------------------------------------------------------------------------
+# batch inversion (Montgomery's trick)
+# ---------------------------------------------------------------------------
+
+def batch_inverse(params: FpParams, a, axis: int = 0):
+    """Invert a whole batch with one inversion and 3 multiplies an element,
+    by prefix products along ``axis`` (one launch a step, so a short axis);
+    ``batch_inverse_tree`` is the log-depth form for a long flat batch.
+    Zeros pass through as zeros."""
+    moved = a.movedim(axis, 0)
+    zero = limbs.is_zero(moved).unsqueeze(-1)
+    one = params.tensor("one_mont", a.device)
+    safe = torch.where(zero, one, moved)
+    acc = one.expand(moved.shape[1:])
+    prefix = []                         # products before each element
+    for x in safe:
+        prefix.append(acc)
+        acc = mont_mul(params, acc, x)
+    inv = inv_mod(params, acc)
+    out = [None] * len(prefix)
+    for i in range(len(prefix) - 1, -1, -1):
+        out[i] = mont_mul(params, inv, prefix[i])
+        inv = mont_mul(params, inv, safe[i])
+    invs = torch.stack(out) if out else torch.empty_like(moved)
+    return torch.where(zero, torch.zeros_like(invs), invs).movedim(0, axis)
 
 
 def batch_inverse_tree(params: FpParams, a):

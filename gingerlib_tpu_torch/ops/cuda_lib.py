@@ -21,7 +21,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 SOURCES = ("mont_mul", "inv_bea", "fp_addsub", "ec_add", "ec_affine",
-           "inv_tree")
+           "inv_tree", "pow_const", "poseidon")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -44,6 +44,12 @@ _SIGNATURES = {
                                     _vp]),
     "gl_inv_tree_down": ("inv_tree", [_i, _vp, _vp, _vp, _vp, _i, _i, _vp,
                                       _u32, _vp]),
+    # the exponent is a host array of bytes, one a bit
+    "gl_pow_const": ("pow_const", [_i, _vp, _vp, _i, _vp, _i, _vp, _u32,
+                                   _vp]),
+    # the constants are a device buffer
+    "gl_poseidon_permute": ("poseidon", [_i, _vp, _vp, _i, _vp, _i, _i, _i,
+                                         _u32, _vp]),
 }
 
 _functions: dict = {}

@@ -45,7 +45,7 @@ import torch
 from ..fields import fp as fpmod
 from ..fields import towers as T
 from ..fields.fp import KERNEL_DIGITS, launch_counts
-from ..ops.limbs import DTYPE
+from ..ops.limbs import DTYPE, limbs32
 
 INV_RUN = 8   # elements a thread of the inversion kernels walks (>= 2)
 
@@ -60,31 +60,19 @@ def supports(curve) -> bool:
 # what the kernels are given
 # ---------------------------------------------------------------------------
 
-def _limbs32(digits: np.ndarray) -> np.ndarray:
-    d = np.asarray(digits, dtype=np.uint32).reshape(-1)
-    return d[0::2] | (d[1::2] << 16)
-
-
-def _kernel_consts(obj, params, a=None) -> np.ndarray:
-    """[p | a | one] as 32-bit limbs in host memory for curve or field
-    ``obj`` (``a``: the coefficient's digit tensor, None for a = 0), made
-    once and kept on the object so that the host address handed to the
-    kernels stays valid."""
-    hit = obj.__dict__.get("_kernel_consts")
-    if hit is None:
-        if a is None:
-            a_digits = np.zeros(params.n_digits, dtype=np.int64)
-        else:
-            a_digits = a.reshape(-1).cpu().numpy()
-        hit = np.ascontiguousarray(np.concatenate([
-            params.modulus_limbs32.astype(np.uint32), _limbs32(a_digits),
-            _limbs32(params.one_mont)]))
-        object.__setattr__(obj, "_kernel_consts", hit)
-    return hit
-
-
 def _curve_consts(curve) -> int:
-    return _kernel_consts(curve, curve.fp, curve.a).ctypes.data
+    """Host address of [p | a | one] as 32-bit limbs for ``curve``, made
+    once and kept on the curve so that the address stays valid (a field
+    alone has ``FpParams.kernel_consts``)."""
+    hit = curve.__dict__.get("_kernel_consts")
+    if hit is None:
+        params = curve.fp
+        hit = np.ascontiguousarray(np.concatenate([
+            params.modulus_limbs32.astype(np.uint32),
+            limbs32(curve.a.reshape(-1).cpu().numpy()),
+            limbs32(params.one_mont)]))
+        object.__setattr__(curve, "_kernel_consts", hit)
+    return hit.ctypes.data
 
 
 def _check_curve(curve, what: str):
@@ -390,7 +378,7 @@ def inv_up_cuda(params, a):
     roots = torch.empty((-(-n // INV_RUN), nd), dtype=DTYPE, device=x.device)
     rc = fpmod._kernel("gl_inv_tree_up")(
         nd, x.data_ptr(), pre.data_ptr(), roots.data_ptr(), n, INV_RUN,
-        _kernel_consts(params, params).ctypes.data, params.inv32,
+        params.kernel_consts.ctypes.data, params.inv32,
         fpmod._raw_stream(x))
     _launched(rc, "inv_up", "inv_tree_up")
     return pre, roots
@@ -411,7 +399,7 @@ def inv_down_cuda(params, a, pre, rinv):
     out = torch.empty_like(x)
     rc = fpmod._kernel("gl_inv_tree_down")(
         nd, x.data_ptr(), pre.data_ptr(), rinv.data_ptr(), out.data_ptr(), n,
-        INV_RUN, _kernel_consts(params, params).ctypes.data, params.inv32,
+        INV_RUN, params.kernel_consts.ctypes.data, params.inv32,
         fpmod._raw_stream(x))
     _launched(rc, "inv_down", "inv_tree_down")
     return out

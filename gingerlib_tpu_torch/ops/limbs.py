@@ -71,6 +71,13 @@ def from_digits_batch(d) -> list:
             for i in range(flat.shape[0])]
 
 
+def limbs32(digits) -> np.ndarray:
+    """Host side: 16-bit digits [..., 2k] -> 32-bit limbs (uint32), flat,
+    two digits a limb: the form the kernels keep constants in."""
+    d = np.asarray(digits, dtype=np.uint32).reshape(-1)
+    return d[0::2] | (d[1::2] << 16)
+
+
 def _to_numpy(d) -> np.ndarray:
     if isinstance(d, torch.Tensor):
         return d.detach().cpu().numpy()

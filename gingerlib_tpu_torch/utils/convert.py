@@ -17,6 +17,10 @@ imported.
 affine batch ``((x, y), inf)`` or a projective triple ``(X, Y, Z)`` of numpy
 arrays becomes the same nesting of tensors (digits int64, flags bool) and
 back, so that one set of seeded inputs can go through both packages.
+
+``poseidon_params_from_numpy`` carries a Poseidon parameter set across (the
+JAX package's ``PoseidonParams``, its arrays read as numpy), reduced-round
+sets included, so that both packages hash with the same constants.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ import torch
 from ..device import resolve_device
 from ..fields import fp as fpmod
 from ..ops.limbs import NP_DTYPE
+from ..params import ALL_FIELDS
+from ..primitives.poseidon import PoseidonParams
 from ..proofs.groth16 import Parameters, VerifyingKey
 from ..relations.r1cs import CompiledR1CS, CooMatrix
 
@@ -141,3 +147,22 @@ def compiled_from_numpy(field, src, device=None) -> CompiledR1CS:
                         num_constraints=int(src.num_constraints),
                         domain_size=int(src.domain_size),
                         a=coo(src.a), b=coo(src.b), c=coo(src.c))
+
+
+def poseidon_params_from_numpy(src, device=None) -> PoseidonParams:
+    """A Poseidon parameter set with Montgomery digit arrays ``rc_full1``
+    [R_F, t, nd], ``rc_partial`` [R_P, t, nd], ``rc_full2`` [R_F - 1, t,
+    nd], ``rc_last`` [t, nd], ``mds`` [t, t, nd], ``after_zero_perm`` [t,
+    nd] and ``c2`` [nd] (any integer dtype), round counts ``t``, ``r_f``,
+    ``r_p``, ``rate`` and a ``field`` with a ``name`` -> the port's
+    ``PoseidonParams`` over the port's field of that name, on ``device``."""
+    device = resolve_device(device)
+    field = ALL_FIELDS[src.field.name]
+    t = int(src.t)
+    rc = np.concatenate([
+        np.asarray(getattr(src, name)).reshape(-1, t, field.n_digits)
+        for name in ("rc_full1", "rc_partial", "rc_full2", "rc_last")])
+    return PoseidonParams.from_digits(
+        field, t, int(src.r_f), int(src.r_p), int(src.rate),
+        np.asarray(src.c2), rc, np.asarray(src.mds),
+        np.asarray(src.after_zero_perm), device=device)

@@ -1,5 +1,5 @@
-"""The port's curve kernels against their plain PyTorch versions, under
-pytest, on a machine with an NVIDIA GPU:
+"""The port's curve, pow-chain and Poseidon kernels against their plain
+PyTorch versions, under pytest, on a machine with an NVIDIA GPU:
 
     python -m pytest --noconftest tests/test_torch_gpu_kernels.py -q
 
@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from gingerlib_tpu_torch.ops import ec_kernels as EK, msm as tmsm
-from test_torch_cases import affine_pairs, proj_pairs
+from test_torch_cases import (affine_pairs, poseidon_states, proj_pairs,
+                              reduced_poseidon)
 
 pytestmark = pytest.mark.gpu
 N = 64
@@ -77,3 +78,43 @@ def test_msm_hybrid_matches_naive(curve, points):
     sd = sd.to(curve.device)
     got = tmsm.msm_hybrid(curve, xs, ys, sd, c=4, affine_cutoff=16)
     assert bool(curve.eq(got, tmsm.msm_naive(curve, xs, ys, sd)))
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+@pytest.mark.parametrize("name", ["MNT4753_FQ", "BLS12_377_FR"])
+def test_pow_const_matches_plain(cuda, name):
+    from gingerlib_tpu_torch import params as TP
+    from gingerlib_tpu_torch.fields import fp
+    from gingerlib_tpu_torch.ops import limbs
+    F = getattr(TP, name)
+    vals = [0, 1, F.modulus - 1] + [(7 ** k) % F.modulus for k in range(40)]
+    x = torch.from_numpy(fp.fp_from_ints(F, vals)).to(cuda)
+    for bits in (F.legendre_exp_bits, limbs.bits_msb_first(0xC0FFEE11, 32)):
+        assert torch.equal(fp.pow_const(F, x, bits),
+                           fp.pow_const_plain(F, x, bits))
+
+
+@pytest.mark.parametrize("name", ["mnt4753", "mnt6753"])
+def test_poseidon_permute_matches_plain(cuda, name):
+    """The reduced parameter sets on the special states, and the full ones
+    on the zero state, which must give AFTER_ZERO_PERM."""
+    from gingerlib_tpu_torch.fields import fp
+    from gingerlib_tpu_torch.ops import poseidon_kernels as PK
+    from gingerlib_tpu_torch.primitives.poseidon import PoseidonParams
+    full = getattr(PoseidonParams, name)(cuda)
+    d = reduced_poseidon(name)
+    P = PoseidonParams(full.field, d["t"], d["r_f"], d["r_p"], d["rate"],
+                       d["c2"], d["round_cst"], d["mds"],
+                       d["after_zero_perm"], device=cuda)
+    states = poseidon_states(name)
+    x = torch.from_numpy(fp.fp_from_ints(P.field, sum(states, []))).to(
+        cuda).reshape(len(states), 3, -1)
+    assert torch.equal(PK.permute(P, x), PK.permute_plain(P, x))
+    zero = torch.zeros_like(x[:1])
+    assert torch.equal(PK.permute(full, zero)[0], full.after_zero_perm)

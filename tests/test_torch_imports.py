@@ -40,7 +40,9 @@ def imports_of(path: pathlib.Path):
 def test_sources_found():
     names = {p.name for p in SOURCES}
     assert {"fp.py", "sw.py", "groth16.py", "chip_smoke.py", "ec_kernels.py",
-            "msm.py", "convert.py"} <= names
+            "msm.py", "convert.py", "poseidon.py", "poseidon_kernels.py",
+            "poseidon_host.py", "merkle.py", "poseidon_gen.py",
+            "merkle_gen.py"} <= names
 
 
 @pytest.mark.parametrize(
@@ -67,7 +69,8 @@ def _cpu_case():
 ENTRY_POINTS = ["compile_r1cs", "Domain", "mnt4753_g1", "mnt4753_g2",
                 "bls12_377_g1", "mnt4753_engine", "generate_parameters",
                 "create_proof", "params_from_numpy", "compiled_from_numpy",
-                "points_from_numpy"]
+                "points_from_numpy", "PoseidonParams", "PoseidonHash",
+                "FieldBasedMerkleTree", "poseidon_params_from_numpy"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
@@ -77,6 +80,9 @@ def test_device_none_raises_without_a_gpu(entry):
     from gingerlib_tpu_torch import params as TP
     from gingerlib_tpu_torch.curves import instances as CI
     from gingerlib_tpu_torch.ops.fft import Domain
+    from gingerlib_tpu_torch.primitives.merkle import FieldBasedMerkleTree
+    from gingerlib_tpu_torch.primitives.poseidon import (PoseidonHash,
+                                                         PoseidonParams)
     from gingerlib_tpu_torch.proofs import groth16
     from gingerlib_tpu_torch.relations.r1cs import compile_r1cs
     from gingerlib_tpu_torch.utils import convert
@@ -99,6 +105,14 @@ def test_device_none_raises_without_a_gpu(entry):
         "compiled_from_numpy":
             lambda: convert.compiled_from_numpy(TP.BLS12_377_FR, None),
         "points_from_numpy": lambda: convert.points_from_numpy(()),
+        "PoseidonParams": PoseidonParams.mnt4753,
+        # the parameters are on the CPU; the hash and the tree are asked
+        # for without a device
+        "PoseidonHash": lambda: PoseidonHash(PoseidonParams.mnt4753("cpu")),
+        "FieldBasedMerkleTree": lambda: FieldBasedMerkleTree(
+            PoseidonHash(PoseidonParams.mnt4753("cpu"), device="cpu"), 4),
+        "poseidon_params_from_numpy":
+            lambda: convert.poseidon_params_from_numpy(None),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
