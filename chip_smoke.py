@@ -15,10 +15,19 @@ What it does, in order (any failure raises, so the exit code is non-zero):
    327,697 G1 lanes and 65,544 Fq2 lanes), and the curve kernels (projective
    addition, affine addition before and after its shared inversion, one
    level of the inversion's up and down sweeps) on real curve points with
-   every special lane mixed in;
+   every special lane mixed in, and the RNS kernels (the RNS multiply at
+   MNT4-753 Fq [1] and [2^16] and BLS12-377 Fq [2^12], six chained
+   squarings against python's pow, times at 2^16 and 2^20 lanes beside the
+   positional multiply; the RNS affine addition's pre and post kernels and
+   its K7 tree at 2^18 and 2^16 MNT4-753 G1 lanes, against their plain
+   versions and the positional addition);
 3. holds the Pippenger MSMs (``msm_hybrid`` on G1 at two cutoffs,
-   ``msm_affine`` on G2) against ``msm_naive`` at 2^12 points, and times one
-   2^16-point MSM of each (``msm`` line; G1 at three cutoffs); then the pow
+   ``msm_affine`` on G2, ``msm_affine`` over RNS G1) against ``msm_naive``
+   at 2^12 points, and times one 2^16-point MSM of each (``msm`` line; G1
+   at three cutoffs); drives the RNS path -- ``msm_affine`` over MNT4-753
+   G1 built with ``ec_rns=True`` at 2^16 points, launches counted, against
+   ``msm_hybrid`` and the closed form, the positional ``msm_affine`` beside
+   it (``ec_rns`` line); then the pow
    chain at [1, 48] and [4096, 48] (Legendre and square-root exponents of
    MNT4-753 Fq and Fr, a short one) and the Poseidon permutation on the zero
    state and on 2^15 seeded sponges with special lanes, both parameter sets;
@@ -38,7 +47,7 @@ What it does, in order (any failure raises, so the exit code is non-zero):
    ints, a wrong leaf is refused, a 2^10-leaf tree equals the python-int tree
    node for node, and the phantom root holds; and the launch counters, set to
    zero before each path, show that every kernel was launched on the path
-   that reaches it;
+   that reaches it (K7 and K8 on the RNS path);
 6. prints the kernel table as one JSON line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -87,7 +96,9 @@ def main():
     from gingerlib_tpu_torch.circuits import benchmark_circuit
     from gingerlib_tpu_torch.curves import instances as CI
     from gingerlib_tpu_torch.fields import fp
-    from gingerlib_tpu_torch.ops import cuda_lib, ec_kernels, limbs
+    from gingerlib_tpu_torch.ops import cuda_lib, ec_kernels, limbs, rns
+    from gingerlib_tpu_torch.ops import ec_rns as ER
+    from gingerlib_tpu_torch.ops import rns_kernels as RK
     from gingerlib_tpu_torch.ops import msm as msm_mod
     from gingerlib_tpu_torch.ops import poseidon_kernels as PK
     from gingerlib_tpu_torch.params._gen import poseidon_gen
@@ -751,6 +762,218 @@ def main():
         })
 
     # ------------------------------------------------------------------
+    # 2c. the RNS kernels (K7, K8) against their plain versions
+    # ------------------------------------------------------------------
+    g1r = CI.mnt4753_g1(ec_rns=True)
+    rctx = rns.make_context(p)
+    K_CH = rctx.k
+
+    def madd_ops(terms, term_bits):
+        """32-bit integer operations of a sum of `terms` products, each below
+        2^term_bits: one 32-bit multiply-add a term, and a fold into a
+        64-bit sum (two operations) each time the 32-bit one could fill."""
+        return terms + 2 * -(-terms // (1 << (32 - term_bits)))
+
+    # 32-bit integer operations of one RNS multiply, from its formulas: two
+    # k x k base extensions (14-bit residue times 14-bit constant: below
+    # 2^28, one multiply-add a term), about 10k channel products with their
+    # reductions (multiply, high multiply, multiply, subtract, compare: 5
+    # each) and 2k alpha terms (below 2^25, a 32-bit sum: 1 each)
+    RNS_OPS = 2 * K_CH * madd_ops(K_CH, 28) + 5 * 10 * K_CH + 2 * K_CH
+    RES_BYTES = 2 * K_CH * 2        # an element's residues at 2 bytes each
+    PACKED_BYTES = RK.LANES * 4     # what the packed int32 layout moves
+
+    def packed(F, digits):
+        ctx = rns.make_context(F.modulus)
+        return RK.pack_rns(ctx, *rns.to_rns_digits(ctx, digits))
+
+    def field_digits(F, n, seed):
+        """n seeded values below F's modulus (0, 1, p - 1 first) as
+        digits on the device."""
+        raw = torch.randint(0, 1 << 16, (n, F.n_digits + 4), dtype=torch.int64,
+                            generator=torch.Generator().manual_seed(seed))
+        vals = [v % F.modulus for v in limbs.from_digits_batch(raw)]
+        vals[:3] = [0, 1, F.modulus - 1][:n]
+        return vals, torch.from_numpy(
+            limbs.to_digits_batch(vals[:n], F.n_digits)).to(dev)
+
+    def ec_rns_kernel_section():
+        """K7 at MNT4-753 Fq [1] and [2^16] and BLS12-377 Fq [2^12], six
+        chained squarings against python's pow, times at [2^16] and
+        [2^20] beside K1; K8's pre, tree and post at 2^18 and 2^16
+        MNT4-753 G1 lanes with the special lanes, against their plain
+        versions, the whole addition at 2^16 also against the positional
+        one (K5/K6), and BLS12-377 G1 at 256 lanes.
+        Returns ({kernel: its row}, the line's dict)."""
+        line, rows = {"channels": K_CH}, {}
+        err7 = 0
+        n16 = 1 << 16
+        _, d16 = field_digits(fq, n16, seed=61)
+        x16 = packed(fq, d16)
+        y16 = x16.roll(1, 0)
+        for F, n in ((fq, 1), (fq, n16), (PP.BLS12_377_FQ, 1 << 12)):
+            x = x16[5:6] if n == 1 else (
+                x16 if F is fq else packed(F, field_digits(F, n, 62)[1]))
+            y = x.roll(1, 0) if n > 1 else x16[7:8]
+            err7 = max(err7, compare(
+                f"rns_mont {F.name} [{n}]", RK.mont_mul_rns(F.modulus, x, y),
+                RK.mont_mul_rns_plain(F.modulus, x, y)))
+        # the tree's shapes: strided halves, one row against all
+        err7 = max(err7, compare(
+            "rns_mont even/odd halves", RK.mont_mul_rns(p, x16[0::2],
+                                                        x16[1::2]),
+            RK.mont_mul_rns_plain(p, x16[0::2], x16[1::2])), compare(
+            "rns_mont one row against all", RK.mont_mul_rns(p, x16, y16[:1]),
+            RK.mont_mul_rns_plain(p, x16, y16[:1])))
+        # six chained squarings from x M_A, held to python's pow
+        vals, d = field_digits(fq, 64, seed=63)
+        r2 = torch.from_numpy(RK.rns_row(rctx, rctx.MA * rctx.MA % p)).to(
+            dev)[None]
+        cur = RK.mont_mul_rns(p, packed(fq, d), r2)
+        want = list(vals)
+        for i in range(6):
+            nxt = RK.mont_mul_rns(p, cur, cur)
+            err7 = max(err7, compare(f"rns_mont squaring {i}", nxt,
+                                     RK.mont_mul_rns_plain(p, cur, cur)))
+            cur = nxt
+            want = [w * w % p for w in want]
+            got = rns.from_rns(rctx, RK.unpack_rns(rctx, cur)[0])
+            if any(g >= 3 * p for g in got) or \
+                    [g % p for g in got] != [w * rctx.MA % p for w in want]:
+                raise AssertionError("rns_mont: chained squarings disagree "
+                                     "with pow")
+        # times at 2^16 and 2^20 lanes, K1 on as many elements beside
+        k7 = []
+        a16 = rand_elems(n16)
+        for n in (n16, 1 << 20):
+            reps = n // n16
+            x = x16.repeat(reps, 1)
+            a = a16.repeat(reps, 1)
+            b_ms, b_by = bound(3 * n * RES_BYTES, n * RNS_OPS)
+            row = {"lanes": n, "ms": time_ms(
+                lambda: RK.mont_mul_rns(p, x, x), 20),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "packed_layout_bytes_ms":
+                    3 * n * PACKED_BYTES / PEAK_BYTES_PER_S * 1e3,
+                "k1_mont_mul_ms": time_ms(lambda: fp.mont_mul(fq, a, a), 20)}
+            if n == n16:
+                row["plain_ms"] = time_ms(
+                    lambda: RK.mont_mul_rns_plain(p, x, x), 3)
+                rows["rns_mont"] = dict(row, max_abs_err=err7)
+            k7.append(row)
+            del x, a
+        line["rns_mont"] = k7
+
+        def hold_k8(a_pt, b_pt, tag):
+            """K8's pre, its K7 tree and its post against their plain
+            versions on one batch: (the errors, the pre outputs, the
+            inverses, the post's arguments)."""
+            (x1, y1), inf1 = a_pt
+            (x2, y2), inf2 = b_pt
+            pre = ER.ecr_pre(g1r, x1, y1, x2, y2, inf1, inf2)
+            e_pre = compare_all(f"ecr_pre [{tag}]", pre, ER.ecr_pre_plain(
+                g1r, x1, y1, x2, y2, inf1, inf2))
+            num, den, x1r, y1r, x2r, inf3, dead = pre
+            dinv = ER.tree_inverse_rns(g1r, den, dead)
+            e_tree = compare(f"tree_inverse_rns [{tag}]", dinv,
+                             ER.tree_inverse_rns(g1r, den, dead, plain=True))
+            post_args = (num, dinv, x1r, y1r, x2r, x1, y1, x2, y2, inf1,
+                         inf2, inf3)
+            e_post = compare_all(f"ecr_post [{tag}]",
+                                 ER.ecr_post(g1r, *post_args),
+                                 ER.ecr_post_plain(g1r, *post_args))
+            return (e_pre, e_tree, e_post), pre, dinv, post_args
+
+        # K8 at the path's largest addition width: msm_affine's first tree
+        # level over one chunk (8 windows x 2^16 points) adds 2^18 lanes
+        e_pre, e_tree, e_post = hold_k8(*affine_case(
+            g1, multiples(g1, 1 << 18, seed=66)[1], 1 << 18), "2^18")[0]
+        # ... and at 2^16 lanes, the width of the times below
+        _, aff, _ = multiples(g1, n16, seed=64)
+        a_pt, b_pt = affine_case(g1, aff, n16)
+        (x1, y1), inf1 = a_pt
+        (x2, y2), inf2 = b_pt
+        errs, pre, dinv, post_args = hold_k8(a_pt, b_pt, "2^16")
+        err_pre, err_post = max(e_pre, errs[0]), max(e_post, errs[2])
+        err7 = max(err7, e_tree, errs[1])
+        num, den, x1r, y1r, x2r, inf3, dead = pre
+        got = g1r.batch_affine_add(a_pt, b_pt)
+        flat = lambda r: (r[0][0], r[0][1], r[1])
+        compare_all("batch_affine_add rns [2^16] against its plain version",
+                    flat(got), flat(ER.batch_affine_add_rns_plain(
+                        g1r, a_pt, b_pt)))
+        compare_all("batch_affine_add rns [2^16] against the positional "
+                    "kernels", flat(got), flat(ec_kernels.batch_affine_add(
+                        g1, a_pt, b_pt)))
+        halves = (((x1[0::2], y1[0::2]), inf1[0::2]),
+                  ((x2[1::2], y2[1::2]), inf2[1::2]))
+        compare_all("batch_affine_add rns [2^15] even/odd",
+                    flat(g1r.batch_affine_add(*halves)),
+                    flat(ec_kernels.batch_affine_add(g1, *halves)))
+        b1r = CI.bls12_377_g1(ec_rns=True)
+        b1 = CI.bls12_377_g1()
+        _, b_aff, _ = multiples(b1, 256, seed=65)
+        ba, bb = affine_case(b1, b_aff, 256)
+        compare_all("batch_affine_add rns bls12_377 [256]",
+                    flat(b1r.batch_affine_add(ba, bb)),
+                    flat(ec_kernels.batch_affine_add(b1, ba, bb)))
+        for mixed in ((x16.cpu(), x16), (x16, x16.cpu())):
+            try:
+                RK.mont_mul_rns(p, *mixed)
+            except ValueError:
+                continue
+            raise AssertionError("rns_mont took operands on two devices")
+
+        dbl = int((~inf1 & ~inf2 & (x1 == x2).all(-1).reshape(-1)
+                   & (y1 == y2).all(-1).reshape(-1)).sum())
+        live = int((~(inf1 | inf2 | inf3)).sum())
+        wdt = rns.crt_width(rctx)
+        # pre: four digit rows to residues (2k sums of nd 16-bit digit times
+        # 14-bit residue terms, below 2^30), four normalising multiplies a
+        # lane and a squaring where it doubles, two channel additions or
+        # subtractions (3 operations a channel); post: five multiplies, five
+        # offset subtractions and two CRTs (wdt sums of k 14-bit sigma times
+        # 16-bit digit terms, then the carries and subtractions of nd + 1
+        # digits) where lambda is used
+        pre_ops = n16 * (4 * 2 * K_CH * madd_ops(nd, 30) + 4 * RNS_OPS
+                         + 2 * 2 * K_CH * 3) + dbl * RNS_OPS
+        post_ops = live * (5 * RNS_OPS + 5 * 2 * K_CH * 6
+                           + 2 * (wdt * madd_ops(K_CH, 30) + 4 * wdt
+                                  + 8 * (nd + 1)))
+        for name, err, nbytes, nops, kern, plain in (
+                ("ecr_pre", err_pre,
+                 n16 * (4 * elem_bytes + 2 + 5 * RES_BYTES + 2), pre_ops,
+                 lambda: ER.ecr_pre(g1r, x1, y1, x2, y2, inf1, inf2),
+                 lambda: ER.ecr_pre_plain(g1r, x1, y1, x2, y2, inf1, inf2)),
+                ("ecr_post", err_post,
+                 n16 * (5 * RES_BYTES + 6 * elem_bytes + 3), post_ops,
+                 lambda: ER.ecr_post(g1r, *post_args),
+                 lambda: ER.ecr_post_plain(g1r, *post_args))):
+            b_ms, b_by = bound(nbytes, nops)
+            rows[name] = {"lanes": n16, "max_abs_err": err,
+                          "ms": time_ms(kern, 10),
+                          "plain_ms": time_ms(plain, 2), "bound_ms": b_ms,
+                          "bound_by": b_by}
+        before = dict(fp.launch_counts)
+        g1r.batch_affine_add(a_pt, b_pt)
+        launches = {k: v - before[k] for k, v in fp.launch_counts.items()
+                    if v != before[k]}
+        line["batch_affine_add_2p16"] = {
+            "rns_ms": time_ms(lambda: g1r.batch_affine_add(a_pt, b_pt), 5),
+            "rns_tree_ms": time_ms(
+                lambda: ER.tree_inverse_rns(g1r, den, dead), 5),
+            "positional_ms": time_ms(
+                lambda: ec_kernels.batch_affine_add(g1, a_pt, b_pt), 5),
+            "launches_a_rns_addition": launches,
+            "doubling_lanes": dbl, "live_lanes": live}
+        line["ecr_pre"], line["ecr_post"] = rows["ecr_pre"], rows["ecr_post"]
+        print("RNS kernels agree with their plain versions on the device "
+              "(tolerance 0)", flush=True)
+        return rows, line
+
+    ec_rows, ec_line = ec_rns_kernel_section()
+
+    # ------------------------------------------------------------------
     # 3. Pippenger against double-and-add at 2^12 points; one 2^16-point
     #    MSM of each kind, timed
     # ------------------------------------------------------------------
@@ -798,11 +1021,13 @@ def main():
                                                   affine_cutoff=cutoff), want)
                 same_point("msm_bucketed 2^12 g1", g1, msm_mod.msm_bucketed(
                     g1, ax, ay, sd, inf_mask=inf), want)
+                same_point("msm_affine rns 2^12 g1", g1, msm_mod.msm_affine(
+                    g1r, ax, ay, sd, inf_mask=inf), want)
             else:
                 same_point("msm_affine 2^12 g2", g2, msm_mod.msm_affine(
                     g2, ax, ay, sd, inf_mask=inf), want)
-        print("msm_hybrid (g1) and msm_affine (g2) equal msm_naive at 2^12 "
-              "points", flush=True)
+        print("msm_hybrid (g1), msm_affine over RNS g1 and msm_affine (g2) "
+              "equal msm_naive at 2^12 points", flush=True)
 
         n16 = 1 << 16
         sc = fr_scalars(n16, seed=11)
@@ -823,14 +1048,48 @@ def main():
                        results["default_2p15"])
         closed_form("msm_hybrid 2^16", g1, host_g1, results["default_2p15"],
                     ks, sc)
+        # the RNS path: msm_affine over MNT4-753 G1 with ec_rns=True on the
+        # same points and scalars, launches counted from zero; then the
+        # positional msm_affine over G1 beside it
+        fp.reset_launch_counts()
+        res, secs = event_seconds(lambda: msm_mod.msm_affine(g1r, ax, ay, sd))
+        path = {"points": n16, "seconds": secs, "points_per_s": n16 / secs,
+                "path_launches": {k: v for k, v in fp.launch_counts.items()
+                                  if v}}
+        same_point("msm_affine rns 2^16 against msm_hybrid", g1, res,
+                   results["default_2p15"])
+        closed_form("msm_affine rns 2^16", g1, host_g1, res, ks, sc)
+        res, path["positional_msm_affine_s"] = event_seconds(
+            lambda: msm_mod.msm_affine(g1, ax, ay, sd))
+        same_point("msm_affine 2^16 g1 against msm_hybrid", g1, res,
+                   results["default_2p15"])
+        path["msm_hybrid_s"] = msm_line["g1_hybrid_default_2p15_s"]
         _, (bx, by), ks = multiples(g2, n16, seed=12)
         res, secs = event_seconds(lambda: msm_mod.msm_affine(g2, bx, by, sd))
         closed_form("msm_affine 2^16", g2, host_g2, res, ks, sc)
         msm_line["g2_affine_s"] = secs
         msm_line["g2_affine_points_per_s"] = n16 / secs
         print("msm " + json.dumps(msm_line), flush=True)
+        return path
 
-    msm_section()
+    ec_line["path"] = ec_path = msm_section()
+    print("ec_rns " + json.dumps(ec_line), flush=True)
+    for name, replaces in (("rns_mont", "gingerlib_tpu/ops/pallas_rns.py:187"),
+                           ("ecr_pre", "gingerlib_tpu/ops/pallas_ec_rns.py:289"),
+                           ("ecr_post",
+                            "gingerlib_tpu/ops/pallas_ec_rns.py:307")):
+        row = ec_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "gingerlib_tpu_torch/csrc/" + (
+                "rns_mont.cu" if name == "rns_mont" else "ec_rns.cu"),
+            "replaces": replaces, "launches": 0, "lanes": 1 << 16,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            # no PyTorch call computes an RNS multiply or a curve addition
+            "library_ms": None,
+        })
 
     # ------------------------------------------------------------------
     # 3b. the pow chain (K3) and the Poseidon permutation (K9) against
@@ -1340,9 +1599,12 @@ def main():
     # API, K9 on the Merkle rung; the 2^16 counts of the Groth16 kernels
     # beside them
     paths = {"groth16_2p10": big, "groth16_2p16": full,
-             "field_api": field_api, "merkle_2p16": merkle}
+             "field_api": field_api, "merkle_2p16": merkle,
+             "ec_rns_2p16": ec_path}
     path_of = dict.fromkeys(curve_meta, "groth16_2p16")
-    path_of.update(pow_const="field_api", poseidon_permute="merkle_2p16")
+    path_of.update(pow_const="field_api", poseidon_permute="merkle_2p16",
+                   rns_mont="ec_rns_2p16", ecr_pre="ec_rns_2p16",
+                   ecr_post="ec_rns_2p16")
     for k in kernels:
         name = k["name"]
         k["path"] = path_of.get(name, "groth16_2p10")

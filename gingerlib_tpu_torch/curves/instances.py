@@ -2,7 +2,8 @@
 and BLS12-377 (the narrow width the CPU tests use).
 
 Each constructor takes ``device`` under the package's device rule and caches
-one curve object per device.  Constants come from ``params/_gen`` (standard
+one curve object per device (and, for G1, per choice of ``ec_rns``: the RNS
+multiplies in ``batch_affine_add``, see ``SWCurveOps``).  Constants come from ``params/_gen`` (standard
 form); Frobenius tables are derived on the fly.
 """
 
@@ -39,7 +40,8 @@ def bls12_377_towers():
 
 
 @functools.lru_cache()
-def _curve(family: str, group: str, device) -> SWCurveOps:
+def _curve(family: str, group: str, device, ec_rns: bool = False
+           ) -> SWCurveOps:
     towers, c, fr = {
         "mnt4753": (mnt4753_towers, CG.MNT4753, PP.MNT4753_FR),
         "bls12_377": (bls12_377_towers, CG.BLS12_377, PP.BLS12_377_FR),
@@ -49,7 +51,7 @@ def _curve(family: str, group: str, device) -> SWCurveOps:
                           generator_host=(c["g1_x"], c["g1_y"]),
                           cofactor=c["cofactor"],
                           cofactor_inv=c["cofactor_inv"],
-                          scalar_field=fr, device=device)
+                          scalar_field=fr, device=device, ec_rns=ec_rns)
     return SWCurveOps(f"{family}_g2", towers()[1], c["g2_a"], c["g2_b"],
                       generator_host=(c["g2_x"], c["g2_y"]),
                       cofactor=c["g2_cofactor"],
@@ -57,16 +59,16 @@ def _curve(family: str, group: str, device) -> SWCurveOps:
                       scalar_field=fr, device=device)
 
 
-def mnt4753_g1(device=None) -> SWCurveOps:
-    return _curve("mnt4753", "g1", resolve_device(device))
+def mnt4753_g1(device=None, ec_rns: bool = False) -> SWCurveOps:
+    return _curve("mnt4753", "g1", resolve_device(device), ec_rns)
 
 
 def mnt4753_g2(device=None) -> SWCurveOps:
     return _curve("mnt4753", "g2", resolve_device(device))
 
 
-def bls12_377_g1(device=None) -> SWCurveOps:
-    return _curve("bls12_377", "g1", resolve_device(device))
+def bls12_377_g1(device=None, ec_rns: bool = False) -> SWCurveOps:
+    return _curve("bls12_377", "g1", resolve_device(device), ec_rns)
 
 
 def bls12_377_g2(device=None) -> SWCurveOps:

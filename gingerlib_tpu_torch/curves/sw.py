@@ -24,19 +24,30 @@ import torch
 from ..device import resolve_device
 from ..fields import towers as T
 from ..ops import ec_kernels, limbs
+from ..ops import ec_rns as ER
 
 
 class SWCurveOps:
-    """y^2 z = x^3 + a x z^2 + b z^3 over a tower field ``F``."""
+    """y^2 z = x^3 + a x z^2 + b z^3 over a tower field ``F``.
+
+    ``ec_rns=True`` asks for the RNS multiplies in ``batch_affine_add``
+    (``ops/ec_rns.py``; the JAX package's ``GINGERLIB_EC_RNS``).  It exists
+    for curves over the base field whose RNS context has at most 64 channels
+    a base, and construction raises for any other curve."""
 
     def __init__(self, name: str, field_ops, a_host, b_host,
                  generator_host=None, cofactor: int = 1,
                  scalar_field=None, cofactor_inv: int | None = None,
-                 device=None):
+                 device=None, ec_rns: bool = False):
         self.device = resolve_device(device)
         self.name = name
         self.F = field_ops
         self.fp = field_ops.fp
+        if ec_rns and not ER.supports(self):
+            raise NotImplementedError(
+                f"{name}: the RNS affine addition covers curves over the "
+                f"base field with at most {ER.RK.B_ROW} channels a base")
+        self.ec_rns = ec_rns
         a_np = field_ops.const(a_host)
         self.a = torch.from_numpy(a_np).to(self.device)
         self.b = torch.from_numpy(field_ops.const(b_host)).to(self.device)
@@ -205,9 +216,12 @@ class SWCurveOps:
         ((x3, y3), inf3).
 
         Curves over the base field go through the fused kernels on a GPU
-        (pre, inversion tree, post: ``ops/ec_kernels.py``) and through their
+        (pre, inversion tree, post: ``ops/ec_kernels.py``, or with
+        ``ec_rns`` the RNS kernels of ``ops/ec_rns.py``) and through their
         plain versions on the CPU; curves over an extension field (G2) run
         the array form on either device."""
+        if self.ec_rns:
+            return ER.batch_affine_add_rns(self, a_pt, b_pt)
         if self.F.K == 1:
             return ec_kernels.batch_affine_add(self, a_pt, b_pt)
         return ec_kernels.batch_affine_add_plain(self, a_pt, b_pt)

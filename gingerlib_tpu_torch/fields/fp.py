@@ -204,7 +204,9 @@ launch_counts = {"mont_mul": 0, "inv_bea": 0, "fp_add": 0, "fp_sub": 0,
                  "ec_proj_add": 0, "ec_affine_pre": 0, "ec_affine_post": 0,
                  "inv_tree_up": 0, "inv_tree_down": 0, "pow_const": 0,
                  # and the Poseidon kernel of ops/poseidon_kernels.py
-                 "poseidon_permute": 0}
+                 "poseidon_permute": 0,
+                 # and the RNS kernels of ops/rns_kernels.py, ops/ec_rns.py
+                 "rns_mont": 0, "ecr_pre": 0, "ecr_post": 0}
 
 
 def reset_launch_counts():

@@ -21,7 +21,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 SOURCES = ("mont_mul", "inv_bea", "fp_addsub", "ec_add", "ec_affine",
-           "inv_tree", "pow_const", "poseidon")
+           "inv_tree", "pow_const", "poseidon", "rns_mont", "ec_rns")
+# headers: an edit of one rebuilds every library
+HEADERS = ("fp_limbs.cuh", "rns_core.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -50,6 +52,12 @@ _SIGNATURES = {
     # the constants are a device buffer
     "gl_poseidon_permute": ("poseidon", [_i, _vp, _vp, _i, _vp, _i, _i, _i,
                                          _u32, _vp]),
+    # the constant blocks are device buffers
+    "gl_rns_mont": ("rns_mont", [_i, _vp, _ll, _vp, _ll, _vp, _i, _vp, _vp]),
+    "gl_ecr_pre": ("ec_rns", [_i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                              _vp, _vp, _vp, _i, _vp, _vp, _vp]),
+    "gl_ecr_post": ("ec_rns", [_i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                               _vp, _vp, _vp, _vp, _i, _vp, _vp, _vp]),
 }
 
 _functions: dict = {}
@@ -72,8 +80,7 @@ def _stale(lib: str, name: str) -> bool:
             and os.path.exists(os.path.join(BUILD, name + ".log"))):
         return True
     t = os.path.getmtime(lib)
-    deps = [os.path.join(CSRC, name + ".cu"),
-            os.path.join(CSRC, "fp_limbs.cuh")]
+    deps = [os.path.join(CSRC, f) for f in (name + ".cu",) + HEADERS]
     return any(os.path.getmtime(d) > t for d in deps)
 
 
@@ -109,12 +116,13 @@ def build() -> dict:
 
 
 def resource_usage() -> dict:
-    """{kernel<template arguments>: {registers, stack_bytes, spill_store_bytes,
-    spill_load_bytes}} for every kernel, read from the logs of ``build``."""
+    """{kernel<template arguments> (or kernel): {registers, stack_bytes,
+    spill_store_bytes, spill_load_bytes}} for every kernel, read from the
+    logs of ``build``."""
     out = {}
     entry = re.compile(
-        r"Compiling entry function '\w*?\d([a-z_]+_kernel)ILi(\d+)"
-        r"(?:ELi(\d+))?E\w*'.*?"
+        r"Compiling entry function '\w*?\d([a-z_]+_kernel)"
+        r"(?:ILi(\d+)(?:ELi(\d+))?E)?\w*'.*?"
         r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
         r"(\d+) bytes spill loads.*?Used (\d+) registers", re.S)
     for n in build():
@@ -122,7 +130,7 @@ def resource_usage() -> dict:
             text = f.read()
         for m in entry.finditer(text):
             args = ",".join(g for g in m.group(2, 3) if g)
-            out[f"{m.group(1)}<{args}>"] = {
+            out[f"{m.group(1)}<{args}>" if args else m.group(1)] = {
                 "registers": int(m.group(7)), "stack_bytes": int(m.group(4)),
                 "spill_store_bytes": int(m.group(5)),
                 "spill_load_bytes": int(m.group(6))}

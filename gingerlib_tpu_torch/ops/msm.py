@@ -8,8 +8,9 @@ Three forms and one dispatch:
   also the oracle the bucketed forms are held against.
 * ``msm_hybrid``: Pippenger for curves over the base field (G1), built on the
   fused curve kernels of ``ops/ec_kernels.py``.
-* ``msm_affine``: Pippenger with batched-affine additions as array code over
-  any tower field; the prover's path for G2.
+* ``msm_affine``: Pippenger with ``curve.batch_affine_add`` over any tower
+  field: the prover's path for G2 (array code), and the RNS path (K7, K8 of
+  ``ops/ec_rns.py``) over a G1 curve built with ``ec_rns=True``.
 * ``fixed_base_msm``: [k_i]G for many scalars of one base, used by setup.
 
 The bucketed forms avoid scatters: per c-bit window the points are sorted by
@@ -178,10 +179,11 @@ def _gather(t3, idx):
     return tuple(t.index_select(0, idx) for t in t3)
 
 
-def _aff_add(curve, a, b):
-    """batch_affine_add on flat (x, y, inf) triples."""
-    (x, y), inf = curve.batch_affine_add(((a[0], a[1]), a[2]),
-                                         ((b[0], b[1]), b[2]))
+def _aff_add(add, a, b):
+    """The batched affine addition ``add`` (``curve.batch_affine_add`` or
+    the positional kernels' ``ec_kernels.batch_affine_add``) on flat
+    (x, y, inf) triples."""
+    (x, y), inf = add(((a[0], a[1]), a[2]), ((b[0], b[1]), b[2]))
     return x, y, inf
 
 
@@ -261,7 +263,10 @@ def msm_hybrid(curve: SWCurveOps, xs, ys, scalar_digits,
     multiplies a lane, no inversion).  The window sum is
     B*Total - sum_b prefix_b: one negation instead of B per-bucket
     subtractions.  The default cutoff is the JAX package's, kept so that
-    results stay comparable; it is not tuned for this card.
+    results stay comparable; it is not tuned for this card.  The affine
+    levels call the positional kernels directly, as the JAX package's
+    ``msm_hybrid`` calls ``batch_affine_add_dm``: a curve's ``ec_rns``
+    changes ``msm_affine``, not this form.
     """
     if curve.F.K != 1:
         raise NotImplementedError(
@@ -275,6 +280,9 @@ def msm_hybrid(curve: SWCurveOps, xs, ys, scalar_digits,
 
     def padd(p, q):
         return EK.proj_add(curve, p, q)
+
+    def positional(a_pt, b_pt):
+        return EK.batch_affine_add(curve, a_pt, b_pt)
 
     def fenwick_step(acc, level, gidx, take):
         kind, v = level
@@ -293,7 +301,7 @@ def msm_hybrid(curve: SWCurveOps, xs, ys, scalar_digits,
         while cols > wc:
             kind, v = cur
             if kind == "aff" and cols // 2 >= affine_cutoff:
-                cur = ("aff", _aff_add(curve, *_halves(v)))
+                cur = ("aff", _aff_add(positional, *_halves(v)))
             else:
                 if kind == "aff":
                     v = _aff_to_proj(curve, v)
@@ -333,7 +341,7 @@ def _affine_tree_levels(curve, pt, stop: int):
     left: levels[l] holds the sums of 2^l adjacent sorted points."""
     levels = [pt]
     while pt[0].shape[0] > stop:
-        pt = _aff_add(curve, *_halves(pt))
+        pt = _aff_add(curve.batch_affine_add, *_halves(pt))
         levels.append(pt)
     return levels
 
@@ -354,8 +362,8 @@ def msm_affine(curve: SWCurveOps, xs, ys, scalar_digits,
     F = curve.F
 
     def fenwick_step(acc, level, gidx, take):
-        return _aff_select(take, _aff_add(curve, acc, _gather(level, gidx)),
-                           acc)
+        return _aff_select(take, _aff_add(curve.batch_affine_add, acc,
+                                          _gather(level, gidx)), acc)
 
     def one_chunk(keys):
         """Window sums of the chunk as affine (x, y, inf) [wc]."""
@@ -370,7 +378,7 @@ def msm_affine(curve: SWCurveOps, xs, ys, scalar_digits,
             levels, n, _bucket_counts(keys_s, c), B, acc, fenwick_step)
         # suffix_b = Total - prefix_b ; window sum = sum_b suffix_b
         win_id = torch.arange(lanes, device=xs.device) // B
-        suffix = _aff_add(curve, _gather(total, win_id),
+        suffix = _aff_add(curve.batch_affine_add, _gather(total, win_id),
                           (px, F.neg(py), pinf))
         # pad B = 2^c - 1 to 2^c per window with infinity, then reduce
         pad = (suffix[0].new_zeros((wc, 1) + xs.shape[1:]),) * 2 + (

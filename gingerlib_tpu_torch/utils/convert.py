@@ -21,6 +21,10 @@ back, so that one set of seeded inputs can go through both packages.
 ``poseidon_params_from_numpy`` carries a Poseidon parameter set across (the
 JAX package's ``PoseidonParams``, its arrays read as numpy), reduced-round
 sets included, so that both packages hash with the same constants.
+
+``rns_from_numpy`` / ``rns_to_numpy`` carry packed RNS residues across: the
+JAX package's tile ``[128, N]`` uint32 (``pallas_rns.pack_rns``) is the
+transpose of the port's ``[N, 128]`` int32 (``ops/rns_kernels.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 from ..device import resolve_device
 from ..fields import fp as fpmod
 from ..ops.limbs import NP_DTYPE
+from ..ops.rns_kernels import LANES as RNS_LANES
 from ..params import ALL_FIELDS
 from ..primitives.poseidon import PoseidonParams
 from ..proofs.groth16 import Parameters, VerifyingKey
@@ -166,3 +171,19 @@ def poseidon_params_from_numpy(src, device=None) -> PoseidonParams:
         field, t, int(src.r_f), int(src.r_p), int(src.rate),
         np.asarray(src.c2), rc, np.asarray(src.mds),
         np.asarray(src.after_zero_perm), device=device)
+
+
+def rns_from_numpy(tile, device=None) -> torch.Tensor:
+    """Packed residues as the JAX package keeps them, ``[128, N]`` of any
+    integer dtype -> the port's ``[N, 128]`` int32 on ``device``."""
+    device = resolve_device(device)
+    a = np.asarray(tile)
+    if a.ndim != 2 or a.shape[0] != RNS_LANES:
+        raise ValueError(f"expected a [{RNS_LANES}, N] residue tile, got "
+                         f"{a.shape}")
+    return _upload(a.T, device, np.int32)
+
+
+def rns_to_numpy(packed, dtype=np.uint32) -> np.ndarray:
+    """The inverse of ``rns_from_numpy``: ``[N, 128]`` -> ``[128, N]``."""
+    return np.ascontiguousarray(packed.detach().cpu().numpy().T.astype(dtype))

@@ -5,6 +5,10 @@ jax) and holds no test of its own.
   special kind.  Used by tests/test_torch_ec_kernels.py (CPU, against the
   JAX package) and tests/test_torch_gpu_kernels.py (GPU, kernels against
   their plain versions).
+* The inputs of the Pippenger tests (``msm_case``: 16 multiples of the
+  generator with a duplicated point in one bucket, a zero scalar and a
+  masked point).  Used by tests/test_torch_msm_pippenger.py and
+  tests/test_torch_ec_rns.py.
 * Poseidon at a reduced round count (R_F = R_P = 1: a full round, a partial
   one and the last one, so three inversions a permutation) with the real
   constants, its seeded inputs, and the digits the JAX package's
@@ -12,6 +16,8 @@ jax) and holds no test of its own.
   (``JAX_POSEIDON``, ``JAX_MERKLE``).  Used by tests/test_torch_poseidon.py,
   tests/test_torch_merkle.py and tests/test_torch_gpu_kernels.py.
 """
+
+import random
 
 import numpy as np
 import torch
@@ -62,6 +68,48 @@ def affine_pairs(curve, aff):
     y1[5] = 0
     x2[5], y2[5] = x1[5].clone(), y1[5].clone()
     return ((x1, y1), inf1), ((x2, y2), inf2)
+
+
+# ---------------------------------------------------------------------------
+# Pippenger inputs
+# ---------------------------------------------------------------------------
+
+MSM_N = 16
+
+
+def multiples(curve, ks):
+    """Affine [k]G for the python ints ``ks`` (two digits each)."""
+    from gingerlib_tpu_torch.ops import limbs
+    kd = torch.from_numpy(limbs.to_digits_batch(ks, 2)).to(curve.device)
+    return curve.to_affine(
+        curve.mul_scalar_digits(curve.generator((len(ks),)), kd))
+
+
+def scalar_multiple(curve, k):
+    return curve.mul_const(curve.generator(()), k % curve.scalar_field.modulus)
+
+
+def msm_case(g1):
+    """The inputs of the JAX package's
+    tests/test_msm.py::test_msm_hybrid_matches_naive on ``g1``: xs, ys,
+    scalar digits ``sd``, the infinity mask ``inf`` and the scalar
+    combination ``total`` = sum k_i s_i over the unmasked points."""
+    from gingerlib_tpu_torch.ops import limbs
+    n = MSM_N
+    rng = random.Random(77)
+    ks = [rng.randrange(1, 1000) for _ in range(n)]
+    ks = [ks[0]] + ks[:n - 1]            # the same point twice ...
+    xs, ys = multiples(g1, ks)
+    rng = random.Random(31)
+    sc = [rng.randrange(1 << 12) for _ in range(n)]
+    sc[2] = 0
+    sc[0] = sc[1]                        # ... in the same bucket
+    sd = torch.from_numpy(limbs.to_digits_batch(
+        sc, g1.scalar_field.n_digits)).to(g1.device)
+    inf = torch.zeros(n, dtype=torch.bool, device=g1.device)
+    inf[5] = True
+    total = sum(k * s for i, (k, s) in enumerate(zip(ks, sc)) if i != 5)
+    return dict(xs=xs, ys=ys, sd=sd, inf=inf, total=total)
 
 
 # ---------------------------------------------------------------------------

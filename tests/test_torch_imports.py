@@ -11,6 +11,7 @@
 import ast
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -42,7 +43,7 @@ def test_sources_found():
     assert {"fp.py", "sw.py", "groth16.py", "chip_smoke.py", "ec_kernels.py",
             "msm.py", "convert.py", "poseidon.py", "poseidon_kernels.py",
             "poseidon_host.py", "merkle.py", "poseidon_gen.py",
-            "merkle_gen.py"} <= names
+            "merkle_gen.py", "rns.py", "rns_kernels.py", "ec_rns.py"} <= names
 
 
 @pytest.mark.parametrize(
@@ -70,7 +71,9 @@ ENTRY_POINTS = ["compile_r1cs", "Domain", "mnt4753_g1", "mnt4753_g2",
                 "bls12_377_g1", "mnt4753_engine", "generate_parameters",
                 "create_proof", "params_from_numpy", "compiled_from_numpy",
                 "points_from_numpy", "PoseidonParams", "PoseidonHash",
-                "FieldBasedMerkleTree", "poseidon_params_from_numpy"]
+                "FieldBasedMerkleTree", "poseidon_params_from_numpy",
+                "mnt4753_g1(ec_rns=True)", "bls12_377_g1(ec_rns=True)",
+                "rns.to_rns", "rns_from_numpy"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
@@ -83,6 +86,7 @@ def test_device_none_raises_without_a_gpu(entry):
     from gingerlib_tpu_torch.primitives.merkle import FieldBasedMerkleTree
     from gingerlib_tpu_torch.primitives.poseidon import (PoseidonHash,
                                                          PoseidonParams)
+    from gingerlib_tpu_torch.ops import rns
     from gingerlib_tpu_torch.proofs import groth16
     from gingerlib_tpu_torch.relations.r1cs import compile_r1cs
     from gingerlib_tpu_torch.utils import convert
@@ -113,6 +117,12 @@ def test_device_none_raises_without_a_gpu(entry):
             PoseidonHash(PoseidonParams.mnt4753("cpu"), device="cpu"), 4),
         "poseidon_params_from_numpy":
             lambda: convert.poseidon_params_from_numpy(None),
+        "mnt4753_g1(ec_rns=True)": lambda: CI.mnt4753_g1(ec_rns=True),
+        "bls12_377_g1(ec_rns=True)": lambda: CI.bls12_377_g1(ec_rns=True),
+        "rns.to_rns": lambda: rns.to_rns(
+            rns.make_context(TP.BLS12_377_FQ.modulus), [1, 2]),
+        "rns_from_numpy": lambda: convert.rns_from_numpy(
+            np.zeros((128, 2), np.uint32)),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -27,46 +27,24 @@ from gingerlib_tpu.curves import instances as JCI
 from gingerlib_tpu.ops import msm as jmsm
 from gingerlib_tpu_torch.curves import instances as TCI
 from gingerlib_tpu_torch.ops import limbs as tlimbs, msm as tmsm
+from test_torch_cases import MSM_N as N, msm_case, multiples, \
+    scalar_multiple
 
 torch.set_num_threads(1)
-N = 16
 
 
 def to_jax(t):
     return jnp.asarray(t.numpy().astype(np.uint32))
 
 
-def multiples(curve, ks):
-    """Affine [k]G for the python ints ``ks`` (two digits each)."""
-    kd = torch.from_numpy(tlimbs.to_digits_batch(ks, 2))
-    return curve.to_affine(
-        curve.mul_scalar_digits(curve.generator((len(ks),)), kd))
-
-
-def scalar_multiple(curve, k):
-    return curve.mul_const(curve.generator(()), k % curve.scalar_field.modulus)
-
-
 @pytest.fixture(scope="module")
 def case():
     """The inputs of tests/test_msm.py::test_msm_hybrid_matches_naive."""
     g1 = TCI.bls12_377_g1("cpu")
-    rng = random.Random(77)
-    ks = [rng.randrange(1, 1000) for _ in range(N)]
-    ks = [ks[0]] + ks[:N - 1]            # the same point twice ...
-    xs, ys = multiples(g1, ks)
-    rng = random.Random(31)
-    sc = [rng.randrange(1 << 12) for _ in range(N)]
-    sc[2] = 0
-    sc[0] = sc[1]                        # ... in the same bucket
-    sd = torch.from_numpy(tlimbs.to_digits_batch(
-        sc, g1.scalar_field.n_digits))
-    inf = torch.zeros(N, dtype=torch.bool)
-    inf[5] = True
-    total = sum(k * s for i, (k, s) in enumerate(zip(ks, sc)) if i != 5)
-    return dict(g1=g1, xs=xs, ys=ys, sd=sd, inf=inf,
-                naive=tmsm.msm_naive(g1, xs, ys, sd[:, :1], inf_mask=inf),
-                closed=scalar_multiple(g1, total))
+    c = msm_case(g1)
+    return dict(c, g1=g1, naive=tmsm.msm_naive(
+        g1, c["xs"], c["ys"], c["sd"][:, :1], inf_mask=c["inf"]),
+        closed=scalar_multiple(g1, c["total"]))
 
 
 def test_naive_is_the_scalar_combination(case):
