@@ -110,6 +110,7 @@ def main():
     from gingerlib_tpu_torch.primitives.poseidon_host import PoseidonHost
     from gingerlib_tpu_torch.proofs import groth16, groth16_host
     from gingerlib_tpu_torch.relations.r1cs import compile_r1cs
+    from gingerlib_tpu_torch.utils.timing import graph_ms
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -337,6 +338,9 @@ def main():
         cases = [("[2^17,48] dense", name, x17,
                   None if name == "fp_neg" else y17, True)
                  for name in field_ops]
+        # beside the path's shapes: a batch that fills the card
+        cases.append(("[2^20,48] dense", "mont_mul", elems(1 << 20),
+                      elems(1 << 20), True))
         twiddles = y17[:n17 // 2]
         for h in (1, 1 << 8, 1 << 16):      # first, a middle and last pass
             y = x17.reshape(n17 // (2 * h), 2, h, nd)
@@ -389,6 +393,7 @@ def main():
                                n_out * ops_each)
             row = {"name": name, "case": label, "rows": n_out,
                    "max_abs_err": err, "ms": time_ms(lambda: kern(a, b), 20),
+                   "device_ms": graph_ms(lambda: kern(a, b), 20),
                    "plain_ms": time_ms(
                        lambda: plain_by_chunks(plain, a, b), 1),
                    "bound_ms": b_ms, "bound_by": b_by}
@@ -445,7 +450,8 @@ def main():
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": 0,
             "max_abs_err": max(errs[name], errs16.get(name, 0)),
-            "ms": time_ms(kern, reps), "plain_ms": time_ms(plain, plain_reps),
+            "ms": time_ms(kern, reps), "device_ms": graph_ms(kern, reps),
+            "plain_ms": time_ms(plain, plain_reps),
             "bound_ms": b_ms, "bound_by": b_by,
             # no single PyTorch call computes a 753-bit modular operation
             "library_ms": None,
@@ -453,23 +459,25 @@ def main():
         at16 = at_g1.get(name) or dict(row, case="[1,48], as on the 2^10 path",
                                        rows=1)
         row["at_2p16_shape"] = {k: at16[k] for k in (
-            "case", "rows", "ms", "plain_ms", "bound_ms", "bound_by")}
+            "case", "rows", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by")}
         kernels.append(row)
     inv_bea_ms = kernels[-1]["ms"]
     print("kernels agree with their plain versions on the device "
           "(tolerance 0)", flush=True)
 
     # Beside the path's shapes, where a launch costs more than the work:
-    # the multiply at a batch that fills the card, against its bound.
-    dense17 = next(r for r in field_rows if r["name"] == "mont_mul"
-                   and r["case"] == "[2^17,48] dense")
-    print("mont_mul_large_batch " + json.dumps(
-        {"rows": dense17["rows"], "ms": dense17["ms"],
-         "bound_ms": dense17["bound_ms"], "bound_by": dense17["bound_by"],
-         "share_of_bound": dense17["bound_ms"] / dense17["ms"],
+    # the multiply at batches that fill the card, against its bound and the
+    # int64 layout's bytes
+    print("mont_mul_large_batch " + json.dumps([
+        {"rows": r["rows"], "ms": r["ms"], "device_ms": r["device_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "share_of_bound": r["bound_ms"] / r["device_ms"],
          "int64_layout_bytes_ms":
-             3 * dense17["rows"] * layout_bytes / PEAK_BYTES_PER_S * 1e3}),
-        flush=True)
+             3 * r["rows"] * layout_bytes / PEAK_BYTES_PER_S * 1e3}
+        for r in field_rows if r["name"] == "mont_mul" and r["case"] in (
+            "[2^17,48] dense", "[2^20,48] dense",
+            f"g1 loop [{G1_LOOP_LANES},1,48]")]), flush=True)
 
     # What the host pays per launch before the kernel is reached: the
     # current-stream lookup, and a whole call of the wrapper with the device
@@ -562,33 +570,54 @@ def main():
         g1_proj, g1_aff, _ = multiples(g1, big_lanes, seed=7)
         curve_rows = {}
         shapes_line = []
+        k4_rows = []
 
-        # K4 at the Fenwick phase's width (8 windows x 2047 buckets) and at the
-        # first projective tree level below the default cutoff
-        for n in (8 * 2047, 1 << 15):
-            P, Q = proj_case(g1, g1_proj, n)
-            err = compare_all(f"ec_proj_add [{n}]",
-                              ec_kernels.proj_add(g1, P, Q),
-                              ec_kernels.proj_add_plain(g1, P, Q))
-            # strided halves, as the tree levels pass them
+        # K4 at one lane (the window fold's width; timed on the doubling
+        # P + P it mostly runs), at 2^10 lanes, at the Fenwick phase's width
+        # (8 windows x 2047 buckets) and at the first projective tree level
+        # below the default cutoff
+        for n in (1, 1 << 10, 8 * 2047, 1 << 15):
+            err = 0
+            if n == 1:
+                P = tuple(c[8:9].clone() for c in g1_proj)
+                Q = tuple(c[9:10] for c in g1_proj)
+                err = max(compare_all(
+                    "ec_proj_add [1] P+Q", ec_kernels.proj_add(g1, P, Q),
+                    ec_kernels.proj_add_plain(g1, P, Q)), compare_all(
+                    "ec_proj_add [1] P+P", ec_kernels.proj_add(g1, P, P),
+                    g1.double(P)))
+                Q = P
+                muls = 17                     # a doubling, a != 0
+            else:
+                P, Q = proj_case(g1, g1_proj, n)
+                # lanes: 3 with an operand at infinity (no multiply), 2 that
+                # cancel or double a y = 0 point (5), 2 doublings (5 + 12),
+                # the rest 14
+                muls = 2 * 5 + 2 * 17 + (n - N_SPECIAL) * 14
             err = max(err, compare_all(
-                f"ec_proj_add [{n // 2}] even/odd",
-                ec_kernels.proj_add(g1, tuple(c[0::2] for c in P),
-                                    tuple(c[1::2] for c in Q)),
-                ec_kernels.proj_add_plain(g1, tuple(c[0::2] for c in P),
-                                          tuple(c[1::2] for c in Q))))
-            # lanes: 3 with an operand at infinity (no multiply), 2 that cancel
-            # or double a y = 0 point (5), 2 doublings (5 + 12), the rest 14
-            muls = 2 * 5 + 2 * 17 + (n - N_SPECIAL) * 14
+                f"ec_proj_add [{n}]", ec_kernels.proj_add(g1, P, Q),
+                ec_kernels.proj_add_plain(g1, P, Q)))
+            if n > 1:
+                # strided halves, as the tree levels pass them
+                err = max(err, compare_all(
+                    f"ec_proj_add [{n // 2}] even/odd",
+                    ec_kernels.proj_add(g1, tuple(c[0::2] for c in P),
+                                        tuple(c[1::2] for c in Q)),
+                    ec_kernels.proj_add_plain(g1, tuple(c[0::2] for c in P),
+                                              tuple(c[1::2] for c in Q))))
+            reps = 200 if n == 1 else 20
             b_ms, b_by = bound(9 * n * elem_bytes, muls * MUL_OPS)
             row = {"lanes": n, "max_abs_err": err,
-                   "ms": time_ms(lambda: ec_kernels.proj_add(g1, P, Q), 20),
+                   "ms": time_ms(lambda: ec_kernels.proj_add(g1, P, Q), reps),
+                   "device_ms": graph_ms(
+                       lambda: ec_kernels.proj_add(g1, P, Q), reps),
                    "plain_ms": time_ms(
                        lambda: ec_kernels.proj_add_plain(g1, P, Q), 3),
                    "bound_ms": b_ms, "bound_by": b_by}
             shapes_line.append(dict(row, name="ec_proj_add"))
+            k4_rows.append(row)
             if n == 8 * 2047:
-                curve_rows["ec_proj_add"] = row
+                curve_rows["ec_proj_add"] = dict(row)
         # the doubling of the window fold: P + P must be double(P)
         compare_all("ec_proj_add P+P against double",
                     ec_kernels.proj_add(g1, P, P), g1.double(P))
@@ -733,6 +762,7 @@ def main():
             raise AssertionError("the G1 kernel took a curve over Fq2")
         print("curve kernels agree with their plain versions on the device "
               "(tolerance 0)", flush=True)
+        curve_rows["ec_proj_add"]["by_lanes"] = k4_rows
         return curve_rows
 
     curve_rows = curve_kernel_section()
@@ -754,12 +784,16 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "lanes": row["lanes"],
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"],
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in row.get("by_lanes", [row])),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             # no PyTorch call computes a curve addition or a 753-bit inverse
             "library_ms": None,
         })
+        if name == "ec_proj_add":
+            kernels[-1]["device_ms"] = row["device_ms"]
+            kernels[-1]["by_lanes"] = row["by_lanes"]
 
     # ------------------------------------------------------------------
     # 2c. the RNS kernels (K7, K8) against their plain versions
@@ -1342,6 +1376,7 @@ def main():
             raise AssertionError("benchmark circuit is not satisfied")
         out = {"log2_constraints": log2}
         fp.reset_launch_counts()
+        ec_kernels.reset_proj_add_widths()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1361,6 +1396,7 @@ def main():
             k: v - out["setup_launches"][k]
             for k, v in out["path_launches"].items()}
         out["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["proj_add_launches_by_lanes"] = dict(ec_kernels.proj_add_widths)
         t = time.perf_counter()
         want = groth16_host.expected_proof("mnt4753", cs, **TOXIC,
                                            r=R_BLIND, s=S_BLIND)
@@ -1613,6 +1649,8 @@ def main():
             k["launches_2p16_path"] = full["path_launches"][name]
             if k["launches_2p16_path"] <= 0:
                 raise AssertionError(f"the 2^16 path never launched {name}")
+        if name == "ec_proj_add":
+            k["launches_by_lanes"] = full["proj_add_launches_by_lanes"]
         if k["launches"] <= 0:
             raise AssertionError(f"the main path never launched {name}")
 

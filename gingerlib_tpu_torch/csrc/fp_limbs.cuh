@@ -1,8 +1,9 @@
 // Prime-field arithmetic on 32-bit limbs held in registers, one field element
 // per CUDA thread.  Shared by every kernel of the library: Montgomery
-// multiply, modular add/sub/neg (register forms, first part), binary-Euclid
-// inverse, curve additions, inversion trees, pow chains and Poseidon
-// (memory-resident forms, second part).
+// multiply, modular add/sub/neg (register forms and the tile loop, first
+// part), binary-Euclid inverse, affine curve additions, inversion trees, pow
+// chains and Poseidon (memory-resident forms, second part).  The projective
+// addition spreads each element over a group of threads (fp_group.cuh).
 //
 // Boundary layout (see gingerlib_tpu_torch/fields/fp.py): an element is ND
 // little-endian 16-bit digits, each stored in an int64, so R = 2^(16*ND).
@@ -10,6 +11,7 @@
 // is why only even ND is built.
 #pragma once
 
+#include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
@@ -45,6 +47,193 @@ __device__ __forceinline__ void store_digits(long long* __restrict__ dst,
     d.x = (long long)(x[i] & 0xFFFFu);
     d.y = (long long)(x[i] >> 16);
     d2[i] = d;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tiles streamed through shared memory, for the elementwise kernels (the
+// Montgomery multiply and the add/sub/neg helper).  A row of the boundary
+// layout is ND*8 bytes: threads that each read their own row load from
+// addresses ND*8 bytes apart across a warp, so each warp-wide load touches
+// 32 lines and uses a few bytes of each, and a block's operands overflow the
+// L1 before its threads come back to the same lines.  Here a block of T
+// threads moves a tile of T rows together: a warp's lanes take consecutive
+// digits (or 16-byte chunks) of a row, so its accesses cover whole lines, and
+// a dense operand's tile is one contiguous range.
+//
+// Operands come in by cp.async, straight from global to shared memory with
+// no registers held: the low 32-bit word of each int64 digit (a digit is
+// below 2^16), ND + 1 words a row (the odd row stride puts thread t's reads
+// of its own row, word t*(ND+1) + j, in 32 different banks).  A thread
+// packs its row's digit pairs into limbs as it reads them.  So a block can
+// ask for its next tile while it computes on the current one: the operands
+// are in registers by then, and their shared memory is free (tile_loop).
+// Results leave through shared memory as L + 1 packed words a row and are
+// written out as 16-byte digit pairs, consecutive threads on consecutive
+// chunks.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async4(uint32_t* dst, const void* src) {
+  unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Ask for batch rows base .. base+cnt-1 of operand x, row r into s + r*(2L+1):
+// each warp takes whole rows, its lanes consecutive digits.  Batch row i is
+// row i % rows of x, rows `stride` digits apart; a one-row operand is
+// fetched once, to row 0 (its readers take row step 0).
+template <int L, int T>
+__device__ __forceinline__ void fetch_rows(const long long* __restrict__ x,
+                                           int rows, long long stride,
+                                           int base, int cnt, uint32_t* s) {
+  constexpr int ND = 2 * L;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nrows = rows == 1 ? 1 : cnt;
+  for (int r = warp; r < nrows; r += T / 32) {
+    int row = base + r;
+    if (row >= rows) row %= rows;
+    const long long* src = x + (size_t)row * stride;
+    uint32_t* dst = s + r * (ND + 1);
+#pragma unroll
+    for (int d = lane; d < ND; d += 32) cp_async4(dst + d, src + d);
+  }
+}
+
+// The limbs of a fetched row.
+template <int L>
+__device__ __forceinline__ void fetched_limbs(const uint32_t* s,
+                                              uint32_t (&x)[L]) {
+#pragma unroll
+  for (int j = 0; j < L; j++)
+    x[j] = (s[2 * j] & 0xFFFFu) | (s[2 * j + 1] << 16);
+}
+
+// s (rows of L + 1 packed words) -> the dense output rows base .. base+cnt-1.
+template <int L, int T>
+__device__ __forceinline__ void unstage_rows(const uint32_t* s,
+                                             long long* __restrict__ out,
+                                             int base, int cnt) {
+  longlong2* o = reinterpret_cast<longlong2*>(out + (size_t)base * 2 * L);
+  const int total = cnt * L;
+#pragma unroll 8
+  for (int it = 0; it < L; it++) {
+    int k = it * T + (int)threadIdx.x;
+    if (k < total) {
+      uint32_t w = s[k + k / L];
+      longlong2 d;
+      d.x = (long long)(w & 0xFFFFu);
+      d.y = (long long)(w >> 16);
+      o[k] = d;
+    }
+  }
+}
+
+// Rows a tile takes in shared memory: T, or n where the whole batch is
+// smaller, so that a launch on a few elements asks for little shared memory.
+template <int T>
+__host__ __device__ __forceinline__ int tile_rows(int n) {
+  return n < T ? n : T;
+}
+
+// Bytes of dynamic shared memory tile_loop takes for n rows: NOPS fetched
+// operand tiles and one result tile.
+template <int L, int T, int NOPS>
+__host__ __device__ __forceinline__ int tile_loop_bytes(int n) {
+  return 4 * tile_rows<T>(n) * (NOPS * (2 * L + 1) + L + 1);
+}
+
+// Host side: the launch of a tile_loop kernel over n rows, (blocks, bytes):
+// as many blocks as can be resident at once with full tiles, at most one a
+// tile.  `resident` is the caller's cache of that count for this kernel,
+// one entry a device, 0 until known: the first call on a device also opens
+// the kernel's dynamic shared memory to a full tile's there.  Returns the
+// first CUDA error of those queries, else cudaSuccess.
+constexpr int MAX_DEVICES = 16;
+
+template <int L, int T, int NOPS, typename Kernel>
+inline cudaError_t tile_loop_launch(Kernel kernel, int n,
+                                    int (&resident)[MAX_DEVICES],
+                                    int& blocks, int& bytes) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && dev >= MAX_DEVICES) e = cudaErrorInvalidDevice;
+  if (e != cudaSuccess) return e;
+  if (resident[dev] == 0) {
+    const int full = tile_loop_bytes<L, T, NOPS>(T);
+    int sms = 0, per_sm = 0;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+        (e = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, full)) !=
+            cudaSuccess ||
+        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, T,
+                                                           full)) !=
+            cudaSuccess) {
+      cudaGetLastError();  // clear it: the caller returns it
+      return e;
+    }
+    resident[dev] = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const int tiles = (n + T - 1) / T;
+  blocks = tiles < resident[dev] ? tiles : resident[dev];
+  bytes = tile_loop_bytes<L, T, NOPS>(n);
+  return cudaSuccess;
+}
+
+// The elementwise kernels' body: out[i] = op(a[i], b[i]) for every batch
+// row i (op(a) when NOPS == 1), each block walking tiles blockIdx.x,
+// blockIdx.x + gridDim.x, ...; the next tile's operands are fetched while
+// the current one computes.  Row addressing as fetch_rows; the output is
+// dense.  smem: tile_loop_bytes<L, T, NOPS>(n) bytes.
+template <int L, int T, int NOPS, typename Op>
+__device__ __forceinline__ void tile_loop(
+    const long long* __restrict__ a, int a_rows, long long a_stride,
+    const long long* __restrict__ b, int b_rows, long long b_stride,
+    long long* __restrict__ out, int n, uint32_t* smem, Op op) {
+  constexpr int RW = 2 * L + 1;
+  const int rows = tile_rows<T>(n);
+  uint32_t* sa = smem;
+  uint32_t* sb = smem + rows * RW;
+  uint32_t* so = smem + NOPS * rows * RW;
+  const int t = threadIdx.x;
+  const int tiles = (n + T - 1) / T;
+  int tile = blockIdx.x;
+  auto fetch = [&](int k) {
+    const int base = k * T, cnt = min(T, n - base);
+    fetch_rows<L, T>(a, a_rows, a_stride, base, cnt, sa);
+    if constexpr (NOPS == 2)
+      fetch_rows<L, T>(b, b_rows, b_stride, base, cnt, sb);
+    cp_async_commit();
+  };
+  if (tile < tiles) fetch(tile);
+  for (; tile < tiles; tile += gridDim.x) {
+    const int base = tile * T, cnt = min(T, n - base);
+    cp_async_wait_all();
+    __syncthreads();  // the tile's operands have landed
+    uint32_t x[L], y[L], r[L];
+    if (t < cnt) {
+      fetched_limbs<L>(sa + (a_rows == 1 ? 0 : t * RW), x);
+      if constexpr (NOPS == 2)
+        fetched_limbs<L>(sb + (b_rows == 1 ? 0 : t * RW), y);
+    }
+    __syncthreads();  // operands in registers: fetch the next tile
+    if (tile + (int)gridDim.x < tiles) fetch(tile + gridDim.x);
+    if (t < cnt) {
+      op(x, y, r);
+#pragma unroll
+      for (int j = 0; j < L; j++) so[t * (L + 1) + j] = r[j];
+    }
+    __syncthreads();
+    unstage_rows<L, T>(so, out, base, cnt);
   }
 }
 

@@ -26,17 +26,20 @@ Kernels held here (source notes in the ``.cu`` files):
 
 * ``mont_mul``  -> ``csrc/mont_mul.cu``; replaces ``mont_mul_pallas_t`` and
   its layout siblings (``gingerlib_tpu/ops/pallas_mont.py``).  One thread
-  per element, CIOS on 32-bit limbs in registers.  Its floor on the card
-  is set by the integer multiply-adds (``2*L*L + L`` per element, ``L``
-  limbs), not by the ``3 * 2 * n_digits`` bytes of information it moves;
-  the int64 boundary layout makes it move four times those bytes.
+  per element, CIOS on 32-bit limbs in registers; blocks stream tiles of
+  operand rows through shared memory, the next tile in flight while the
+  current one multiplies.  Its floor on the card is set by the integer
+  multiply-adds (``2*L*L + L`` per element, ``L`` limbs), not by the
+  ``3 * 2 * n_digits`` bytes of information it moves; the int64 boundary
+  layout makes it move four times those bytes.
 * ``inv_bea``   -> ``csrc/inv_bea.cu``; replaces ``inv_bea_pallas``.  One
   thread per element, data-dependent binary extended Euclid; a latency
   kernel (batch of one on the proving path).  The operation count gives a
   floor only: one serial thread cannot come near the card's peak rate.
 * ``add_mod/sub_mod/neg_mod`` -> ``csrc/fp_addsub.cu``; no TPU kernel of
   their own (XLA fused them), added because eager launches of their plain
-  form would dominate the prover.  Bound by bytes.
+  form would dominate the prover.  Bound by bytes; streamed as the multiply
+  is.
 * ``pow_const`` -> ``csrc/pow_const.cu``; replaces ``pow_const_pallas``.  One
   thread per element runs the whole square-and-multiply ladder of a fixed
   exponent in one launch; bound by its multiplies (``bits + popcount`` an
@@ -299,6 +302,14 @@ def _kernel(name: str):
         from ..ops import cuda_lib
         fn = _kernel_fns[name] = cuda_lib.function(name)
     return fn
+
+
+def use_kernels(fns: dict):
+    """Make every wrapper launch the given C entry points ({name: function},
+    as ``cuda_lib.load`` returns them) in place of those it launched so far:
+    two builds of a kernel can then be held against each other under the
+    same Python."""
+    _kernel_fns.update(fns)
 
 
 def _launch_binary(params: FpParams, a, b, name: str, op: int | None):

@@ -23,7 +23,7 @@ BUILD = os.path.join(_PKG, "build")
 SOURCES = ("mont_mul", "inv_bea", "fp_addsub", "ec_add", "ec_affine",
            "inv_tree", "pow_const", "poseidon", "rns_mont", "ec_rns")
 # headers: an edit of one rebuilds every library
-HEADERS = ("fp_limbs.cuh", "rns_core.cuh")
+HEADERS = ("fp_limbs.cuh", "fp_group.cuh", "rns_core.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -75,40 +75,44 @@ def _nvcc() -> str:
     return exe
 
 
-def _stale(lib: str, name: str) -> bool:
+def _stale(lib: str, name: str, csrc: str, out: str) -> bool:
     if not (os.path.exists(lib)
-            and os.path.exists(os.path.join(BUILD, name + ".log"))):
+            and os.path.exists(os.path.join(out, name + ".log"))):
         return True
     t = os.path.getmtime(lib)
-    deps = [os.path.join(CSRC, f) for f in (name + ".cu",) + HEADERS]
-    return any(os.path.getmtime(d) > t for d in deps)
+    deps = [os.path.join(csrc, f) for f in (name + ".cu",) + HEADERS]
+    return any(os.path.getmtime(d) > t for d in deps if os.path.exists(d))
 
 
-def build() -> dict:
-    """Compile every stale source, all ``nvcc`` processes started together.
-    Returns {name: path of the shared library}.  What the compiler printed
-    -- registers, stack frame and spills of each kernel, from ``ptxas -v``
-    -- is kept beside the library as ``build/<name>.log``."""
-    os.makedirs(BUILD, exist_ok=True)
-    libs = {n: os.path.join(BUILD, f"lib{n}.so") for n in SOURCES}
+def build(csrc: str | None = None, out: str | None = None,
+          names=SOURCES) -> dict:
+    """Compile every stale source of ``names`` in ``csrc`` into ``out``
+    (by default all of the package's own, into its build directory), all
+    ``nvcc`` processes started together.  Returns {name: path of the shared
+    library}.  What the compiler printed -- registers, stack frame and
+    spills of each kernel, from ``ptxas -v`` -- is kept beside the library
+    as ``<out>/<name>.log``."""
+    csrc, out = csrc or CSRC, out or BUILD
+    os.makedirs(out, exist_ok=True)
+    libs = {n: os.path.join(out, f"lib{n}.so") for n in names}
     procs = []
-    for n in SOURCES:
-        if not _stale(libs[n], n):
+    for n in names:
+        if not _stale(libs[n], n, csrc, out):
             continue
         tmp = libs[n] + f".tmp{os.getpid()}"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", CSRC, "-o", tmp,
-               os.path.join(CSRC, n + ".cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", csrc, "-o", tmp,
+               os.path.join(csrc, n + ".cu")]
         procs.append((n, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     failed = []
     for n, tmp, proc in procs:
-        out, _ = proc.communicate()
+        text, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{n}.cu (exit {proc.returncode}):\n{out}")
+            failed.append(f"{n}.cu (exit {proc.returncode}):\n{text}")
             continue
-        with open(os.path.join(BUILD, n + ".log"), "w") as f:
-            f.write(out)
+        with open(os.path.join(out, n + ".log"), "w") as f:
+            f.write(text)
         os.replace(tmp, libs[n])  # atomic: no reader sees a partial file
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
@@ -142,10 +146,20 @@ def function(name: str):
     loading its library at first use."""
     fn = _functions.get(name)
     if fn is None:
-        lib_name, argtypes = _SIGNATURES[name]
-        lib = ctypes.CDLL(build()[lib_name])
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _functions[name] = fn
+        lib = build()[_SIGNATURES[name][0]]
+        fn = _functions[name] = load(lib, (name,))[name]
     return fn
+
+
+def load(path: str, names) -> dict:
+    """{name: the C entry point ``name`` of the shared library at ``path``,
+    with its argument types set} -- the library's own build or another
+    build of the same sources (``build`` with another ``csrc``)."""
+    lib = ctypes.CDLL(path)
+    fns = {}
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = _SIGNATURES[name][1]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns

@@ -145,6 +145,25 @@ def _point_shape(x, n: int, nd: int):
 # K4: unified projective addition
 # ---------------------------------------------------------------------------
 
+# K4's launches by batch width, beside ``launch_counts``: one lane (the
+# window fold's additions), 2 to 2^10 lanes, 2^10 + 1 to 2^15 (the Fenwick
+# steps' 16,376 lanes and the projective tree's upper levels), wider.
+proj_add_widths = {"1": 0, "2-2^10": 0, "2^10-2^15": 0, "over_2^15": 0}
+
+
+def reset_proj_add_widths():
+    for k in proj_add_widths:
+        proj_add_widths[k] = 0
+
+
+def _width_class(n: int) -> str:
+    if n == 1:
+        return "1"
+    if n <= 1 << 10:
+        return "2-2^10"
+    return "2^10-2^15" if n <= 1 << 15 else "over_2^15"
+
+
 def proj_add_plain(curve, P3, Q3):
     """The plain version: ``SWCurveOps.add`` (add-1998-cmo-2, dbl-2007-bl and
     the completeness selects as array code)."""
@@ -170,6 +189,7 @@ def proj_add_cuda(curve, P3, Q3):
         _curve_consts(curve), params.inv32,
         int(curve.a_is_zero), fpmod._raw_stream(outs[0]))
     _launched(rc, "proj_add", "ec_proj_add")
+    proj_add_widths[_width_class(n)] += 1
     return tuple(outs)
 
 

@@ -1,5 +1,5 @@
-"""The port's curve, pow-chain, Poseidon and RNS kernels against their plain
-PyTorch versions, under pytest, on a machine with an NVIDIA GPU:
+"""The port's field, curve, pow-chain, Poseidon and RNS kernels against their
+plain PyTorch versions, under pytest, on a machine with an NVIDIA GPU:
 
     python -m pytest --noconftest tests/test_torch_gpu_kernels.py -q
 
@@ -17,7 +17,7 @@ from gingerlib_tpu_torch.curves import instances as CI
 from gingerlib_tpu_torch.ops import ec_kernels as EK, msm as tmsm
 from gingerlib_tpu_torch.ops import ec_rns as ER
 from test_torch_cases import (affine_pairs, poseidon_states, proj_pairs,
-                              reduced_poseidon)
+                              rand_below, reduced_poseidon)
 
 pytestmark = pytest.mark.gpu
 N = 64
@@ -182,3 +182,134 @@ def test_rns_mont_matches_plain(cuda, name):
     for a, b in ((x, y), (x[0::2], x[1::2]), (x, y[5:6])):
         assert torch.equal(RK.mont_mul_rns(p, a, b),
                            RK.mont_mul_rns_plain(p, a, b))
+
+
+# ---------------------------------------------------------------------------
+# K1 (tiles staged through shared memory) and K4 (a group of threads a lane)
+# ---------------------------------------------------------------------------
+
+TILE = 128                      # elements a K1 block
+FIELDS = ["MNT4753_FQ", "BLS12_377_FQ", "BLS12_377_FR"]   # 48, 24, 16 digits
+
+
+def _field(name):
+    from gingerlib_tpu_torch import params as TP
+    return getattr(TP, name)
+
+
+def _digits(F, vals, device):
+    from gingerlib_tpu_torch.ops import limbs
+    return torch.from_numpy(limbs.to_digits_batch(vals, F.n_digits)).to(
+        device)
+
+
+def _carry_values(F):
+    """Operands whose products and sums make runs of all-ones limbs: R - 1
+    and p - 1 and their neighbours, all ones below a limb boundary."""
+    p, R = F.modulus, 1 << (16 * F.n_digits)
+    vals = [(R - 1) % p, p - 1, p - 2, R % p, 1, 2, (R - 1) // 3 % p]
+    vals += [((1 << (32 * k)) - 1) % p for k in range(1, F.n_digits // 2)]
+    vals += [(p - (1 << (32 * k))) % p for k in range(1, F.n_digits // 2)]
+    return vals
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_mont_mul_ragged_tiles_and_row_forms(cuda, name):
+    """K1 on ragged tiles (1, T - 1, T + 1, 2^11 + 3 elements), a constant
+    row (to_mont's R^2), a twiddle table repeated along the leading axes,
+    an Fq2 component view (row stride 2 nd) and one operand in [p, R)."""
+    from gingerlib_tpu_torch.fields import fp
+    F = _field(name)
+    nd, p, R = F.n_digits, F.modulus, 1 << (16 * F.n_digits)
+    big = (1 << 11) + 3
+    vals = [0, 1, p - 1] + rand_below(p, 2 * big, seed=71)
+    a_all, b_all = _digits(F, vals[:big], cuda), _digits(F, vals[big:2 * big],
+                                                         cuda)
+    for n in (1, TILE - 1, TILE + 1, big):
+        a, b = a_all[:n], b_all[:n]
+        assert torch.equal(fp.mont_mul(F, a, b), fp.mont_mul_plain(F, a, b))
+    r2 = F.tensor("r2_digits", cuda)
+    assert torch.equal(fp.mont_mul(F, a_all, r2),
+                       fp.mont_mul_plain(F, a_all, r2))
+    assert torch.equal(fp.to_mont(F, a_all), fp.mont_mul_plain(F, a_all, r2))
+    x = a_all[:2048].reshape(8, 256, nd)
+    tw = b_all[:256]
+    assert torch.equal(fp.mont_mul(F, x, tw), fp.mont_mul_plain(F, x, tw))
+    q = a_all[:2 * 700].reshape(700, 2, nd)
+    assert q[:, 1].stride(0) == 2 * nd
+    assert torch.equal(fp.mont_mul(F, q[:, 1], q[:, 0]),
+                       fp.mont_mul_plain(F, q[:, 1], q[:, 0]))
+    wide = _digits(F, [R - 1, p] + rand_below(R, big - 2, seed=72), cuda)
+    assert torch.equal(fp.mont_mul(F, wide, b_all),
+                       fp.mont_mul_plain(F, wide, b_all))
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_field_kernels_on_carry_runs(cuda, name):
+    """K1 and add/sub/neg on every pair of the all-ones-run operands."""
+    from gingerlib_tpu_torch.fields import fp
+    F = _field(name)
+    vals = _carry_values(F)
+    a = _digits(F, [u for u in vals for _ in vals], cuda)
+    b = _digits(F, [v for _ in vals for v in vals], cuda)
+    assert torch.equal(fp.mont_mul(F, a, b), fp.mont_mul_plain(F, a, b))
+    assert torch.equal(fp.add_mod(F, a, b), fp.add_mod_plain(F, a, b))
+    assert torch.equal(fp.sub_mod(F, a, b), fp.sub_mod_plain(F, a, b))
+    assert torch.equal(fp.neg_mod(F, a), fp.neg_mod_plain(F, a))
+
+
+def _lanes(curve, proj, n):
+    """(P, Q) on n lanes, the special lanes of proj_pairs first; points
+    repeat beyond the fixture's N."""
+    reps = -(-max(n, N) // N)
+    P, Q = proj_pairs(curve, tuple(c.repeat(reps, *([1] * (c.dim() - 1)))
+                                   for c in proj))
+    return tuple(c[:n] for c in P), tuple(c[:n] for c in Q)
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 9, 33, 16376])
+def test_proj_add_lane_counts(curve, points, n):
+    """K4 at 1, 3, G + 1 (5 at 24 digits, 9 at 48), 33 and 16,376 lanes,
+    with lanes at infinity on either side, doublings, opposite points and
+    y = 0 doublings among them."""
+    P, Q = _lanes(curve, points[0], n)
+    for got, want in zip(EK.proj_add(curve, P, Q),
+                         EK.proj_add_plain(curve, P, Q)):
+        assert torch.equal(got, want)
+
+
+def test_proj_add_strided_broadcast_and_doubling(curve, points):
+    """Even/odd halves (row stride 2 nd), a broadcast row (stride 0), and
+    P + P equal to double(P)."""
+    P, Q = proj_pairs(curve, points[0])
+    even, odd = tuple(c[0::2] for c in P), tuple(c[1::2] for c in Q)
+    for got, want in zip(EK.proj_add(curve, even, odd),
+                         EK.proj_add_plain(curve, even, odd)):
+        assert torch.equal(got, want)
+    row = tuple(c[9:10].expand(N, *c.shape[1:]) for c in Q)
+    for got, want in zip(EK.proj_add(curve, P, row),
+                         EK.proj_add_plain(curve, P, row)):
+        assert torch.equal(got, want)
+    for got, want in zip(EK.proj_add(curve, P, P), curve.double(P)):
+        assert torch.equal(got, want)
+
+
+def test_proj_add_on_carry_runs(curve):
+    """K4's group arithmetic on coordinates made of the all-ones-run
+    operands (not points of the curve: the formulas run all the same),
+    seeded combinations and the equal and opposite cases among them."""
+    import random
+    F = curve.fp
+    vals = _carry_values(F)
+    rng = random.Random(73)
+    n = 256
+    cols = [[rng.choice(vals) for _ in range(n)] for _ in range(6)]
+    for k in range(0, n, 4):          # equal points, then opposite points
+        cols[3][k], cols[4][k], cols[5][k] = cols[0][k], cols[1][k], cols[2][k]
+        cols[3][k + 1], cols[5][k + 1] = cols[0][k + 1], cols[2][k + 1]
+        cols[4][k + 1] = (F.modulus - cols[1][k + 1]) % F.modulus
+    t = [_digits(F, c, curve.device).reshape(n, 1, -1) for c in cols]
+    P, Q = tuple(t[:3]), tuple(t[3:])
+    for got, want in zip(EK.proj_add(curve, P, Q),
+                         EK.proj_add_plain(curve, P, Q)):
+        assert torch.equal(got, want)

@@ -1,0 +1,263 @@
+#!/usr/bin/env python3
+"""Hold this tree's field and projective-addition kernels against another
+checkout's, on one NVIDIA GPU, in turns.
+
+    python3 tools/kernel_ab.py --other DIR [--sections k1,k4,end_to_end]
+
+DIR is a checkout of another commit (e.g. ``git archive <commit> | tar -x -C
+DIR``); only its ``gingerlib_tpu_torch/csrc`` is read.  Its ``mont_mul.cu``,
+``fp_addsub.cu`` and ``ec_add.cu`` are built with nvcc beside this tree's
+libraries and swapped into this tree's wrappers (``fields/fp.py`` looks its
+C entry points up by name), so both run the same Python; the kernels' C
+interface is the same in both.  It prints one JSON line a section:
+
+* ``exact``: the two trees' outputs at every shape below are equal (integer
+  arithmetic: tolerance 0), and the same for a one-lane doubling;
+* ``k1``: device time (a CUDA graph of the launches, replayed between CUDA
+  events) of the multiply, add and sub kernels, called through their C entry
+  points, at 1 row (the prover's one-lane loops), 2^11, 327,697 (the 2^16
+  setup's G1 loop) and 2^20 rows, dense
+  and with both operands one constant row (no operand traffic: the compute
+  and the stores alone);
+* ``k4``: device time of the projective addition on MNT4-753 G1 at 1 lane
+  (a doubling, as the window fold runs it), 2^10, 16,376 and 2^15 lanes, on
+  distinct points (``generic``) and on the special lanes of
+  tests/test_torch_cases.py first (``special_lanes``, as chip_smoke.py
+  times it);
+* ``end_to_end``: host-clock seconds of a 2^10-
+  constraint MNT4-753 Groth16 setup and prove (checked against the
+  python-int oracle), of the 2^16 rung's G1 fixed-base loop (768 steps over
+  327,697 lanes; both trees' points must be equal) and of a 2^16-point G1
+  ``msm_hybrid``.
+
+Every timing runs in the order other, this, this, other, on the same card;
+the last line names the card and its power limit.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+KERNELS = (("gl_mont_mul", "mont_mul"), ("gl_fp_addsub", "fp_addsub"),
+           ("gl_ec_proj_add", "ec_add"))
+ORDER = ("other", "this", "this", "other")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", required=True,
+                    help="checkout of the commit to compare with")
+    ap.add_argument("--sections", default="k1,k4,end_to_end",
+                    help="comma-separated subset of k1, k4, end_to_end")
+    args = ap.parse_args()
+    sections = set(args.sections.split(","))
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 1
+
+    from gingerlib_tpu_torch import params as PP
+    from gingerlib_tpu_torch.curves import instances as CI
+    from gingerlib_tpu_torch.fields import fp
+    from gingerlib_tpu_torch.ops import cuda_lib, ec_kernels
+    from gingerlib_tpu_torch.ops import msm as msm_mod
+    from gingerlib_tpu_torch.utils.timing import graph_ms
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+    # ---- build both ----
+    cuda_lib.build()
+    other = cuda_lib.build(
+        os.path.join(args.other, "gingerlib_tpu_torch", "csrc"),
+        os.path.join(cuda_lib.BUILD, "other"),
+        [lib for _, lib in KERNELS])
+    fns = {"this": {name: cuda_lib.function(name) for name, _ in KERNELS},
+           "other": {}}
+    for name, lib in KERNELS:
+        fns["other"].update(cuda_lib.load(other[lib], (name,)))
+
+    def use(tree):
+        fp.use_kernels(fns[tree])
+
+    def in_turns(fn):
+        """{tree: [value, value]} of fn(tree) run in ORDER, each with its
+        tree's kernels in the wrappers."""
+        out = {}
+        for tree in ORDER:
+            use(tree)
+            out.setdefault(tree, []).append(fn(tree))
+        use("this")
+        return out
+
+    def same(name, tree_outputs):
+        a, b = tree_outputs["other"], tree_outputs["this"]
+        a = a if isinstance(a, tuple) else (a,)
+        b = b if isinstance(b, tuple) else (b,)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{name}: the two trees differ")
+
+    def outputs(fn):
+        res = {}
+        for tree in ("other", "this"):
+            use(tree)
+            res[tree] = fn()
+        use("this")
+        return res
+
+    fq = PP.MNT4753_FQ
+    nd = fq.n_digits
+    gen = torch.Generator().manual_seed(2024)
+
+    def elems(rows):
+        raw = torch.randint(0, 1 << 16, (rows, nd), generator=gen,
+                            dtype=torch.int64)
+        raw[:, -1] = 0                 # below 2^752 < p
+        return raw.to(dev)
+
+    def raw(tree, op, a, a_rows, b, b_rows, out, n):
+        """One launch of a field kernel of `tree` (op: None for the
+        multiply, else 0 add, 1 sub), rows as in fields/fp.py."""
+        stream = torch.cuda.current_stream().cuda_stream
+        if op is None:
+            rc = fns[tree]["gl_mont_mul"](
+                nd, a.data_ptr(), a_rows, nd, b.data_ptr(), b_rows, nd,
+                out.data_ptr(), n, fq.limbs_ptr, fq.inv32, stream)
+        else:
+            rc = fns[tree]["gl_fp_addsub"](
+                nd, op, a.data_ptr(), a_rows, nd, b.data_ptr(), b_rows, nd,
+                out.data_ptr(), n, fq.limbs_ptr, stream)
+        if rc != 0:
+            raise RuntimeError(f"launch failed ({rc})")
+
+    checked = []
+    k1 = {}
+    if "k1" in sections:
+        for label, rows, reps in (("[1,48]", 1, 500),
+                                  ("[2^11,48]", 1 << 11, 200),
+                                  ("[327697,1,48]", 327697, 30),
+                                  ("[2^20,48]", 1 << 20, 10)):
+            a, b = elems(rows), elems(rows)
+            outs = {tree: torch.empty_like(a) for tree in ("this", "other")}
+            row = {}
+            for name, op in (("mont_mul", None), ("fp_add", 0), ("fp_sub", 1)):
+                # dense, or both one constant row (the same at one row)
+                for a_rows in dict.fromkeys((rows, 1)):
+                    case = name if a_rows == rows else name + "_constant_rows"
+                    for tree in outs:
+                        raw(tree, op, a, a_rows, b, a_rows, outs[tree], rows)
+                    same(f"{case} {label}", outs)
+                    checked.append(f"{case} {label}")
+                    row[case] = in_turns(lambda tree: graph_ms(
+                        lambda: raw(tree, op, a, a_rows, b, a_rows,
+                                    outs[tree], rows), reps))
+            k1[label] = row
+            del a, b, outs
+    g1 = CI.mnt4753_g1()
+
+    def multiples(n, seed):
+        ks = torch.randint(1, 1 << 32, (n,), dtype=torch.int64,
+                           generator=torch.Generator().manual_seed(seed))
+        sd = torch.stack([ks & 0xFFFF, ks >> 16], dim=1).to(dev)
+        return msm_mod.fixed_base_msm(g1, g1.generator_affine, sd)
+
+    k4 = {}
+    if "k4" in sections:
+        sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "tests"))
+        from test_torch_cases import proj_pairs
+        pts = multiples(1 << 15, 7)
+        inputs = {"generic": (pts, tuple(c.roll(1, 0) for c in pts)),
+                  "special_lanes": proj_pairs(g1, pts)}
+        for kind, (P_all, Q_all) in inputs.items():
+            for lanes, reps in ((1, 200), (1 << 10, 50), (8 * 2047, 20),
+                                (1 << 15, 20)):
+                P = tuple(c[:lanes] for c in P_all)
+                Q = P if lanes == 1 else tuple(c[:lanes] for c in Q_all)
+                same(f"ec_proj_add {kind} [{lanes}]",
+                     outputs(lambda: ec_kernels.proj_add(g1, P, Q)))
+                checked.append(f"ec_proj_add {kind} [{lanes}]")
+                k4.setdefault(kind, {})[lanes] = in_turns(
+                    lambda tree: graph_ms(
+                        lambda: ec_kernels.proj_add(g1, P, Q), reps))
+    print("exact " + json.dumps(checked), flush=True)
+    print("k1 " + json.dumps(k1), flush=True)
+    print("k4 " + json.dumps(k4), flush=True)
+
+    if "end_to_end" in sections:
+        from gingerlib_tpu_torch.circuits import benchmark_circuit
+        from gingerlib_tpu_torch.proofs import groth16, groth16_host
+        from gingerlib_tpu_torch.relations.r1cs import compile_r1cs
+        toxic = dict(alpha=123, beta=456, gamma=789, delta=1011, t=314159)
+        eng = CI.mnt4753_engine()
+        fr = eng.g1.scalar_field
+        cs, _ = benchmark_circuit(fr, 4, 1 << 10)
+        compiled = compile_r1cs(cs)
+        want = groth16_host.expected_proof("mnt4753", cs, **toxic, r=31337,
+                                           s=71717)
+
+        def seconds(fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t, out
+
+        def rung(tree):
+            setup, params = seconds(
+                lambda: groth16.generate_parameters(eng, cs, **toxic))
+            prove, proof = seconds(lambda: groth16.proof_to_ints(
+                eng, groth16.create_proof(eng, params, compiled,
+                                          cs.assignment(), r=31337,
+                                          s=71717)))
+            if proof != want:
+                raise AssertionError("2^10 proof differs from the oracle")
+            return {"setup_s": setup, "prove_s": prove}
+
+        loop_raw = torch.randint(0, 1 << 16, (327697, fr.n_digits),
+                            generator=gen, dtype=torch.int64)
+        loop_raw[:, -1] = 0
+        loop_scalars = loop_raw.to(dev)
+        loops = {}
+
+        def g1_loop(tree):
+            secs, loops[tree] = seconds(lambda: msm_mod.fixed_base_msm(
+                g1, g1.generator_affine, loop_scalars))
+            return secs
+
+        aff = g1.to_affine(multiples(1 << 16, 13))
+        sc = torch.randint(0, 1 << 16, (1 << 16, fr.n_digits),
+                           generator=gen, dtype=torch.int64)
+        sc[:, -1] = 0
+        sc = sc.to(dev)
+
+        def hybrid(tree):
+            msm_mod.msm_hybrid(g1, aff[0], aff[1], sc)    # warm-up
+            return sorted(seconds(lambda: msm_mod.msm_hybrid(
+                g1, aff[0], aff[1], sc))[0] for _ in range(3))[1]
+
+        e2e = {"groth16_2p10": in_turns(rung),
+               "g1_fixed_base_327697_lanes_s": in_turns(g1_loop),
+               "msm_hybrid_g1_2p16_median_of_3_s": in_turns(hybrid)}
+        if not all(torch.equal(x, y) for x, y in zip(loops["this"],
+                                                     loops["other"])):
+            raise AssertionError("the G1 loop's points differ")
+        print("end_to_end " + json.dumps(e2e), flush=True)
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
