@@ -10,9 +10,12 @@ What it does, in order (any failure raises, so the exit code is non-zero):
 2. holds every kernel against its plain PyTorch version on the device, at the
    shapes each path below gives it, with exact equality (integer
    arithmetic: tolerance 0), and times both with CUDA events: the field
-   kernels (multiply, add/sub/neg, binary-Euclid inverse) at the 2^10 rung's
-   shapes and at the 2^16 rung's (2^17-row FFT passes, the setup loops'
-   327,697 G1 lanes and 65,544 Fq2 lanes), and the curve kernels (projective
+   kernels (multiply, add/sub/neg, inverse) at the 2^10 rung's shapes and at
+   the 2^16 rung's (2^17-row FFT passes, the setup loops' 327,697 G1 lanes
+   and 65,544 Fq2 lanes), the inverse also on 2^15 elements and, against
+   python's pow too, on the inputs of its host test at 48, 24 and 16 digits
+   (2^k for every k, runs of ones, those that take the most passes or
+   negate a row), and the curve kernels (projective
    addition, affine addition before and after its shared inversion, one
    level of the inversion's up and down sweeps) on real curve points with
    every special lane mixed in, and the RNS kernels (the RNS multiply at
@@ -38,7 +41,9 @@ What it does, in order (any failure raises, so the exit code is non-zero):
    points an MSM is a double-and-add loop; the 2^16 rung goes through the
    Pippenger paths and the curve kernels); ``legendre`` and ``sqrt_mod`` on
    2^12 elements of MNT4-753 Fr and Fq; and a 2^16-leaf MNT4-753 Poseidon
-   Merkle tree of height 17 (``merkle`` line);
+   Merkle tree of height 17 (``merkle`` line); after the 2^16 rung, the
+   inversion tree's two kernels at the widths that rung launched them
+   (``inv_tree_by_width`` line: time and loss by class of widths);
 5. checks the results: each device proof equals the closed-form python-int
    oracle coordinate for coordinate, a repeat gives the same proof, a proof
    with another ``s`` differs; the Legendre symbols, roots and masks agree
@@ -61,6 +66,7 @@ with the kernels, and a check that both give the same proof.
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -111,6 +117,10 @@ def main():
     from gingerlib_tpu_torch.proofs import groth16, groth16_host
     from gingerlib_tpu_torch.relations.r1cs import compile_r1cs
     from gingerlib_tpu_torch.utils.timing import graph_ms
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path[:0] = [os.path.join(root, "tests"), os.path.join(root, "tools")]
+    import divsteps_model
+    from test_torch_cases import inv_inputs
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -236,16 +246,27 @@ def main():
     errs["fp_neg"] = compare("fp_neg [2^11,48]", fp.neg_mod(fq, a_big),
                              fp.neg_mod_plain(fq, a_big))
     inv_one = a_big[5:6]
-    inv_batch = torch.cat([a_big[:4], a_big[100:104]])      # holds 0, 1, p-1
-    errs["inv_bea"] = max(
-        compare("inv_bea [1,48]", fp.inv_bea(fq, inv_one),
-                fp.inv_bea_plain(fq, inv_one)),
-        compare("inv_bea [8,48] with 0", fp.inv_bea(fq, inv_batch),
-                fp.inv_bea_plain(fq, inv_batch)))
-    want = [pow(v, -1, p) if v else 0
-            for v in limbs.from_digits_batch(inv_batch)]
-    if limbs.from_digits_batch(fp.inv_bea(fq, inv_batch)) != want:
-        raise AssertionError("inv_bea disagrees with python's pow(v, -1, p)")
+    errs["inv_bea"] = compare("inv_bea [1,48]", fp.inv_bea(fq, inv_one),
+                              fp.inv_bea_plain(fq, inv_one))
+    # the inputs of the host test of the inverse at the three widths the
+    # kernels are built for (MNT4-753 Fq, BLS12-377 Fq and Fr): 0, 1, 2,
+    # p - 1, (p - 1)/2, 2^k for every k, runs of ones, seeded values, and
+    # those that take the most passes or make a pass negate a row
+    inv_checked = {}
+    for F in (fq, PP.BLS12_377_FQ, PP.BLS12_377_FR):
+        vals = [v for kind in inv_inputs(F.modulus, F.name).values()
+                for v in kind]
+        xs = torch.from_numpy(limbs.to_digits_batch(vals, F.n_digits)).to(dev)
+        got = fp.inv_bea(F, xs)
+        errs["inv_bea"] = max(errs["inv_bea"], compare(
+            f"inv_bea {F.name} [{len(vals)},{F.n_digits}]", got,
+            fp.inv_bea_plain(F, xs)))
+        if limbs.from_digits_batch(got.cpu()) != [
+                pow(v, -1, F.modulus) if v else 0 for v in vals]:
+            raise AssertionError(f"inv_bea {F.name} disagrees with python's "
+                                 f"pow(v, -1, p)")
+        inv_checked[F.name] = len(vals)
+    print("inv_bea_inputs_checked " + json.dumps(inv_checked), flush=True)
     for mixed in ((a_big.cpu(), b_big), (a_big, b_big.cpu())):
         try:
             fp.mont_mul(fq, *mixed)
@@ -260,27 +281,15 @@ def main():
                 fp.mont_mul_plain(small, xs, xs))
         compare(f"fp_sub {small.name}", fp.sub_mod(small, xs, xs.flip(0)),
                 fp.sub_mod_plain(small, xs, xs.flip(0)))
-        compare(f"inv_bea {small.name}", fp.inv_bea(small, xs),
-                fp.inv_bea_plain(small, xs))
 
-    def bea_steps(v, modulus):
-        """(halvings, subtractions) the binary Euclid loop needs for v."""
-        if v == 0:
-            return 0, 0
-        u, w, halv, subs = v, modulus, 0, 0
-        while u != 1 and w != 1:
-            while u % 2 == 0:
-                u //= 2
-                halv += 1
-            while w % 2 == 0:
-                w //= 2
-                halv += 1
-            if u >= w:
-                u -= w
-            else:
-                w -= u
-            subs += 1
-        return halv, subs
+    def inv_ops(v, modulus):
+        """32-bit integer operations the inverse of v takes: its passes (by
+        tools/divsteps_model.py), each 31 divsteps on two-word values (12
+        a step: the test, compare, subtract and shift, and the matrix's
+        two-word updates) and the rows of its matrix: 4L multiply-adds on
+        x and y, 6L on u and v with the multiples of p (2 each), and 4L
+        for the two reductions."""
+        return divsteps_model.inverse(v, modulus).passes * (31 * 12 + 24 * L)
 
     # Bytes the function must move: a field element is nd 16-bit digits.
     # The int64 boundary layout spends 8 bytes on each digit; that is the
@@ -405,16 +414,14 @@ def main():
     errs16, field_rows, at_g1 = field_kernels_at_2p16_shapes()
     print("field_kernel_shapes " + json.dumps(field_rows), flush=True)
 
-    halv, subs = bea_steps(limbs.from_digits(inv_one[0]), p)
     work = {
         # name: (bytes moved, 32-bit integer operations)
         "mont_mul": (3 * N * elem_bytes, N * MUL_OPS),
         "fp_add": (3 * N * elem_bytes, N * 2 * L),
         "fp_sub": (3 * N * elem_bytes, N * 2 * L),
         "fp_neg": (2 * N * elem_bytes, N * L),
-        # a halving shifts u (or v) and halves b (or c) mod p: 3L; a
-        # subtraction compares, subtracts, and subtracts mod p: 4L
-        "inv_bea": (2 * elem_bytes, halv * 3 * L + subs * 4 * L),
+        "inv_bea": (2 * elem_bytes,
+                    inv_ops(limbs.from_digits(inv_one[0]), p)),
     }
     timed = {
         "mont_mul": (lambda: fp.mont_mul(fq, a_big, b_big),
@@ -463,6 +470,19 @@ def main():
             "bound_by")}
         kernels.append(row)
     inv_bea_ms = kernels[-1]["ms"]
+    # K2 on a batch beside the path's one element: 2^15 seeded elements, a
+    # thread each (a warp runs as many passes as its longest lane)
+    inv_wide = rand_elems(1 << 15)
+    want, plain_s = event_seconds(lambda: fp.inv_bea_plain(fq, inv_wide))
+    err = compare("inv_bea [2^15,48]", fp.inv_bea(fq, inv_wide), want)
+    kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], err)
+    b_ms, b_by = bound(2 * (1 << 15) * elem_bytes, sum(
+        inv_ops(v, p) for v in limbs.from_digits_batch(inv_wide.cpu())))
+    kernels[-1]["at_2p15_rows"] = {
+        "rows": 1 << 15, "ms": time_ms(lambda: fp.inv_bea(fq, inv_wide), 10),
+        "device_ms": graph_ms(lambda: fp.inv_bea(fq, inv_wide), 10),
+        "plain_ms": plain_s * 1e3, "bound_ms": b_ms, "bound_by": b_by}
+    del inv_wide, want
     print("kernels agree with their plain versions on the device "
           "(tolerance 0)", flush=True)
 
@@ -1213,15 +1233,13 @@ def main():
         needs: 3 elements in and out a sponge; a round's S-box by ONE
         shared inversion for the whole batch, 3 multiplies for each element
         it inverts (3 a sponge in a full round, 1 in a partial one) and the
-        binary-Euclid halvings (3L) and subtractions (4L) of the round's
-        root, counted as K2's row counts them; 9 multiplies and 6 modular
-        additions for the mix of each round but the last, and 3 additions
-        of round constants a round."""
+        inversion of the round's root, counted as K2's row counts it; 9
+        multiplies and 6 modular additions for the mix of each round but
+        the last, and 3 additions of round constants a round."""
         muls = n * (9 * (2 * P.r_f) + 3 * P.r_p + 9 * (P.n_rounds - 1))
         adds = n * (6 * (P.n_rounds - 1) + 3 * P.n_rounds)
-        bea = sum(h * 3 * L + s * 4 * L for h, s in
-                  (bea_steps(v, P.field.modulus) for v in roots))
-        return (2 * n * 3 * elem_bytes, muls * MUL_OPS + adds * 2 * L + bea)
+        inv = sum(inv_ops(v, P.field.modulus) for v in roots)
+        return (2 * n * 3 * elem_bytes, muls * MUL_OPS + adds * 2 * L + inv)
 
     def poseidon_section():
         """K9 against ``permute_plain``: the zero state of both parameter
@@ -1267,6 +1285,7 @@ def main():
             b_ms, b_by = bound(*permute_work(P, POS_B, roots))
             row = {"params": name, "sponges": POS_B, "max_abs_err": err,
                    "ms": time_ms(lambda: PK.permute(P, state), 5),
+                   "device_ms": graph_ms(lambda: PK.permute(P, state), 3),
                    "plain_ms": plain_s * 1e3, "bound_ms": b_ms,
                    "bound_by": b_by,
                    # diagnostic, not the bound: the kernel's design inverts
@@ -1279,6 +1298,7 @@ def main():
             b1_ms, b1_by = bound(*permute_work(P, 1, roots1))
             row["one_sponge"] = {
                 "ms": time_ms(lambda: PK.permute(P, state[6:7]), 10),
+                "device_ms": graph_ms(lambda: PK.permute(P, state[6:7]), 10),
                 "plain_ms": plain1_s * 1e3, "bound_ms": b1_ms,
                 "bound_by": b1_by}
             rows.append(row)
@@ -1306,6 +1326,8 @@ def main():
             # no PyTorch call computes a modular power or a permutation
             "library_ms": None,
         })
+        if name == "poseidon_permute":
+            kernels[-1]["device_ms"] = row["device_ms"]
 
     # ------------------------------------------------------------------
     # 4./5. the main path
@@ -1376,7 +1398,7 @@ def main():
             raise AssertionError("benchmark circuit is not satisfied")
         out = {"log2_constraints": log2}
         fp.reset_launch_counts()
-        ec_kernels.reset_proj_add_widths()
+        ec_kernels.reset_launch_widths()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1396,7 +1418,12 @@ def main():
             k: v - out["setup_launches"][k]
             for k, v in out["path_launches"].items()}
         out["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        out["proj_add_launches_by_lanes"] = dict(ec_kernels.proj_add_widths)
+        out["curve_launches_by_width"] = {
+            k: dict(sorted(v.items()))
+            for k, v in ec_kernels.launch_widths.items()}
+        out["curve_launches_by_lanes"] = {
+            k: ec_kernels.launches_by_class(k)
+            for k in ec_kernels.launch_widths}
         t = time.perf_counter()
         want = groth16_host.expected_proof("mnt4753", cs, **TOXIC,
                                            r=R_BLIND, s=S_BLIND)
@@ -1452,6 +1479,57 @@ def main():
                                     "fixed_base_msm.g2": G2_LOOP_LANES}:
         raise AssertionError("the field kernels were not held at the lane "
                              "counts of this rung's setup loops")
+
+    def inv_tree_by_width(widths):
+        """K6's two kernels at the widths the 2^16 rung launched them:
+        for each class of widths (powers of 8), device times at its most
+        frequent width on seeded non-zero elements, the bounds there, and
+        the class's loss, its launches x (time - bound) at that width."""
+        classes = {}
+        for n, c in widths.items():
+            classes.setdefault(ec_kernels.width_class("inv_tree_up", n),
+                               []).append((c, n))
+        rows = []
+        for label, members in sorted(classes.items(),
+                                     key=lambda kv: min(n for _, n in kv[1])):
+            launches = sum(c for c, _ in members)
+            n = max(members)[1]
+            x = rand_elems(n)
+            pre_packed, roots = ec_kernels.inv_up_cuda(fq, x)
+            rinv = ec_kernels.batch_inverse(fq, roots)
+            compare(f"inv_tree_down [{n}]",
+                    ec_kernels.inv_down_cuda(fq, x, pre_packed, rinv),
+                    ec_kernels.inv_down_plain(
+                        fq, x, ec_kernels.unpack_limbs(pre_packed), rinv))
+            runs = roots.shape[0]
+            chained = n - runs             # non-zero, not first in a run
+            row = {"class": label, "launches": launches,
+                   "widths": len(members), "timed_width": n}
+            reps = 100 if n <= 1 << 12 else 20
+            for kind, fn, nbytes, muls in (
+                    ("up", lambda: ec_kernels.inv_up_cuda(fq, x),
+                     (2 * n + runs) * elem_bytes, chained),
+                    ("down", lambda: ec_kernels.inv_down_cuda(
+                        fq, x, pre_packed, rinv),
+                     (3 * n + runs) * elem_bytes, 2 * chained)):
+                b_ms, b_by = bound(nbytes, muls * MUL_OPS)
+                row[f"{kind}_ms"] = time_ms(fn, reps)
+                row[f"{kind}_device_ms"] = graph_ms(fn, reps)
+                row[f"{kind}_bound_ms"] = b_ms
+                row[f"{kind}_loss_ms"] = launches * (
+                    row[f"{kind}_device_ms"] - b_ms)
+            rows.append(row)
+            del x, pre_packed, roots, rinv
+        return rows
+
+    widths16 = full["curve_launches_by_width"]
+    if widths16["inv_tree_up"] != widths16["inv_tree_down"]:
+        raise AssertionError("K6's up and down kernels ran at other widths")
+    k6_by_width = inv_tree_by_width(widths16["inv_tree_up"])
+    print("inv_tree_by_width " + json.dumps(
+        {"rows": k6_by_width,
+         "loss_ms": sum(r["up_loss_ms"] + r["down_loss_ms"]
+                        for r in k6_by_width)}), flush=True)
 
     # ------------------------------------------------------------------
     # 4b. the field API: Legendre symbol and square root (K3)
@@ -1649,8 +1727,16 @@ def main():
             k["launches_2p16_path"] = full["path_launches"][name]
             if k["launches_2p16_path"] <= 0:
                 raise AssertionError(f"the 2^16 path never launched {name}")
-        if name == "ec_proj_add":
-            k["launches_by_lanes"] = full["proj_add_launches_by_lanes"]
+        if name in ec_kernels.launch_widths:
+            k["launches_by_lanes"] = full["curve_launches_by_lanes"][name]
+        if name in ("inv_tree_up", "inv_tree_down"):
+            kind = name.rsplit("_", 1)[1]
+            k["by_width"] = [
+                {"class": r["class"], "launches": r["launches"],
+                 "lanes": r["timed_width"], "ms": r[f"{kind}_ms"],
+                 "device_ms": r[f"{kind}_device_ms"],
+                 "bound_ms": r[f"{kind}_bound_ms"],
+                 "loss_ms": r[f"{kind}_loss_ms"]} for r in k6_by_width]
         if k["launches"] <= 0:
             raise AssertionError(f"the main path never launched {name}")
 

@@ -1,9 +1,10 @@
 // Prime-field arithmetic on 32-bit limbs held in registers, one field element
 // per CUDA thread.  Shared by every kernel of the library: Montgomery
 // multiply, modular add/sub/neg (register forms and the tile loop, first
-// part), binary-Euclid inverse, affine curve additions, inversion trees, pow
-// chains and Poseidon (memory-resident forms, second part).  The projective
-// addition spreads each element over a group of threads (fp_group.cuh).
+// part), affine curve additions, inversion trees, pow chains and Poseidon
+// (memory-resident forms, second part).  The projective addition spreads
+// each element over a group of threads (fp_group.cuh); the inverse of one
+// element is fp_inv.cuh.
 //
 // Boundary layout (see gingerlib_tpu_torch/fields/fp.py): an element is ND
 // little-endian 16-bit digits, each stored in an int64, so R = 2^(16*ND).
@@ -309,14 +310,6 @@ __device__ __forceinline__ bool is_zero(const uint32_t (&a)[L]) {
   return acc == 0;
 }
 
-template <int L>
-__device__ __forceinline__ bool is_one(const uint32_t (&a)[L]) {
-  uint32_t acc = a[0] ^ 1u;
-#pragma unroll
-  for (int i = 1; i < L; i++) acc |= a[i];
-  return acc == 0;
-}
-
 // Montgomery product a*b*R^-1 mod p, R = 2^(32L), by coarsely integrated
 // operand scanning (CIOS): for each limb of b, one row of the product and
 // one row of the reduction, carried in 64-bit accumulators.  The result is
@@ -361,28 +354,6 @@ __device__ __forceinline__ void mont_mul(const uint32_t (&a)[L],
 #pragma unroll
   for (int i = 0; i < L; i++) r[i] = t[i];
   cond_sub_p<L>(r, t[L], p);
-}
-
-// x >>= 1 with `top` shifted into the highest bit.
-template <int L>
-__device__ __forceinline__ void shr1(uint32_t (&x)[L], uint32_t top) {
-#pragma unroll
-  for (int i = 0; i < L - 1; i++) x[i] = (x[i] >> 1) | (x[i + 1] << 31);
-  x[L - 1] = (x[L - 1] >> 1) | (top << 31);
-}
-
-// w/2 mod p for w < p: w/2 if even, (w+p)/2 if odd.
-template <int L>
-__device__ __forceinline__ void half_mod(uint32_t (&w)[L],
-                                         const uint32_t (&p)[L]) {
-  uint32_t top = 0;
-  if (w[0] & 1u) {
-    uint32_t s[L];
-    top = add_limbs<L>(w, p, s);
-#pragma unroll
-    for (int i = 0; i < L; i++) w[i] = s[i];
-  }
-  shr1<L>(w, top);
 }
 
 // ---------------------------------------------------------------------------
@@ -479,66 +450,6 @@ __device__ __noinline__ void sub_mod_mem(const uint32_t* a, const uint32_t* b,
   sub_mod<L>(x, y, m, o);
 #pragma unroll
   for (int i = 0; i < L; i++) r[i] = o[i];
-}
-
-// r = a^-1 mod p for a plain integer a < p by the binary extended Euclidean
-// algorithm; 0 -> 0; r canonical.  The core of the inverse kernel
-// (inv_bea.cu), also run per thread by the Poseidon kernel (poseidon.cu).
-// Data-dependent: each outer pass halves u and v down to odd numbers
-// (halving b or c mod p alongside) and subtracts the smaller from the
-// larger, until u or v is 1.
-template <int L>
-__device__ __noinline__ void inv_bea_mem(const uint32_t* a, const uint32_t* p,
-                                         uint32_t* r) {
-  uint32_t u[L], v[L], b[L], c[L], t[L], m[L];
-#pragma unroll
-  for (int j = 0; j < L; j++) {
-    u[j] = a[j];
-    v[j] = m[j] = p[j];
-    b[j] = 0;
-    c[j] = 0;
-  }
-  b[0] = 1;
-
-  if (!is_zero<L>(u)) {
-    // every pass of the outer loop removes at least one bit from u or v,
-    // so 2 * 32 * L + 2 passes suffice for any input coprime to p; the cap
-    // only keeps a malformed input (a multiple of p) from spinning forever
-    int guard = 64 * L + 2;
-    while (!is_one<L>(u) && !is_one<L>(v) && guard-- > 0) {
-      while ((u[0] & 1u) == 0 && !is_zero<L>(u)) {
-        shr1<L>(u, 0);
-        half_mod<L>(b, m);
-      }
-      while ((v[0] & 1u) == 0) {
-        shr1<L>(v, 0);
-        half_mod<L>(c, m);
-      }
-      uint32_t borrow = sub_limbs<L>(u, v, t);
-      if (borrow == 0) {  // u >= v
-#pragma unroll
-        for (int j = 0; j < L; j++) u[j] = t[j];
-        sub_mod<L>(b, c, m, t);
-#pragma unroll
-        for (int j = 0; j < L; j++) b[j] = t[j];
-      } else {
-        sub_limbs<L>(v, u, t);
-#pragma unroll
-        for (int j = 0; j < L; j++) v[j] = t[j];
-        sub_mod<L>(c, b, m, t);
-#pragma unroll
-        for (int j = 0; j < L; j++) c[j] = t[j];
-      }
-    }
-    bool take_b = is_one<L>(u);
-#pragma unroll
-    for (int j = 0; j < L; j++) t[j] = take_b ? b[j] : c[j];
-  } else {
-#pragma unroll
-    for (int j = 0; j < L; j++) t[j] = 0;
-  }
-#pragma unroll
-  for (int j = 0; j < L; j++) r[j] = t[j];
 }
 
 template <int L>

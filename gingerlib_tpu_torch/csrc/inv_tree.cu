@@ -5,8 +5,8 @@
 //          running product, stores it after each element (prefix products,
 //          as packed 32-bit limbs) and leaves the run's product in `roots`;
 //   ...    the wrapper inverts `roots` -- by the same two kernels while more
-//          than one is left, by the binary-Euclid kernel (inv_bea.cu) for
-//          the last one;
+//          than one is left, by the inverse kernel (inv_bea.cu) for the
+//          last one;
 //   down:  every thread walks its run backwards with the inverse r of the
 //          run's product:  1/x_j = r * prefix_{j-1},  r <- r * x_j.
 //

@@ -21,25 +21,27 @@
 // round constants, the MDS matrix, p, 1 and R^3 sit in shared memory, and
 // every field operation is a non-inlined call of fp_limbs.cuh (the registers
 // of one multiply).  A full round inverts the thread's three elements by
-// Montgomery's trick with ONE binary-Euclid inversion (zeros enter as one and
-// leave as zero) and one multiply by R^3 to return to Montgomery form, as
-// fp.inv_mod does; a partial round inverts one element the same way.  An
+// Montgomery's trick with ONE inversion (gl::inv_divsteps of fp_inv.cuh,
+// the inverse kernel's; zeros enter as one and leave as zero) and one
+// multiply by R^3 to return to Montgomery form, as fp.inv_mod does; a
+// partial round inverts one element the same way.  An
 // inverse is unique and every step returns the canonical residue, so the
 // digits are those of the array path, which shares one inversion across the
 // whole batch instead.
 //
-// What bounds it on an H100: the binary-Euclid inversions, one a round per
-// sponge and about 1,800 data-dependent halvings and subtractions of L limbs
-// each, and beside them 16 multiplies a full round and 10 a partial one; the
-// state is 3 elements in and out.  The inversions are serial within a thread
-// and their branches diverge within a warp, so one sponge is latency (its 65
-// rounds run back to back) and a large batch is bound by the divergent
-// instruction stream, not by the integer rate.  The function itself needs
+// What bounds it on an H100: the inversions, one a round per sponge, each
+// 33-49 passes of 31 divsteps and ~10 L multiply-adds, and beside them 16
+// multiplies a full round and 10 a partial one; the state is 3 elements in
+// and out.  The inversions are serial within a thread, so one sponge is
+// latency (its 65 rounds run back to back) and a large batch is bound by
+// the instruction stream (a warp runs as many passes as its longest lane),
+// not by the integer rate.  The function itself needs
 // only one inversion a round for the whole batch (the array path's shared
 // tree), so the kernel's own inversions are work of this design, well above
 // the function's bound.
 #include <cuda_runtime.h>
 
+#include "fp_inv.cuh"
 #include "fp_limbs.cuh"
 
 namespace {
@@ -78,7 +80,7 @@ poseidon_kernel(const long long* __restrict__ in, long long* __restrict__ out,
     for (int j = 0; j < T; j++) gl::add_mod_mem<L>(s[j], rc + j * L, P, s[j]);
 
     if (r >= r_f && r < r_f + r_p) {  // partial round: s0 <- s0^-1
-      gl::inv_bea_mem<L>(s[0], P, y);
+      gl::inv_divsteps<L>(s[0], P, inv, y);
       gl::mont_mul_mem<L>(y, R3, P, inv, s[0]);
     } else {                          // full round: all three, one inversion
       bool z[T];
@@ -89,7 +91,7 @@ poseidon_kernel(const long long* __restrict__ in, long long* __restrict__ out,
       }
       gl::mont_mul_mem<L>(a[0], a[1], P, inv, o[0]);  // a0 a1
       gl::mont_mul_mem<L>(o[0], a[2], P, inv, o[1]);  // a0 a1 a2
-      gl::inv_bea_mem<L>(o[1], P, y);                 // plain (a0 a1 a2 R)^-1
+      gl::inv_divsteps<L>(o[1], P, inv, y);           // plain (a0 a1 a2 R)^-1
       gl::mont_mul_mem<L>(y, R3, P, inv, y);          // (a0 a1 a2)^-1
       gl::mont_mul_mem<L>(y, o[0], P, inv, s[2]);     // a2^-1
       gl::mont_mul_mem<L>(y, a[2], P, inv, y);        // (a0 a1)^-1

@@ -33,9 +33,13 @@ Kernels held here (source notes in the ``.cu`` files):
   ``3 * 2 * n_digits`` bytes of information it moves; the int64 boundary
   layout makes it move four times those bytes.
 * ``inv_bea``   -> ``csrc/inv_bea.cu``; replaces ``inv_bea_pallas``.  One
-  thread per element, data-dependent binary extended Euclid; a latency
-  kernel (batch of one on the proving path).  The operation count gives a
-  floor only: one serial thread cannot come near the card's peak rate.
+  thread per element runs batched divsteps (Pornin's optimized binary GCD,
+  ``csrc/fp_inv.cuh``: 31 divsteps on 64-bit approximations a pass, their
+  matrix applied to the full width) until done; a latency kernel (batch of
+  one on the proving path).  The operation count gives a floor only: one
+  serial thread cannot come near the card's peak rate.  The plain version
+  keeps the masked binary extended Euclid; the inverse is unique, so both
+  give the same digits.
 * ``add_mod/sub_mod/neg_mod`` -> ``csrc/fp_addsub.cu``; no TPU kernel of
   their own (XLA fused them), added because eager launches of their plain
   form would dominate the prover.  Bound by bytes; streamed as the multiply
@@ -350,7 +354,7 @@ def mont_mul_cuda(params: FpParams, a, b):
 
 
 def inv_bea_cuda(params: FpParams, a):
-    """Launch the binary-Euclid inverse kernel on a CUDA tensor."""
+    """Launch the inverse kernel on a CUDA tensor."""
     _check_operand(params, a, "inv_bea")
     a_c = a.contiguous()
     if a_c.data_ptr() & 15:
@@ -359,7 +363,7 @@ def inv_bea_cuda(params: FpParams, a):
     n = out.numel() // params.n_digits
     rc = _kernel("gl_inv_bea")(
         params.n_digits, a_c.data_ptr(), out.data_ptr(), n,
-        params.limbs_ptr, _raw_stream(a))
+        params.limbs_ptr, params.inv32, _raw_stream(a))
     if rc != 0:
         raise RuntimeError(f"inv_bea: kernel launch failed (code {rc})")
     if n:

@@ -23,7 +23,7 @@ BUILD = os.path.join(_PKG, "build")
 SOURCES = ("mont_mul", "inv_bea", "fp_addsub", "ec_add", "ec_affine",
            "inv_tree", "pow_const", "poseidon", "rns_mont", "ec_rns")
 # headers: an edit of one rebuilds every library
-HEADERS = ("fp_limbs.cuh", "fp_group.cuh", "rns_core.cuh")
+HEADERS = ("fp_limbs.cuh", "fp_group.cuh", "fp_inv.cuh", "rns_core.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -33,7 +33,7 @@ _SIGNATURES = {
     # name: (library, argtypes)
     "gl_mont_mul": ("mont_mul", [_i, _vp, _i, _ll, _vp, _i, _ll, _vp, _i, _vp,
                                  _u32, _vp]),
-    "gl_inv_bea": ("inv_bea", [_i, _vp, _vp, _i, _vp, _vp]),
+    "gl_inv_bea": ("inv_bea", [_i, _vp, _vp, _i, _vp, _u32, _vp]),
     "gl_fp_addsub": ("fp_addsub", [_i, _i, _vp, _i, _ll, _vp, _i, _ll, _vp, _i,
                                    _vp, _vp]),
     # pointer and stride tables are host arrays (ctypes arrays)
@@ -122,13 +122,19 @@ def build(csrc: str | None = None, out: str | None = None,
 def resource_usage() -> dict:
     """{kernel<template arguments> (or kernel): {registers, stack_bytes,
     spill_store_bytes, spill_load_bytes}} for every kernel, read from the
-    logs of ``build``."""
+    logs of ``build``; beside them the non-inlined inverse, ``{library}:
+    inv_divsteps<L>``, with its own stack frame and spills (its registers
+    count in each kernel that calls it)."""
     out = {}
     entry = re.compile(
         r"Compiling entry function '\w*?\d([a-z_]+_kernel)"
         r"(?:ILi(\d+)(?:ELi(\d+))?E)?\w*'.*?"
         r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
         r"(\d+) bytes spill loads.*?Used (\d+) registers", re.S)
+    callee = re.compile(
+        r"Function properties for \w*inv_divstepsILi(\d+)E\w*\s+"
+        r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+        r"(\d+) bytes spill loads")
     for n in build():
         with open(os.path.join(BUILD, n + ".log")) as f:
             text = f.read()
@@ -138,6 +144,11 @@ def resource_usage() -> dict:
                 "registers": int(m.group(7)), "stack_bytes": int(m.group(4)),
                 "spill_store_bytes": int(m.group(5)),
                 "spill_load_bytes": int(m.group(6))}
+        for m in callee.finditer(text):
+            out[f"{n}: inv_divsteps<{m.group(1)}>"] = {
+                "stack_bytes": int(m.group(2)),
+                "spill_store_bytes": int(m.group(3)),
+                "spill_load_bytes": int(m.group(4))}
     return out
 
 

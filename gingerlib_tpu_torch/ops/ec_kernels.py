@@ -131,38 +131,61 @@ def _same_device(tensors, what: str):
     return dev
 
 
-def _launched(rc: int, what: str, key: str):
+def _launched(rc: int, what: str, key: str, n: int | None = None):
+    """Raises for a failed launch, else counts it (and, given the batch
+    width n, counts it by width too)."""
     if rc != 0:
         raise RuntimeError(f"{what}: kernel launch failed (code {rc})")
     launch_counts[key] += 1
+    if key in launch_widths:
+        launch_widths[key][n] = launch_widths[key].get(n, 0) + 1
 
 
 def _point_shape(x, n: int, nd: int):
     return (n, 1, nd) if x.dim() == 3 else (n, nd)
 
 
+# The curve kernels' launches by batch width, beside ``launch_counts``:
+# {kernel: {width: launches}}; ``launches_by_class`` groups them.
+launch_widths = {k: {} for k in ("ec_proj_add", "ec_affine_pre",
+                                 "ec_affine_post", "inv_tree_up",
+                                 "inv_tree_down")}
+
+
+def reset_launch_widths():
+    for v in launch_widths.values():
+        v.clear()
+
+
+def width_class(key: str, n: int) -> str:
+    """The class of a launch of ``key`` on n lanes: for K4 one lane (the
+    window fold's additions), 2 to 2^10, 2^10 + 1 to 2^15 (the Fenwick
+    steps' 16,376 lanes and the projective tree's upper levels) or wider;
+    for K5 and K6 powers of 8, "2^(e-3)-2^e" above 2^(e-3) and up to 2^e
+    ("1-2^3" up to 8), as K6's recursion takes each level's width down by
+    INV_RUN = 8."""
+    if key == "ec_proj_add":
+        if n == 1:
+            return "1"
+        if n <= 1 << 10:
+            return "2-2^10"
+        return "2^10-2^15" if n <= 1 << 15 else "over_2^15"
+    e = max(3, -(-(n - 1).bit_length() // 3) * 3)
+    return "1-2^3" if e == 3 else f"2^{e - 3}-2^{e}"
+
+
+def launches_by_class(key: str) -> dict:
+    """{class: launches} of ``key`` since ``reset_launch_widths``."""
+    out = {}
+    for n, c in sorted(launch_widths[key].items()):
+        label = width_class(key, n)
+        out[label] = out.get(label, 0) + c
+    return out
+
+
 # ---------------------------------------------------------------------------
 # K4: unified projective addition
 # ---------------------------------------------------------------------------
-
-# K4's launches by batch width, beside ``launch_counts``: one lane (the
-# window fold's additions), 2 to 2^10 lanes, 2^10 + 1 to 2^15 (the Fenwick
-# steps' 16,376 lanes and the projective tree's upper levels), wider.
-proj_add_widths = {"1": 0, "2-2^10": 0, "2^10-2^15": 0, "over_2^15": 0}
-
-
-def reset_proj_add_widths():
-    for k in proj_add_widths:
-        proj_add_widths[k] = 0
-
-
-def _width_class(n: int) -> str:
-    if n == 1:
-        return "1"
-    if n <= 1 << 10:
-        return "2-2^10"
-    return "2^10-2^15" if n <= 1 << 15 else "over_2^15"
-
 
 def proj_add_plain(curve, P3, Q3):
     """The plain version: ``SWCurveOps.add`` (add-1998-cmo-2, dbl-2007-bl and
@@ -188,8 +211,7 @@ def proj_add_cuda(curve, P3, Q3):
         _table(ctypes.c_longlong, [s for _, s in ops]), _ptrs(outs), n,
         _curve_consts(curve), params.inv32,
         int(curve.a_is_zero), fpmod._raw_stream(outs[0]))
-    _launched(rc, "proj_add", "ec_proj_add")
-    proj_add_widths[_width_class(n)] += 1
+    _launched(rc, "proj_add", "ec_proj_add", n)
     return tuple(outs)
 
 
@@ -266,7 +288,7 @@ def affine_pre_cuda(curve, x1, y1, x2, y2, inf1, inf2):
         num.data_ptr(), den.data_ptr(), inf3.data_ptr(), n,
         _curve_consts(curve), params.inv32,
         fpmod._raw_stream(num))
-    _launched(rc, "affine_pre", "ec_affine_pre")
+    _launched(rc, "affine_pre", "ec_affine_pre", n)
     return num, den, inf3
 
 
@@ -296,7 +318,7 @@ def affine_post_cuda(curve, num, dinv, x1, y1, x2, y2, inf1, inf2, inf3):
         x3.data_ptr(), y3.data_ptr(), n,
         _curve_consts(curve), params.inv32,
         fpmod._raw_stream(x3))
-    _launched(rc, "affine_post", "ec_affine_post")
+    _launched(rc, "affine_post", "ec_affine_post", n)
     return x3, y3
 
 
@@ -400,7 +422,7 @@ def inv_up_cuda(params, a):
         nd, x.data_ptr(), pre.data_ptr(), roots.data_ptr(), n, INV_RUN,
         params.kernel_consts.ctypes.data, params.inv32,
         fpmod._raw_stream(x))
-    _launched(rc, "inv_up", "inv_tree_up")
+    _launched(rc, "inv_up", "inv_tree_up", n)
     return pre, roots
 
 
@@ -421,7 +443,7 @@ def inv_down_cuda(params, a, pre, rinv):
         nd, x.data_ptr(), pre.data_ptr(), rinv.data_ptr(), out.data_ptr(), n,
         INV_RUN, params.kernel_consts.ctypes.data, params.inv32,
         fpmod._raw_stream(x))
-    _launched(rc, "inv_down", "inv_tree_down")
+    _launched(rc, "inv_down", "inv_tree_down", n)
     return out
 
 

@@ -334,7 +334,7 @@ def tree_inverse_rns(curve, den, dead, plain: bool = False):
     while cur.shape[0] > 1:
         cur = mul(p, cur[0::2], cur[1::2])
         levels.append(cur)
-    # root: CRT -> digits -> binary-Euclid inverse -> back at the M_A scale
+    # root: CRT -> digits -> inverse (K2) -> back at the M_A scale
     ra, _ = RK.unpack_rns(ctx, levels[-1])
     root = rns.from_rns_digits(ctx, ra, to_digits(p, nd), nd)     # rho M_A
     inv_root = fpmod.inv_mod(params, root)                      # rho^-1 R^2

@@ -9,8 +9,8 @@ and no switch:
   entry, round and exit kernels).  One thread per sponge, all rounds in one
   launch; the JAX package's RNS form and its ``GINGERLIB_FUSED_POSEIDON`` /
   ``GINGERLIB_POSEIDON_TILE`` switches are the TPU's and are not carried
-  over.  Its time goes to the binary-Euclid inversions, one a round per
-  sponge (source note in the ``.cu`` file).
+  over.  Its time goes to the inversions (``csrc/fp_inv.cuh``), one a round
+  per sponge (source note in the ``.cu`` file).
 * ``permute_plain``: the array path of ``PoseidonHash.permute`` in the JAX
   package -- add the round constants, invert the S-box lanes of the whole
   batch with one shared-inversion tree (``fp.batch_inverse_tree``), mix by

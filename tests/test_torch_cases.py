@@ -15,6 +15,11 @@ jax) and holds no test of its own.
   ``PoseidonHash`` and ``FieldBasedMerkleTree`` returned for them
   (``JAX_POSEIDON``, ``JAX_MERKLE``).  Used by tests/test_torch_poseidon.py,
   tests/test_torch_merkle.py and tests/test_torch_gpu_kernels.py.
+* The inputs of the inverse that keep it longest (``INV_LONGEST``) or make
+  it negate a row (``INV_NEGATIVE_ROWS``), and the other inputs every test
+  of it runs (``inv_inputs``).  Used by
+  tests/test_torch_inv_divsteps.py (the header compiled for the host),
+  tests/test_torch_gpu_kernels.py and chip_smoke.py (the kernel).
 """
 
 import random
@@ -242,3 +247,129 @@ JAX_MERKLE = {
 
 def merkle_leaves() -> list:
     return rand_below(poseidon_modulus("mnt4753"), 4, seed=81)
+
+
+# ---------------------------------------------------------------------------
+# Inputs of the inverse (csrc/fp_inv.cuh)
+# ---------------------------------------------------------------------------
+
+# What ``python3 tools/divsteps_model.py`` (seed 7, 6000 model runs a field)
+# printed, by field name.  INV_LONGEST: the inputs other than powers of two
+# that take the most passes of the kernel's inverse, then the most
+# divsteps; every one takes the field's bound of passes, as 2^k near the
+# top of p does.  INV_NEGATIVE_ROWS: inputs whose passes give a negative x
+# row and a negative y row, which the kernel negates back (rare at random).
+INV_LONGEST = {
+    # 253 bits, bound 17 passes; (a, passes, divsteps)
+    "bls12_377_fr": [
+        (0xe10000000000000000000000000000000000000000000000000000000000000,
+         17, 502),
+        (0x1010420000000000000000000000000000000000000000000000000000000000,
+         17, 498),
+        (0xe14000000000000000000000000000000000000000000000000000000000000,
+         17, 498),
+        (0xe04000000000000000000000000000000000000000000000000000000000000,
+         17, 498),
+    ],
+    # 377 bits, bound 25 passes; (a, passes, divsteps)
+    "bls12_377_fq": [
+        (0x14000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000,
+         25, 751),
+        (0x14ac0000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000,
+         25, 750),
+        (0x14a60000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000,
+         25, 750),
+        (0x14a40000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000,
+         25, 750),
+    ],
+    # 753 bits, bound 49 passes; (a, passes, divsteps)
+    "mnt4753_fq": [
+        (0x110000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000,
+         49, 1503),
+        (0x108000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000,
+         49, 1503),
+        (0x110880000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000,
+         49, 1501),
+        (0x108800000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000,
+         49, 1501),
+    ],
+    # 753 bits, bound 49 passes; (a, passes, divsteps)
+    "mnt6753_fq": [
+        (0x110000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000,
+         49, 1502),
+        (0x108800000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000,
+         49, 1502),
+        (0x108000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000,
+         49, 1502),
+        (0x110000400000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000,
+         49, 1500),
+    ],
+}
+INV_NEGATIVE_ROWS = {
+    # 253 bits, bound 17 passes; (a, passes with a negative x row, with a negative y row)
+    "bls12_377_fr": [
+        (0x12ab655e9a2ca55660b44d1e5c37b00159aa76fed00000010a117f2becc19ead,
+         1, 1),
+        (0x12ab655e9a2ca55660b44d154258d4b84b63aa4b543e42400dcc9eb43d04843d,
+         1, 1),
+        (0x12ab655e9a2ca55660b44d1e5c3549ad22b401324e18b10b212f226bf126fb8b,
+         0, 1),
+        (0x12ab655e9a2ca55660b44d1e5c37b00159aa76fed00000010a117fffffc87e4d,
+         0, 1),
+    ],
+    # 377 bits, bound 25 passes; (a, passes with a negative x row, with a negative y row)
+    "bls12_377_fq": [
+        (0x1ae3a460a11ae1dbf8daa9b664b58ff7acde7005f44afae88c87c41a7cf474dc7d96e3ff083213c25fde9320fd4db0b,
+         1, 0),
+        (0x1ae3a4607e5c7a637daa21c04b72c325a89fbd312acadbb85db585ac55eef417416d840bbef5b99674a3eca8234c3b0,
+         1, 0),
+        (0x1ae3a4617c510eac63b05c06ca099361089891ac9fe9dc29d0c1339d126ea6c083258ce9ace67a3276af607e7e717ef,
+         0, 1),
+        (0x1ae3a4617c510eac63b05c06ca1493b1a22d9f2f96424b3b24618092cf7d931ffd2656af263e8dc7326b47094f2ab65,
+         0, 1),
+    ],
+    # 753 bits, bound 49 passes; (a, passes with a negative x row, with a negative y row)
+    "mnt4753_fq": [
+        (0x1c4c62d92c41110229022eee2cdadb7f997505b8fafed5eb7e8f96c97d87307fdb925e8a0ed8d99d124d9a15af79db117e776f218059db80f0da5cb537e315589de971f4978e76c483cc6aac8c32d3af24e299fbd0234cc2872096a587187,
+         1, 1),
+        (0x1c4c62d92c41110229022eee2cdadb7f997505b8fafed5eb7e8f96c97d87307fdb925e8a0ed8d99d124d9a15af79db117e776f218059db80f0da5cb537e38685acce97672514db543f24f11a6acb3c2250088efe28260d88f93bd71050115,
+         1, 1),
+        (0x1c4c62d92c41110229022eee2cdadb7f997505b8fafed5eb7e8f96c97d87307fdb925e8a0ed8d99d124d9a15af79db117e776f218059db80f0da5cb537e38685acce9767254a4638810719ac41d0856c223f24faefb95f059b92d52a22d27,
+         0, 1),
+        (0x1c4c62d92b34cc7f5f366ab9f70e8894b9180c4bee38d89f55ccaf07153f404e72887ace503a2f13c985065f971278a5c69b9c4fb6aada2d0917ba4b0bd7b2d4844e981447547022376a7b869afeb34d6642dd104a45e62074893ba0da0b3,
+         0, 1),
+    ],
+    # 753 bits, bound 49 passes; (a, passes with a negative x row, with a negative y row)
+    "mnt6753_fq": [
+        (0x1c4c62d92c4111005f07827a324a5943218d59bcb6ff57b3592660d14a9bc2a1a44544a40d89daab80af58d7126e179f63e60f324e913516f6cf400f2deaab0a7da7b6817d74ea4d12ff955610d0497046db397d90cfad5ccca0b5b9ac2cb,
+         1, 1),
+        (0x1c4c62d92c41110229022eee2cdadb7f997505b8fafed5eb7e8f96c97d87307fdb925e8a0ed8d99d124d9a15af79db26c5c28c859a99b3eebca9429212636b9dff96a1445a08c45b134a8ed24f3337a1bd96a516d0d6f67be5042940052cf,
+         1, 0),
+        (0x1c4c62d92c41110229022eee2cdadb7f997505b8fafed5eb7e8f96c97d87307fdb925e8a0ed8d99d124d9a15af79db26c5c28c859a99b3eebca9429212636b9dff97634993aa4d6c381bc3f004eaec1c568b7327324466ad0cc316e43ad27,
+         0, 1),
+        (0x1c4c62d92b34cc7f5f366ab9f70e8894b9180c4bee38d89f55ccaf07153f404e72887ace503a2f13c985065f971278bb0de6b9b3d0eab29ad4e6a027e65797ecd71763f6b5b47755ee7f25ca5e1919fd9a8f2b3c8cd0edc7e5b97d5af20b3,
+         0, 1),
+    ],
+}
+
+
+def inv_inputs(modulus: int, name: str, seed: int = 11) -> dict:
+    """{kind: [plain integers below the modulus]} for a test of the inverse:
+    seeded random values, the edge values, 2^k for every k below bits(p),
+    runs of all-ones 32-bit limbs (every start and length below p) and of
+    ones bits (every 8th length, every 29th shift), and ``INV_LONGEST`` and
+    ``INV_NEGATIVE_ROWS`` of the field ``name``."""
+    bits = modulus.bit_length()
+    limbs = -(-bits // 32)
+    limb_runs = [((1 << 32 * w) - 1) << 32 * s for w in range(1, limbs + 1)
+                 for s in range(limbs - w + 1)]
+    return {
+        "random": rand_below(modulus, 64, seed),
+        "edges": [0, 1, 2, modulus - 1, (modulus - 1) // 2],
+        "powers_of_two": [1 << k for k in range(bits)],
+        "ones_runs": [v for v in limb_runs if v < modulus] + [
+            ((1 << w) - 1) << s for w in range(1, bits, 8)
+            for s in range(0, bits - w, 29)],
+        "longest": [a for a, _, _ in INV_LONGEST[name]],
+        "negative_rows": [a for a, _, _ in INV_NEGATIVE_ROWS[name]],
+    }

@@ -195,6 +195,29 @@ def test_unpack_limbs_splits_32_bit_words_into_digits():
     assert got.dtype == torch.int64 and np.array_equal(got.numpy(), digits)
 
 
+def test_launch_widths_by_class():
+    """The classes of widths chip_smoke.py reports the curve kernels'
+    launches in: K4's four, powers of 8 for K5 and K6."""
+    assert [EK.width_class("ec_proj_add", n) for n in
+            (1, 2, 1 << 10, (1 << 10) + 1, 1 << 15, (1 << 15) + 1)] == [
+        "1", "2-2^10", "2-2^10", "2^10-2^15", "2^10-2^15", "over_2^15"]
+    assert [EK.width_class("inv_tree_up", n) for n in
+            (2, 8, 9, 64, 65, 1 << 18, (1 << 18) + 1)] == [
+        "1-2^3", "1-2^3", "2^3-2^6", "2^3-2^6", "2^6-2^9", "2^15-2^18",
+        "2^18-2^21"]
+    before = tfp.launch_counts["inv_tree_up"]
+    EK.reset_launch_widths()
+    try:
+        for n in (8, 4, 64, 8):
+            EK._launched(0, "inv_up", "inv_tree_up", n)
+        assert EK.launch_widths["inv_tree_up"] == {8: 2, 4: 1, 64: 1}
+        assert EK.launches_by_class("inv_tree_up") == {"1-2^3": 3,
+                                                       "2^3-2^6": 1}
+    finally:
+        EK.reset_launch_widths()
+        tfp.launch_counts["inv_tree_up"] = before
+
+
 def test_supports_base_field_curves_only():
     assert EK.supports(TCI.bls12_377_g1("cpu"))
     assert EK.supports(TCI.mnt4753_g1("cpu"))

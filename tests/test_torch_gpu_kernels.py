@@ -16,8 +16,8 @@ import torch
 from gingerlib_tpu_torch.curves import instances as CI
 from gingerlib_tpu_torch.ops import ec_kernels as EK, msm as tmsm
 from gingerlib_tpu_torch.ops import ec_rns as ER
-from test_torch_cases import (affine_pairs, poseidon_states, proj_pairs,
-                              rand_below, reduced_poseidon)
+from test_torch_cases import (affine_pairs, inv_inputs, poseidon_states,
+                              proj_pairs, rand_below, reduced_poseidon)
 
 pytestmark = pytest.mark.gpu
 N = 64
@@ -146,6 +146,27 @@ def test_pow_const_matches_plain(cuda, name):
     for bits in (F.legendre_exp_bits, limbs.bits_msb_first(0xC0FFEE11, 32)):
         assert torch.equal(fp.pow_const(F, x, bits),
                            fp.pow_const_plain(F, x, bits))
+
+
+@pytest.mark.parametrize("name", ["MNT4753_FQ", "BLS12_377_FQ",
+                                  "BLS12_377_FR"])
+def test_inv_bea_on_the_hardest_inputs(cuda, name):
+    """K2 at 48, 24 and 16 digits on the inputs of the host test of its
+    inversion (2^k for every k, runs of ones, the inputs that take the most
+    passes or negate a row): against python's pow, and on a few against
+    the plain version."""
+    from gingerlib_tpu_torch import params as TP
+    from gingerlib_tpu_torch.fields import fp
+    from gingerlib_tpu_torch.ops import limbs
+    F = getattr(TP, name)
+    cases = inv_inputs(F.modulus, F.name)
+    vals = [v for kind in cases.values() for v in kind]
+    x = torch.from_numpy(limbs.to_digits_batch(vals, F.n_digits)).to(cuda)
+    got = fp.inv_bea(F, x)
+    assert limbs.from_digits_batch(got.cpu()) == [
+        pow(v, -1, F.modulus) if v else 0 for v in vals]
+    few = x[:len(cases["random"]) + len(cases["edges"])]
+    assert torch.equal(fp.inv_bea(F, few), fp.inv_bea_plain(F, few))
 
 
 @pytest.mark.parametrize("name", ["mnt4753", "mnt6753"])

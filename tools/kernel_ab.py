@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Hold this tree's field and projective-addition kernels against another
-checkout's, on one NVIDIA GPU, in turns.
+"""Hold this tree's field, projective-addition, inverse and Poseidon kernels
+against another checkout's, on one NVIDIA GPU, in turns.
 
-    python3 tools/kernel_ab.py --other DIR [--sections k1,k4,end_to_end]
+    python3 tools/kernel_ab.py --other DIR [--sections k1,k4,k2,end_to_end]
 
 DIR is a checkout of another commit (e.g. ``git archive <commit> | tar -x -C
 DIR``); only its ``gingerlib_tpu_torch/csrc`` is read.  Its ``mont_mul.cu``,
-``fp_addsub.cu`` and ``ec_add.cu`` are built with nvcc beside this tree's
-libraries and swapped into this tree's wrappers (``fields/fp.py`` looks its
-C entry points up by name), so both run the same Python; the kernels' C
-interface is the same in both.  It prints one JSON line a section:
+``fp_addsub.cu``, ``ec_add.cu``, ``inv_bea.cu`` and ``poseidon.cu`` are
+built with nvcc beside this tree's libraries and swapped into this tree's
+wrappers (``fields/fp.py`` looks its C entry points up by name), so both
+run the same Python.  The kernels' C interface is the same in both, except
+that an inverse kernel from before the divsteps inverse takes no -p^-1 mod
+2^32 (it is dropped for it).  It prints one JSON line a section:
 
 * ``exact``: the two trees' outputs at every shape below are equal (integer
   arithmetic: tolerance 0), and the same for a one-lane doubling;
@@ -24,6 +26,10 @@ interface is the same in both.  It prints one JSON line a section:
   distinct points (``generic``) and on the special lanes of
   tests/test_torch_cases.py first (``special_lanes``, as chip_smoke.py
   times it);
+* ``k2``: device time of the inverse kernel at 1 row (as the proving path
+  calls it) and at 2^15 rows, of the Poseidon kernel on 2^15 MNT4-753
+  sponges, and host-clock seconds of a 2^16-leaf MNT4-753 Poseidon Merkle
+  tree (both trees' roots must be equal);
 * ``end_to_end``: host-clock seconds of a 2^10-
   constraint MNT4-753 Groth16 setup and prove (checked against the
   python-int oracle), of the 2^16 rung's G1 fixed-base loop (768 steps over
@@ -35,8 +41,10 @@ the last line names the card and its power limit.
 """
 
 import argparse
+import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -47,7 +55,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 KERNELS = (("gl_mont_mul", "mont_mul"), ("gl_fp_addsub", "fp_addsub"),
-           ("gl_ec_proj_add", "ec_add"))
+           ("gl_ec_proj_add", "ec_add"), ("gl_inv_bea", "inv_bea"),
+           ("gl_poseidon_permute", "poseidon"))
 ORDER = ("other", "this", "this", "other")
 
 
@@ -55,8 +64,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True,
                     help="checkout of the commit to compare with")
-    ap.add_argument("--sections", default="k1,k4,end_to_end",
-                    help="comma-separated subset of k1, k4, end_to_end")
+    ap.add_argument("--sections", default="k1,k4,k2,end_to_end",
+                    help="comma-separated subset of k1, k4, k2, end_to_end")
     args = ap.parse_args()
     sections = set(args.sections.split(","))
     if not torch.cuda.is_available():
@@ -79,14 +88,21 @@ def main():
 
     # ---- build both ----
     cuda_lib.build()
-    other = cuda_lib.build(
-        os.path.join(args.other, "gingerlib_tpu_torch", "csrc"),
-        os.path.join(cuda_lib.BUILD, "other"),
-        [lib for _, lib in KERNELS])
+    other_csrc = os.path.join(args.other, "gingerlib_tpu_torch", "csrc")
+    other = cuda_lib.build(other_csrc, os.path.join(cuda_lib.BUILD, "other"),
+                           [lib for _, lib in KERNELS])
     fns = {"this": {name: cuda_lib.function(name) for name, _ in KERNELS},
            "other": {}}
     for name, lib in KERNELS:
         fns["other"].update(cuda_lib.load(other[lib], (name,)))
+    with open(os.path.join(other_csrc, "inv_bea.cu")) as f:
+        if not re.search(r"gl_inv_bea\([^)]*uint32_t inv", f.read()):
+            old = ctypes.CDLL(other["inv_bea"]).gl_inv_bea
+            vp, i = ctypes.c_void_p, ctypes.c_int
+            old.argtypes, old.restype = [i, vp, vp, i, vp, vp], i
+            fns["other"]["gl_inv_bea"] = (
+                lambda nd, a, out, n, p, inv, stream:
+                old(nd, a, out, n, p, stream))
 
     def use(tree):
         fp.use_kernels(fns[tree])
@@ -192,9 +208,58 @@ def main():
                 k4.setdefault(kind, {})[lanes] = in_turns(
                     lambda tree: graph_ms(
                         lambda: ec_kernels.proj_add(g1, P, Q), reps))
+
+    def seconds(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, out
+
+    k2 = {}
+    if "k2" in sections:
+        from gingerlib_tpu_torch.ops import limbs
+        from gingerlib_tpu_torch.ops import poseidon_kernels as PK
+        from gingerlib_tpu_torch.primitives.merkle import \
+            FieldBasedMerkleTree
+        from gingerlib_tpu_torch.primitives.poseidon import (PoseidonHash,
+                                                             PoseidonParams)
+        for label, rows, reps in (("[1,48]", 1, 200),
+                                  ("[2^15,48]", 1 << 15, 10)):
+            a = elems(rows)
+            res = outputs(lambda: fp.inv_bea(fq, a))
+            same(f"inv_bea {label}", res)
+            head = limbs.from_digits_batch(a[:64].cpu())
+            if limbs.from_digits_batch(res["this"][:64].cpu()) != [
+                    pow(v, -1, fq.modulus) if v else 0 for v in head]:
+                raise AssertionError("inv_bea disagrees with pow")
+            checked.append(f"inv_bea {label}")
+            k2[f"inv_bea {label}"] = in_turns(lambda tree: graph_ms(
+                lambda: fp.inv_bea(fq, a), reps))
+        P = PoseidonParams.mnt4753()
+        state = fp.to_mont(P.field, elems(3 << 15)).reshape(1 << 15, 3, nd)
+        same("poseidon [2^15,3,48]", outputs(lambda: PK.permute(P, state)))
+        checked.append("poseidon [2^15,3,48]")
+        k2["poseidon_2p15_sponges"] = in_turns(lambda tree: graph_ms(
+            lambda: PK.permute(P, state), 3))
+        leaves = fp.to_mont(P.field, elems(1 << 16))
+        h = PoseidonHash(P)
+        roots = {}
+
+        def merkle(tree):
+            secs, built = seconds(
+                lambda: FieldBasedMerkleTree(h, 17).build(leaves))
+            roots[tree] = built.root()
+            return secs
+
+        k2["merkle_2p16_build_s"] = in_turns(merkle)
+        if not torch.equal(roots["this"], roots["other"]):
+            raise AssertionError("the Merkle roots differ")
+        checked.append("merkle 2^16 root")
     print("exact " + json.dumps(checked), flush=True)
     print("k1 " + json.dumps(k1), flush=True)
     print("k4 " + json.dumps(k4), flush=True)
+    print("k2 " + json.dumps(k2), flush=True)
 
     if "end_to_end" in sections:
         from gingerlib_tpu_torch.circuits import benchmark_circuit
@@ -207,13 +272,6 @@ def main():
         compiled = compile_r1cs(cs)
         want = groth16_host.expected_proof("mnt4753", cs, **toxic, r=31337,
                                            s=71717)
-
-        def seconds(fn):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            return time.perf_counter() - t, out
 
         def rung(tree):
             setup, params = seconds(
