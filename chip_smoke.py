@@ -16,9 +16,10 @@ What it does, in order (any failure raises, so the exit code is non-zero):
    python's pow too, on the inputs of its host test at 48, 24 and 16 digits
    (2^k for every k, runs of ones, those that take the most passes or
    negate a row), and the curve kernels (projective
-   addition, affine addition before and after its shared inversion, one
-   level of the inversion's up and down sweeps) on real curve points with
-   every special lane mixed in, and the RNS kernels (the RNS multiply at
+   addition, affine addition before and after its shared inversion, and
+   the inversion's three kernels: up, tail and down) on real curve points
+   with every special lane mixed in, at 2^15, 2^18 and 2^19 lanes, the
+   inversion also at the edges of its tiles, and the RNS kernels (the RNS multiply at
    MNT4-753 Fq [1] and [2^16] and BLS12-377 Fq [2^12], six chained
    squarings against python's pow, times at 2^16 and 2^20 lanes beside the
    positional multiply; the RNS affine addition's pre and post kernels and
@@ -42,8 +43,9 @@ What it does, in order (any failure raises, so the exit code is non-zero):
    Pippenger paths and the curve kernels); ``legendre`` and ``sqrt_mod`` on
    2^12 elements of MNT4-753 Fr and Fq; and a 2^16-leaf MNT4-753 Poseidon
    Merkle tree of height 17 (``merkle`` line); after the 2^16 rung, the
-   inversion tree's two kernels at the widths that rung launched them
-   (``inv_tree_by_width`` line: time and loss by class of widths);
+   inversion tree's three kernels and the affine addition's two at the
+   widths that rung launched them (``inv_tree_by_width`` and
+   ``ec_affine_by_width`` lines: time and loss by class of widths);
 5. checks the results: each device proof equals the closed-form python-int
    oracle coordinate for coordinate, a repeat gives the same proof, a proof
    with another ``s`` differs; the Legendre symbols, roots and masks agree
@@ -469,7 +471,6 @@ def main():
             "case", "rows", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by")}
         kernels.append(row)
-    inv_bea_ms = kernels[-1]["ms"]
     # K2 on a batch beside the path's one element: 2^15 seeded elements, a
     # thread each (a warp runs as many passes as its longest lane)
     inv_wide = rand_elems(1 << 15)
@@ -531,6 +532,22 @@ def main():
         sd = torch.stack([ks & 0xFFFF, ks >> 16], dim=1).to(dev)
         proj = msm_mod.fixed_base_msm(curve, curve.generator_affine, sd)
         return proj, curve.to_affine(proj), ks.tolist()
+
+    B = ec_kernels.INV_TILE            # elements a tile of K6
+
+    def tile_muls(x):
+        """Multiplies of one level of K6's tree that the data in x [N, nd]
+        needs going up: k - 1 for a tile of k non-zero elements (down takes
+        twice as many)."""
+        live = (x != 0).any(-1)
+        live = torch.cat([live, live.new_zeros(-live.shape[0] % B)])
+        return int((live.reshape(-1, B).sum(1) - 1).clamp(min=0).sum())
+
+    def tree_root(x):
+        """The value the tail inverts for x [N <= INV_TILE, nd]: the product
+        of its non-zero elements, as stored (Montgomery form)."""
+        return limbs.from_digits_batch(
+            ec_kernels.inv_up_plain(fq, x)[1].cpu())[0]
 
     def compare_all(name, got, want):
         return max(compare(f"{name}[{i}]", g.to(torch.int64),
@@ -642,10 +659,65 @@ def main():
         compare_all("ec_proj_add P+P against double",
                     ec_kernels.proj_add(g1, P, P), g1.double(P))
 
-        # K5 and K6 at the smallest and the largest affine tree level of a
-        # 2^16-point MSM (8 windows a chunk, default cutoff)
-        for n in (1 << 15, big_lanes):
-            a_pt, b_pt = affine_case(g1, g1_aff, n)
+        # K6 at the edges of its tiles (INV_TILE elements): a batch of one,
+        # two, a tile less one, a tile, a tile and one, two tiles and three,
+        # three tiles and five, with zeros on the first and last element of
+        # every tile and, in the last, one whole tile of zeros.  A batch of
+        # up to a tile takes one tail launch and no inverse kernel, one of
+        # up to INV_TILE^2 elements an up, a tail and a down.
+        k6_err = {"inv_tree_up": 0, "inv_tree_tail": 0, "inv_tree_down": 0}
+        edge_widths = (1, 2, B - 1, B, B + 1, 2 * B + 3, 3 * B + 5)
+        for n in edge_widths:
+            x = rand_elems(n)
+            x[0] = x[n - 1] = 0
+            for i in range(B - 1, n, B):
+                x[i:i + 2] = 0
+            if n >= 3 * B:
+                x[B:2 * B] = 0
+            before = dict(fp.launch_counts)
+            got = ec_kernels.batch_inverse(fq, x)
+            launched = {k: v - before[k] for k, v in fp.launch_counts.items()
+                        if v != before[k]}
+            want = {"inv_tree_tail": 1} if n <= B else {
+                "inv_tree_up": 1, "inv_tree_tail": 1, "inv_tree_down": 1}
+            if launched != want:
+                raise AssertionError(f"batch_inverse [{n}] launched "
+                                     f"{launched}, not {want}")
+            compare(f"batch_inverse [{n}] edges", got,
+                    ec_kernels.batch_inverse_plain(fq, x))
+            if fp.fp_to_ints(fq, got) != [pow(v, -1, p) if v else 0
+                                          for v in fp.fp_to_ints(fq, x)]:
+                raise AssertionError(f"batch_inverse [{n}] disagrees with "
+                                     f"pow(v, -1, p)")
+            if n <= B:
+                k6_err["inv_tree_tail"] = max(k6_err["inv_tree_tail"], compare(
+                    f"inv_tree_tail [{n}]", ec_kernels.inv_tail_cuda(fq, x),
+                    ec_kernels.inv_tail_plain(fq, x)))
+                continue
+            tree, roots = ec_kernels.inv_up_cuda(fq, x)
+            want_tree, want_roots = ec_kernels.inv_up_plain(fq, x)
+            k6_err["inv_tree_up"] = max(
+                k6_err["inv_tree_up"],
+                compare(f"inv_tree_up [{n}] trees",
+                        ec_kernels.unpack_limbs(tree), want_tree),
+                compare(f"inv_tree_up [{n}] products", roots, want_roots))
+            rinv = ec_kernels.batch_inverse(fq, roots)
+            k6_err["inv_tree_down"] = max(k6_err["inv_tree_down"], compare(
+                f"inv_tree_down [{n}]",
+                ec_kernels.inv_down_cuda(fq, tree, rinv, n),
+                ec_kernels.inv_down_plain(fq, want_tree, rinv, n)))
+        shapes_line.append({"name": "batch_inverse_edges",
+                            "lanes": list(edge_widths), "max_abs_err": 0,
+                            "launches_checked": True})
+
+        # K5 and K6 at the narrowest and two of the widest affine tree
+        # levels of a 2^16-point MSM (8 windows a chunk, default cutoff):
+        # 2^15, 2^18 and 2^19 lanes (the points of 2^18 twice)
+        for n in (1 << 15, big_lanes, 2 * big_lanes):
+            aff = g1_aff if n <= big_lanes else tuple(
+                torch.cat([c, c]) for c in g1_aff)
+            a_pt, b_pt = affine_case(g1, aff, n)
+            del aff
             (x1, y1), inf1 = a_pt
             (x2, y2), inf2 = b_pt
             pre = ec_kernels.affine_pre(g1, x1, y1, x2, y2, inf1, inf2)
@@ -656,33 +728,46 @@ def main():
             den2 = den.reshape(n, nd)
             if int((~(den2 != 0).any(-1)).sum()) < 3:
                 raise AssertionError("the inversion's input holds no zeros")
-            # the two inversion kernels, one level each, then the whole
-            # recursive inversion they make up
-            pre_packed, roots = ec_kernels.inv_up_cuda(fq, den2)
-            pre = ec_kernels.unpack_limbs(pre_packed)
-            want_pre, want_roots = ec_kernels.inv_up_plain(fq, den2)
+            # K6's three kernels one at a time on the denominators: up on
+            # them, the tail on the tiles' products (at 2^19 on the products
+            # of the products), down; then the whole inversion they make up
+            tree, roots = ec_kernels.inv_up_cuda(fq, den2)
+            want_tree, want_roots = ec_kernels.inv_up_plain(fq, den2)
             err_up = max(
-                compare(f"inv_tree_up [{n}] prefix products", pre, want_pre),
-                compare(f"inv_tree_up [{n}] run products", roots, want_roots))
+                compare(f"inv_tree_up [{n}] trees",
+                        ec_kernels.unpack_limbs(tree), want_tree),
+                compare(f"inv_tree_up [{n}] products", roots, want_roots))
             rinv = ec_kernels.batch_inverse(fq, roots)
             err_down = compare(
                 f"inv_tree_down [{n}]",
-                ec_kernels.inv_down_cuda(fq, den2, pre_packed, rinv),
-                ec_kernels.inv_down_plain(fq, den2, pre, rinv))
+                ec_kernels.inv_down_cuda(fq, tree, rinv, n),
+                ec_kernels.inv_down_plain(fq, want_tree, rinv, n))
+            tail_in = roots
+            while tail_in.shape[0] > B:
+                tail_in = ec_kernels.inv_up_plain(fq, tail_in)[1]
+            err_tail = compare(f"inv_tree_tail [{tail_in.shape[0]}]",
+                               ec_kernels.inv_tail_cuda(fq, tail_in),
+                               ec_kernels.inv_tail_plain(fq, tail_in))
             before = dict(fp.launch_counts)
             dinv2 = ec_kernels.batch_inverse(fq, den2)
             inv_launches = {k: v - before[k]
                             for k, v in fp.launch_counts.items()
                             if v != before[k]}
+            levels = 1 if n <= B * B else 2
+            if inv_launches != {"inv_tree_up": levels, "inv_tree_tail": 1,
+                                "inv_tree_down": levels}:
+                raise AssertionError(f"batch_inverse [{n}] launched "
+                                     f"{inv_launches}")
             err_inv = compare(f"batch_inverse [{n}]", dinv2,
                               ec_kernels.batch_inverse_plain(fq, den2))
             err_inv = max(err_inv, compare(
                 f"batch_inverse [{n - 3}] ragged", ec_kernels.batch_inverse(
                     fq, den2[3:]), dinv2[3:]))
             err_up, err_down = max(err_up, err_inv), max(err_down, err_inv)
-            head = limbs.from_digits_batch(fp.from_mont(fq, den2[:12]))
-            want = [pow(v, -1, p) if v else 0 for v in head]
-            if fp.fp_to_ints(fq, dinv2[:12]) != want:
+            err_tail = max(err_tail, err_inv)
+            if fp.fp_to_ints(fq, dinv2[:12]) != [
+                    pow(v, -1, p) if v else 0
+                    for v in fp.fp_to_ints(fq, den2[:12])]:
                 raise AssertionError("batch_inverse disagrees with "
                                      "pow(v, -1, p)")
             dinv = dinv2.reshape(den.shape)
@@ -700,18 +785,13 @@ def main():
             compare_all(f"batch_affine_add [{n // 2}] even/odd",
                         (sx, sy, sinf), (wx, wy, winf))
             live = int((~(inf1 | inf2 | inf3)).sum())
-            # multiplies of one inversion level: one going up and two going
-            # down for every non-zero element that is not the first of its
-            # run of INV_RUN
-            chained = (den2 != 0).any(-1)
-            chained[0::ec_kernels.INV_RUN] = False
-            chained = int(chained.sum())
-            n_runs = roots.shape[0]
+            muls = tile_muls(den2)
+            tiles, m = roots.shape[0], tail_in.shape[0]
             rows = {
                 # six values and three flag bytes a lane; two subtractions
                 # everywhere, a squaring and four additions where it doubles
                 "ec_affine_pre": (
-                    err_pre, (6 * elem_bytes + 3) * n,
+                    n, err_pre, (6 * elem_bytes + 3) * n,
                     n * 2 * 2 * L + 2 * (MUL_OPS + 4 * 2 * L),
                     lambda: ec_kernels.affine_pre(g1, x1, y1, x2, y2, inf1,
                                                   inf2),
@@ -720,40 +800,58 @@ def main():
                 # eight values and three flag bytes a lane; three multiplies
                 # and four subtractions where lambda is used
                 "ec_affine_post": (
-                    err_post, (8 * elem_bytes + 3) * n,
+                    n, err_post, (8 * elem_bytes + 3) * n,
                     live * (3 * MUL_OPS + 4 * 2 * L),
                     lambda: ec_kernels.affine_post(g1, *post_args),
                     lambda: ec_kernels.affine_post_plain(g1, *post_args)),
-                # reads the elements, writes prefix and run products
+                # reads the elements, writes the trees and their roots
                 "inv_tree_up": (
-                    err_up, (2 * n + n_runs) * elem_bytes, chained * MUL_OPS,
+                    n, err_up, (n + tiles * 2 * B) * elem_bytes,
+                    muls * MUL_OPS,
                     lambda: ec_kernels.inv_up_cuda(fq, den2),
                     lambda: ec_kernels.inv_up_plain(fq, den2)),
-                # reads elements, prefix products and the run products'
-                # inverses, writes the inverses
+                # the tiles' products: reads and writes them; a multiply up
+                # and two down for each non-zero one not first in its tile,
+                # and the root's inverse
+                "inv_tree_tail": (
+                    m, err_tail, 2 * m * elem_bytes,
+                    3 * tile_muls(tail_in) * MUL_OPS + inv_ops(
+                        tree_root(tail_in), p),
+                    lambda: ec_kernels.inv_tail_cuda(fq, tail_in),
+                    lambda: ec_kernels.inv_tail_plain(fq, tail_in)),
+                # reads the trees below their roots and the roots' inverses,
+                # writes the inverses
                 "inv_tree_down": (
-                    err_down, (3 * n + n_runs) * elem_bytes,
-                    2 * chained * MUL_OPS,
-                    lambda: ec_kernels.inv_down_cuda(fq, den2, pre_packed,
-                                                     rinv),
-                    lambda: ec_kernels.inv_down_plain(fq, den2, pre, rinv)),
+                    n, err_down, (tiles * (2 * B - 1) + n) * elem_bytes,
+                    2 * muls * MUL_OPS,
+                    lambda: ec_kernels.inv_down_cuda(fq, tree, rinv, n),
+                    lambda: ec_kernels.inv_down_plain(fq, want_tree, rinv,
+                                                      n)),
             }
-            for name, (err, nbytes, nops, kern, plain) in rows.items():
+            for name, (lanes, err, nbytes, nops, kern, plain) in rows.items():
                 b_ms, b_by = bound(nbytes, nops)
-                row = {"lanes": n, "max_abs_err": err, "ms": time_ms(kern, 10),
+                row = {"lanes": lanes, "max_abs_err": max(err,
+                                                          k6_err.get(name, 0)),
+                       "ms": time_ms(kern, 10),
+                       "device_ms": graph_ms(kern, 10),
                        "plain_ms": time_ms(plain, 2), "bound_ms": b_ms,
                        "bound_by": b_by}
+                if name == "inv_tree_tail":
+                    row["below"] = n
                 shapes_line.append(dict(row, name=name))
                 if n == big_lanes:
                     curve_rows[name] = row
-            # the whole inversion: every level of both kernels, the root
-            # through the binary-Euclid kernel and one multiply
+            # the whole inversion
             shapes_line.append({
                 "name": "batch_inverse", "lanes": n, "max_abs_err": err_inv,
                 "ms": time_ms(lambda: ec_kernels.batch_inverse(fq, den2), 10),
+                "device_ms": graph_ms(
+                    lambda: ec_kernels.batch_inverse(fq, den2), 10),
                 "plain_ms": time_ms(
                     lambda: ec_kernels.batch_inverse_plain(fq, den2), 2),
-                "launches": inv_launches, "root_inv_bea_ms": inv_bea_ms})
+                "launches": inv_launches})
+            del a_pt, b_pt, x1, y1, x2, y2, pre, num, den, den2, tree, \
+                want_tree, dinv2, dinv, post_args, rows
         print("curve_kernel_shapes " + json.dumps(shapes_line), flush=True)
 
         # the narrower widths: BLS12-377 G1 (24 digits, a = 0) through all
@@ -787,6 +885,118 @@ def main():
 
     curve_rows = curve_kernel_section()
 
+    # K5 and K6 by width, run after the 2^16 rung at the widths it launched
+    # them
+    def classes_of(key, widths):
+        """[(class, launches, widths in it, its most frequent width)] of
+        the launches of kernel ``key`` by width, narrowest class first."""
+        classes = {}
+        for n, c in widths.items():
+            classes.setdefault(ec_kernels.width_class(key, n),
+                               []).append((c, n))
+        return [(label, sum(c for c, _ in m), len(m), max(m)[1])
+                for label, m in sorted(classes.items(), key=lambda kv: min(
+                    n for _, n in kv[1]))]
+
+    def timed_row(key, label, launches, n_widths, n, fn, nbytes, nops):
+        """One class of a kernel's launches: device time at its most
+        frequent width, the bound there and the class's loss, its launches
+        x (time - bound) at that width."""
+        b_ms, b_by = bound(nbytes, nops)
+        reps = 100 if n <= 1 << 12 else 20
+        row = {"kernel": key, "class": label, "launches": launches,
+               "widths": n_widths, "timed_width": n, "ms": time_ms(fn, reps),
+               "device_ms": graph_ms(fn, reps), "bound_ms": b_ms,
+               "bound_by": b_by}
+        row["loss_ms"] = launches * (row["device_ms"] - b_ms)
+        return row
+
+    def inv_tree_by_width(widths):
+        """K6's three kernels at the widths the 2^16 rung launched them, on
+        seeded non-zero elements: up and down at the classes of their widths
+        (the rung's batches), the tail at those of the tiles' products."""
+        if widths["inv_tree_up"] != widths["inv_tree_down"]:
+            raise AssertionError("K6's up and down kernels ran at other "
+                                 "widths")
+        rows = []
+        for label, launches, n_widths, n in classes_of(
+                "inv_tree_up", widths["inv_tree_up"]):
+            x = rand_elems(n)
+            tree, roots = ec_kernels.inv_up_cuda(fq, x)
+            rinv = ec_kernels.batch_inverse(fq, roots)
+            compare(f"inv_tree_down [{n}]",
+                    ec_kernels.inv_down_cuda(fq, tree, rinv, n),
+                    ec_kernels.inv_down_plain(
+                        fq, ec_kernels.unpack_limbs(tree), rinv, n))
+            tiles, muls = roots.shape[0], tile_muls(x)
+            rows.append(timed_row(
+                "inv_tree_up", label, launches, n_widths, n,
+                lambda: ec_kernels.inv_up_cuda(fq, x),
+                (n + tiles * 2 * B) * elem_bytes, muls * MUL_OPS))
+            rows.append(timed_row(
+                "inv_tree_down", label, launches, n_widths, n,
+                lambda: ec_kernels.inv_down_cuda(fq, tree, rinv, n),
+                (tiles * (2 * B - 1) + n) * elem_bytes, 2 * muls * MUL_OPS))
+            del x, tree, roots, rinv
+        for label, launches, n_widths, n in classes_of(
+                "inv_tree_tail", widths["inv_tree_tail"]):
+            x = rand_elems(n)
+            compare(f"inv_tree_tail [{n}]", ec_kernels.inv_tail_cuda(fq, x),
+                    ec_kernels.inv_tail_plain(fq, x))
+            rows.append(timed_row(
+                "inv_tree_tail", label, launches, n_widths, n,
+                lambda: ec_kernels.inv_tail_cuda(fq, x), 2 * n * elem_bytes,
+                3 * tile_muls(x) * MUL_OPS + inv_ops(tree_root(x), p)))
+        return rows
+
+    def ec_affine_by_width(widths):
+        """K5's two kernels at the widths the 2^16 rung launched them, as
+        ``inv_tree_by_width``: operands from 2^18 seeded points (repeated
+        above 2^18 lanes), the special lanes first."""
+        if widths["ec_affine_pre"] != widths["ec_affine_post"]:
+            raise AssertionError("K5's pre and post kernels ran at other "
+                                 "widths")
+        _, points, _ = multiples(g1, 1 << 18, seed=7)
+        rows = []
+        for label, launches, n_widths, n in classes_of(
+                "ec_affine_pre", widths["ec_affine_pre"]):
+            copies = -(-n // points[0].shape[0])
+            a_pt, b_pt = affine_case(g1, tuple(
+                torch.cat([c] * copies) for c in points), n)
+            (x1, y1), inf1 = a_pt
+            (x2, y2), inf2 = b_pt
+            pre = ec_kernels.affine_pre(g1, x1, y1, x2, y2, inf1, inf2)
+            compare_all(f"ec_affine_pre [{n}]", pre,
+                        ec_kernels.affine_pre_plain(g1, x1, y1, x2, y2, inf1,
+                                                    inf2))
+            num, den, inf3 = pre
+            dinv = ec_kernels.batch_inverse(fq, den.reshape(n, nd)).reshape(
+                den.shape)
+            post_args = (num, dinv, x1, y1, x2, y2, inf1, inf2, inf3)
+            compare_all(f"ec_affine_post [{n}]",
+                        ec_kernels.affine_post(g1, *post_args),
+                        ec_kernels.affine_post_plain(g1, *post_args))
+            live = int((~(inf1 | inf2 | inf3)).sum())
+            rows.append(timed_row(
+                "ec_affine_pre", label, launches, n_widths, n,
+                lambda: ec_kernels.affine_pre(g1, x1, y1, x2, y2, inf1, inf2),
+                (6 * elem_bytes + 3) * n,
+                n * 2 * 2 * L + 2 * (MUL_OPS + 4 * 2 * L)))
+            rows.append(timed_row(
+                "ec_affine_post", label, launches, n_widths, n,
+                lambda: ec_kernels.affine_post(g1, *post_args),
+                (8 * elem_bytes + 3) * n, live * (3 * MUL_OPS + 4 * 2 * L)))
+            del a_pt, b_pt, x1, y1, x2, y2, pre, num, den, dinv, post_args
+        return rows
+
+    def loss_line(rows):
+        by_kernel = {}
+        for r in rows:
+            by_kernel[r["kernel"]] = by_kernel.get(r["kernel"], 0) + \
+                r["loss_ms"]
+        return {"rows": rows, "loss_ms": sum(by_kernel.values()),
+                "loss_ms_by_kernel": by_kernel}
+
     curve_meta = {
         "ec_proj_add": ("gingerlib_tpu_torch/csrc/ec_add.cu",
                         "gingerlib_tpu/ops/pallas_ec.py:580"),
@@ -796,6 +1006,9 @@ def main():
                            "gingerlib_tpu/ops/pallas_ec.py:192"),
         "inv_tree_up": ("gingerlib_tpu_torch/csrc/inv_tree.cu",
                         "gingerlib_tpu/ops/pallas_ec.py:313"),
+        # the tile that the TPU's recursion ends on, with the root's inverse
+        "inv_tree_tail": ("gingerlib_tpu_torch/csrc/inv_tree.cu",
+                          "gingerlib_tpu/ops/pallas_ec.py:366"),
         "inv_tree_down": ("gingerlib_tpu_torch/csrc/inv_tree.cu",
                           "gingerlib_tpu/ops/pallas_ec.py:342"),
     }
@@ -811,9 +1024,11 @@ def main():
             # no PyTorch call computes a curve addition or a 753-bit inverse
             "library_ms": None,
         })
+        kernels[-1]["device_ms"] = row["device_ms"]
         if name == "ec_proj_add":
-            kernels[-1]["device_ms"] = row["device_ms"]
             kernels[-1]["by_lanes"] = row["by_lanes"]
+        if name == "inv_tree_tail":
+            kernels[-1]["products_of_lanes"] = row["below"]
 
     # ------------------------------------------------------------------
     # 2c. the RNS kernels (K7, K8) against their plain versions
@@ -1480,56 +1695,13 @@ def main():
         raise AssertionError("the field kernels were not held at the lane "
                              "counts of this rung's setup loops")
 
-    def inv_tree_by_width(widths):
-        """K6's two kernels at the widths the 2^16 rung launched them:
-        for each class of widths (powers of 8), device times at its most
-        frequent width on seeded non-zero elements, the bounds there, and
-        the class's loss, its launches x (time - bound) at that width."""
-        classes = {}
-        for n, c in widths.items():
-            classes.setdefault(ec_kernels.width_class("inv_tree_up", n),
-                               []).append((c, n))
-        rows = []
-        for label, members in sorted(classes.items(),
-                                     key=lambda kv: min(n for _, n in kv[1])):
-            launches = sum(c for c, _ in members)
-            n = max(members)[1]
-            x = rand_elems(n)
-            pre_packed, roots = ec_kernels.inv_up_cuda(fq, x)
-            rinv = ec_kernels.batch_inverse(fq, roots)
-            compare(f"inv_tree_down [{n}]",
-                    ec_kernels.inv_down_cuda(fq, x, pre_packed, rinv),
-                    ec_kernels.inv_down_plain(
-                        fq, x, ec_kernels.unpack_limbs(pre_packed), rinv))
-            runs = roots.shape[0]
-            chained = n - runs             # non-zero, not first in a run
-            row = {"class": label, "launches": launches,
-                   "widths": len(members), "timed_width": n}
-            reps = 100 if n <= 1 << 12 else 20
-            for kind, fn, nbytes, muls in (
-                    ("up", lambda: ec_kernels.inv_up_cuda(fq, x),
-                     (2 * n + runs) * elem_bytes, chained),
-                    ("down", lambda: ec_kernels.inv_down_cuda(
-                        fq, x, pre_packed, rinv),
-                     (3 * n + runs) * elem_bytes, 2 * chained)):
-                b_ms, b_by = bound(nbytes, muls * MUL_OPS)
-                row[f"{kind}_ms"] = time_ms(fn, reps)
-                row[f"{kind}_device_ms"] = graph_ms(fn, reps)
-                row[f"{kind}_bound_ms"] = b_ms
-                row[f"{kind}_loss_ms"] = launches * (
-                    row[f"{kind}_device_ms"] - b_ms)
-            rows.append(row)
-            del x, pre_packed, roots, rinv
-        return rows
-
     widths16 = full["curve_launches_by_width"]
-    if widths16["inv_tree_up"] != widths16["inv_tree_down"]:
-        raise AssertionError("K6's up and down kernels ran at other widths")
-    k6_by_width = inv_tree_by_width(widths16["inv_tree_up"])
-    print("inv_tree_by_width " + json.dumps(
-        {"rows": k6_by_width,
-         "loss_ms": sum(r["up_loss_ms"] + r["down_loss_ms"]
-                        for r in k6_by_width)}), flush=True)
+    k6_by_width = inv_tree_by_width(widths16)
+    print("inv_tree_by_width " + json.dumps(loss_line(k6_by_width)),
+          flush=True)
+    k5_by_width = ec_affine_by_width(widths16)
+    print("ec_affine_by_width " + json.dumps(loss_line(k5_by_width)),
+          flush=True)
 
     # ------------------------------------------------------------------
     # 4b. the field API: Legendre symbol and square root (K3)
@@ -1729,14 +1901,12 @@ def main():
                 raise AssertionError(f"the 2^16 path never launched {name}")
         if name in ec_kernels.launch_widths:
             k["launches_by_lanes"] = full["curve_launches_by_lanes"][name]
-        if name in ("inv_tree_up", "inv_tree_down"):
-            kind = name.rsplit("_", 1)[1]
+        if name in ec_kernels.launch_widths and name != "ec_proj_add":
             k["by_width"] = [
-                {"class": r["class"], "launches": r["launches"],
-                 "lanes": r["timed_width"], "ms": r[f"{kind}_ms"],
-                 "device_ms": r[f"{kind}_device_ms"],
-                 "bound_ms": r[f"{kind}_bound_ms"],
-                 "loss_ms": r[f"{kind}_loss_ms"]} for r in k6_by_width]
+                {key: r[key] for key in ("class", "launches", "timed_width",
+                                         "ms", "device_ms", "bound_ms",
+                                         "loss_ms")}
+                for r in k6_by_width + k5_by_width if r["kernel"] == name]
         if k["launches"] <= 0:
             raise AssertionError(f"the main path never launched {name}")
 

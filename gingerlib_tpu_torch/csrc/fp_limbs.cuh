@@ -190,6 +190,27 @@ inline cudaError_t tile_loop_launch(Kernel kernel, int n,
   return cudaSuccess;
 }
 
+// Host side: lets `kernel` take `bytes` of dynamic shared memory on the
+// current device (above 48 KB a kernel has to ask for it).  `opened` is the
+// caller's record for this kernel, one entry a device: the most it has
+// asked for there.  Returns the CUDA error of the query or the setting.
+template <typename Kernel>
+inline cudaError_t open_smem(Kernel kernel, int bytes,
+                             int (&opened)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && dev >= MAX_DEVICES) e = cudaErrorInvalidDevice;
+  if (e != cudaSuccess || bytes <= opened[dev]) return e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // clear it: the caller returns it
+    return e;
+  }
+  opened[dev] = bytes;
+  return cudaSuccess;
+}
+
 // The elementwise kernels' body: out[i] = op(a[i], b[i]) for every batch
 // row i (op(a) when NOPS == 1), each block walking tiles blockIdx.x,
 // blockIdx.x + gridDim.x, ...; the next tile's operands are fetched while

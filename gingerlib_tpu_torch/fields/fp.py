@@ -209,7 +209,8 @@ launch_counts = {"mont_mul": 0, "inv_bea": 0, "fp_add": 0, "fp_sub": 0,
                  "fp_neg": 0,
                  # the curve kernels of ops/ec_kernels.py count here too
                  "ec_proj_add": 0, "ec_affine_pre": 0, "ec_affine_post": 0,
-                 "inv_tree_up": 0, "inv_tree_down": 0, "pow_const": 0,
+                 "inv_tree_up": 0, "inv_tree_tail": 0, "inv_tree_down": 0,
+                 "pow_const": 0,
                  # and the Poseidon kernel of ops/poseidon_kernels.py
                  "poseidon_permute": 0,
                  # and the RNS kernels of ops/rns_kernels.py, ops/ec_rns.py

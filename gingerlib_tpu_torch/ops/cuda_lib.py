@@ -44,8 +44,9 @@ _SIGNATURES = {
                                         _vp, _i, _vp, _u32, _vp]),
     "gl_inv_tree_up": ("inv_tree", [_i, _vp, _vp, _vp, _i, _i, _vp, _u32,
                                     _vp]),
-    "gl_inv_tree_down": ("inv_tree", [_i, _vp, _vp, _vp, _vp, _i, _i, _vp,
-                                      _u32, _vp]),
+    "gl_inv_tree_tail": ("inv_tree", [_i, _vp, _vp, _i, _i, _vp, _u32, _vp]),
+    "gl_inv_tree_down": ("inv_tree", [_i, _vp, _vp, _vp, _i, _i, _vp, _u32,
+                                      _vp]),
     # the exponent is a host array of bytes, one a bit
     "gl_pow_const": ("pow_const", [_i, _vp, _vp, _i, _vp, _i, _vp, _u32,
                                    _vp]),

@@ -12,10 +12,13 @@ fallback and no switch, as in ``fields/fp.py``:
   kernels behind ``batch_affine_add_fused`` / ``batch_affine_add_dm``: the
   batched affine addition before and after its shared inversion.  Plain
   versions: the array form, over any tower field (G2 runs it on the GPU too).
-* ``batch_inverse``  -> ``csrc/inv_tree.cu``; replaces ``_batch_inverse_dm``.
-  Shared inversion of a batch, one field inversion in all (through
-  ``fp.inv_mod``).  Plain version: ``fp.batch_inverse_tree``; one level of
-  each of its two kernels has its own (``inv_up_plain``, ``inv_down_plain``).
+* ``batch_inverse``  -> ``csrc/inv_tree.cu``; replaces ``_inv_tree_rec`` /
+  ``_batch_inverse_dm``.  Shared inversion of a batch, one field inversion
+  in all, over tiles of ``INV_TILE`` elements: one launch of the tail kernel
+  up to a tile (the tree, the root's inverse, the way down), else up kernel,
+  the inversion of the tiles' products, down kernel.  Plain version:
+  ``fp.batch_inverse_tree``; each of the three kernels has its own
+  (``inv_up_plain``, ``inv_tail_plain``, ``inv_down_plain``).
 
 ``batch_affine_add`` strings pre, inversion and post together; it is what
 ``SWCurveOps.batch_affine_add`` calls.
@@ -29,10 +32,10 @@ row stride per operand.  The kernels exist for curves over the base field
 (``F.K == 1``) at 16, 24 and 48 digits; anything else on a GPU raises.
 
 Each wrapper counts its launches in ``fields.fp.launch_counts`` (the
-inversion's two kernels, ``inv_up`` and ``inv_down``, each under its own
-key).  All are bound by their integer multiply-adds on an H100, except
-``affine_pre`` (bytes);
-``chip_smoke.py`` computes the bounds and ``PERF.md`` holds the times.
+inversion's three kernels each under its own key, ``inv_tree_up``,
+``inv_tree_tail``, ``inv_tree_down``).  All are bound by their integer
+multiply-adds on an H100, except ``affine_pre`` (bytes); ``chip_smoke.py``
+computes the bounds and ``PERF.md`` holds the times.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from ..fields import towers as T
 from ..fields.fp import KERNEL_DIGITS, launch_counts
 from ..ops.limbs import DTYPE, limbs32
 
-INV_RUN = 8   # elements a thread of the inversion kernels walks (>= 2)
+INV_TILE = 512   # elements of a tile of the inversion kernels (csrc's B)
 
 
 def supports(curve) -> bool:
@@ -149,7 +152,7 @@ def _point_shape(x, n: int, nd: int):
 # {kernel: {width: launches}}; ``launches_by_class`` groups them.
 launch_widths = {k: {} for k in ("ec_proj_add", "ec_affine_pre",
                                  "ec_affine_post", "inv_tree_up",
-                                 "inv_tree_down")}
+                                 "inv_tree_tail", "inv_tree_down")}
 
 
 def reset_launch_widths():
@@ -161,17 +164,19 @@ def width_class(key: str, n: int) -> str:
     """The class of a launch of ``key`` on n lanes: for K4 one lane (the
     window fold's additions), 2 to 2^10, 2^10 + 1 to 2^15 (the Fenwick
     steps' 16,376 lanes and the projective tree's upper levels) or wider;
-    for K5 and K6 powers of 8, "2^(e-3)-2^e" above 2^(e-3) and up to 2^e
-    ("1-2^3" up to 8), as K6's recursion takes each level's width down by
-    INV_RUN = 8."""
+    for K5 and K6 one tile of the inversion ("1-2^9" up to ``INV_TILE``
+    lanes: the tail's widths), then octaves, "2^(e-1)-2^e" above 2^(e-1)
+    and up to 2^e."""
     if key == "ec_proj_add":
         if n == 1:
             return "1"
         if n <= 1 << 10:
             return "2-2^10"
         return "2^10-2^15" if n <= 1 << 15 else "over_2^15"
-    e = max(3, -(-(n - 1).bit_length() // 3) * 3)
-    return "1-2^3" if e == 3 else f"2^{e - 3}-2^{e}"
+    if n <= INV_TILE:
+        return f"1-2^{INV_TILE.bit_length() - 1}"
+    e = (n - 1).bit_length()
+    return f"2^{e - 1}-2^{e}"
 
 
 def launches_by_class(key: str) -> dict:
@@ -346,58 +351,64 @@ def batch_inverse_plain(params, a):
     return fpmod.batch_inverse_tree(params, a)
 
 
-def _runs_of(params, x):
-    """[N, nd] -> [ceil(N / INV_RUN), INV_RUN, nd] with zeros replaced by one
-    and the last run filled up with ones, and the mask [runs, INV_RUN] of
-    real non-zero elements."""
-    n, nd = x.shape
-    run = INV_RUN
-    runs = -(-n // run)
+def _nonzero_or_one(params, x):
     one = params.tensor("one_mont", x.device)
-    live = (x != 0).any(-1)
-    v = torch.where(live[:, None], x, one)
-    pad = runs * run - n
-    if pad:
-        v = torch.cat([v, one.expand(pad, nd)])
-        live = torch.cat([live, live.new_zeros(pad)])
-    return v.reshape(runs, run, nd), live.reshape(runs, run)
+    return torch.where((x != 0).any(-1, keepdim=True), x, one)
 
 
 def inv_up_plain(params, x):
-    """One level of the up sweep as array code: (prefix products inside each
-    run of ``INV_RUN`` consecutive elements [N, nd], the run products
-    [ceil(N / INV_RUN), nd]); a zero element counts as one."""
+    """What the up kernel computes, as array code: (the trees of the tiles
+    of ``INV_TILE`` consecutive elements of ``x`` [N, nd], N > 0, as digits
+    [tiles, 2 INV_TILE - 1, nd], the tiles' products [tiles, nd]).  A tree
+    holds its levels one after the other, the leaves first (zero past N);
+    node i of a level of width w/2 is node i times node i + w/2 of the
+    level below, a zero leaf counting as one."""
     n, nd = x.shape
-    v, _ = _runs_of(params, x)
-    cols = [v[:, 0]]
-    for j in range(1, INV_RUN):
-        cols.append(fpmod.mont_mul(params, cols[-1], v[:, j]))
-    return torch.stack(cols, dim=1).reshape(-1, nd)[:n], cols[-1]
+    tiles = -(-n // INV_TILE)
+    level = torch.cat([x, x.new_zeros(tiles * INV_TILE - n, nd)]).reshape(
+        tiles, INV_TILE, nd)
+    levels = [level]
+    level = _nonzero_or_one(params, level)
+    while level.shape[1] > 1:
+        h = level.shape[1] // 2
+        level = fpmod.mont_mul_plain(params, level[:, :h], level[:, h:])
+        levels.append(level)
+    return torch.cat(levels, dim=1), level[:, 0]
 
 
-def inv_down_plain(params, x, pre, rinv):
-    """One level of the down sweep as array code: the inverses of ``x``
-    [N, nd] from the prefix products ``pre`` of ``inv_up_plain`` and the
-    inverses ``rinv`` of its run products; zero where x is zero."""
-    n, nd = x.shape
-    v, live = _runs_of(params, x)
-    pv, _ = _runs_of(params, pre)
-    r = rinv
-    out = [None] * INV_RUN
-    for j in range(INV_RUN - 1, 0, -1):
-        out[j] = fpmod.mont_mul(params, r, pv[:, j - 1])
-        r = fpmod.mont_mul(params, r, v[:, j])
-    out[0] = r
-    res = torch.stack(out, dim=1).masked_fill(~live[:, :, None], 0)
-    return res.reshape(-1, nd)[:n]
+def inv_tail_plain(params, x):
+    """What the tail kernel computes: the inverses of ``x`` [N, nd],
+    N <= ``INV_TILE``, zero where x is zero -- ``fp.batch_inverse_tree``."""
+    return fpmod.batch_inverse_tree(params, x)
 
 
-def unpack_limbs(pre):
-    """The up kernel's prefix products, kept as packed 32-bit limbs
-    [N, nd / 2] int32, as digits [N, nd]."""
-    w = pre.to(DTYPE) & 0xFFFFFFFF
-    return torch.stack([w & 0xFFFF, w >> 16], dim=-1).reshape(
-        pre.shape[0], -1)
+def inv_down_plain(params, tree, rinv, n: int):
+    """What the down kernel computes, as array code: the inverses of the n
+    elements whose trees ``inv_up_plain`` made (``tree``, digits), from the
+    inverses ``rinv`` [tiles, nd] of the tiles' products; zero where an
+    element is zero.  The children (a, b) of a node with inverse r get r b
+    and r a."""
+    inv = rinv[:, None]
+    hi = tree.shape[1] - 1
+    w = 2
+    while w <= INV_TILE:
+        lo = hi - w
+        a, b = tree[:, lo:lo + w // 2], tree[:, lo + w // 2:hi]
+        inv = torch.cat([
+            fpmod.mont_mul_plain(params, inv, _nonzero_or_one(params, b)),
+            fpmod.mont_mul_plain(params, inv, _nonzero_or_one(params, a))],
+            dim=1)
+        hi, w = lo, 2 * w
+    leaves = tree[:, :INV_TILE]
+    inv = inv.masked_fill(~(leaves != 0).any(-1, keepdim=True), 0)
+    return inv.reshape(-1, tree.shape[-1])[:n]
+
+
+def unpack_limbs(words):
+    """Packed 32-bit limbs [..., nd / 2] int32 (the up kernel's trees) as
+    digits [..., nd]."""
+    w = words.to(DTYPE) & 0xFFFFFFFF
+    return torch.stack([w & 0xFFFF, w >> 16], dim=-1).flatten(-2)
 
 
 def _inv_operand(params, a, what: str):
@@ -410,54 +421,84 @@ def _inv_operand(params, a, what: str):
     return x
 
 
+def _inv_consts(params) -> int:
+    """Host address of [p | R^3 | R] mod p as 32-bit limbs, the inversion
+    kernels' constants, made once and kept on ``params``."""
+    hit = params.__dict__.get("_inv_tree_consts")
+    if hit is None:
+        hit = np.ascontiguousarray(np.concatenate([
+            params.modulus_limbs32.astype(np.uint32),
+            limbs32(params.r3_digits), limbs32(params.one_mont)]))
+        params.__dict__["_inv_tree_consts"] = hit
+    return hit.ctypes.data
+
+
+def _inv_launch(params, name, key, n, *ptrs, stream):
+    rc = fpmod._kernel(name)(params.n_digits, *ptrs, n, INV_TILE,
+                             _inv_consts(params), params.inv32, stream)
+    _launched(rc, name[3:], key, n)
+
+
 def inv_up_cuda(params, a):
-    """Launch the up-sweep kernel on a CUDA batch [N, nd], N >= 1: (prefix
-    products as packed limbs [N, nd / 2] int32, run products
-    [ceil(N / INV_RUN), nd])."""
+    """Launch the up kernel on a CUDA batch [N, nd], N > ``INV_TILE``:
+    (the tiles' trees as packed limbs [tiles, 2 INV_TILE - 1, nd / 2]
+    int32, the tiles' products [tiles, nd])."""
     x = _inv_operand(params, a, "inv_up")
     n, nd = x.shape
-    pre = torch.empty((n, nd // 2), dtype=torch.int32, device=x.device)
-    roots = torch.empty((-(-n // INV_RUN), nd), dtype=DTYPE, device=x.device)
-    rc = fpmod._kernel("gl_inv_tree_up")(
-        nd, x.data_ptr(), pre.data_ptr(), roots.data_ptr(), n, INV_RUN,
-        params.kernel_consts.ctypes.data, params.inv32,
-        fpmod._raw_stream(x))
-    _launched(rc, "inv_up", "inv_tree_up", n)
-    return pre, roots
+    tiles = -(-n // INV_TILE)
+    tree = torch.empty((tiles, 2 * INV_TILE - 1, nd // 2), dtype=torch.int32,
+                       device=x.device)
+    roots = torch.empty((tiles, nd), dtype=DTYPE, device=x.device)
+    _inv_launch(params, "gl_inv_tree_up", "inv_tree_up", n, x.data_ptr(),
+                tree.data_ptr(), roots.data_ptr(),
+                stream=fpmod._raw_stream(x))
+    return tree, roots
 
 
-def inv_down_cuda(params, a, pre, rinv):
-    """Launch the down-sweep kernel: the inverses of the CUDA batch ``a``
-    from ``pre`` of ``inv_up_cuda`` and the inverses ``rinv`` of its run
-    products."""
-    x = _inv_operand(params, a, "inv_down")
-    rinv = _inv_operand(params, rinv, "inv_down")
-    n, nd = x.shape
-    if pre.shape != (n, nd // 2) or pre.dtype != torch.int32 \
-            or not pre.is_contiguous() or rinv.shape[0] != -(-n // INV_RUN):
-        raise ValueError("inv_down: pre and rinv are not those of inv_up on "
-                         "this batch")
-    _same_device([x, pre, rinv], "inv_down")
+def inv_tail_cuda(params, a):
+    """Launch the tail kernel on a CUDA batch [N, nd], 0 < N <=
+    ``INV_TILE``: the inverses, zero where an element is zero."""
+    x = _inv_operand(params, a, "inv_tail")
+    n = x.shape[0]
+    if not 0 < n <= INV_TILE:
+        raise ValueError(f"inv_tail: takes 1 to {INV_TILE} elements, not {n}")
     out = torch.empty_like(x)
-    rc = fpmod._kernel("gl_inv_tree_down")(
-        nd, x.data_ptr(), pre.data_ptr(), rinv.data_ptr(), out.data_ptr(), n,
-        INV_RUN, params.kernel_consts.ctypes.data, params.inv32,
-        fpmod._raw_stream(x))
-    _launched(rc, "inv_down", "inv_tree_down", n)
+    _inv_launch(params, "gl_inv_tree_tail", "inv_tree_tail", n, x.data_ptr(),
+                out.data_ptr(), stream=fpmod._raw_stream(x))
+    return out
+
+
+def inv_down_cuda(params, tree, rinv, n: int):
+    """Launch the down kernel: the inverses of the n elements whose trees
+    ``inv_up_cuda`` made, from the inverses ``rinv`` of their products."""
+    rinv = _inv_operand(params, rinv, "inv_down")
+    nd = params.n_digits
+    tiles = -(-n // INV_TILE)
+    if tree.shape != (tiles, 2 * INV_TILE - 1, nd // 2) \
+            or tree.dtype != torch.int32 or not tree.is_contiguous() \
+            or rinv.shape[0] != tiles:
+        raise ValueError("inv_down: tree and rinv are not those of inv_up on "
+                         f"{n} elements")
+    _same_device([tree, rinv], "inv_down")
+    out = torch.empty((n, nd), dtype=DTYPE, device=rinv.device)
+    _inv_launch(params, "gl_inv_tree_down", "inv_tree_down", n,
+                tree.data_ptr(), rinv.data_ptr(), out.data_ptr(),
+                stream=fpmod._raw_stream(rinv))
     return out
 
 
 def batch_inverse_cuda(params, a):
-    """The shared inversion of a CUDA batch [N, nd] by the two kernels: up
-    sweep, recursion over the run products (the last one through
-    ``fp.inv_mod``), down sweep."""
+    """The shared inversion of a CUDA batch [N, nd] by the three kernels:
+    the tail alone up to ``INV_TILE`` elements, else up, the inversion of
+    the tiles' products (by the same means), down."""
     x = _inv_operand(params, a, "batch_inverse")
-    if x.shape[0] == 0:
+    n = x.shape[0]
+    if n == 0:
         return torch.empty_like(x)
-    if x.shape[0] == 1:
-        return fpmod.inv_mod(params, x)
-    pre, roots = inv_up_cuda(params, x)
-    return inv_down_cuda(params, x, pre, batch_inverse_cuda(params, roots))
+    if n <= INV_TILE:
+        return inv_tail_cuda(params, x)
+    tree, roots = inv_up_cuda(params, x)
+    return inv_down_cuda(params, tree, batch_inverse_cuda(params, roots), n)
 
 
 def batch_inverse(params, a):

@@ -6,7 +6,10 @@ runs its plain PyTorch version.
   digit in X, Y and Z;
 * the batched affine addition (pre, shared inversion, post) against JAX
   ``to_affine(add(P, Q))`` and the infinity flag;
-* the shared inversion against python's ``pow(v, -1, p)``;
+* the shared inversion against python's ``pow(v, -1, p)`` and, at the
+  edges of the inversion kernels' tiles, against the JAX package's
+  ``fp.batch_inverse_tree``; the plain versions of its three kernels (up,
+  tail, down) against python ints;
 
 on BLS12-377 G1 with one lane of every special kind, and the same lanes on
 MNT4-753 G1 against the port's python-int curve.  Under ``slow``: the plain
@@ -156,34 +159,80 @@ def test_batch_inverse_matches_pow(field, n):
     assert got == [pow(v, -1, p) if v else 0 for v in vals]
 
 
-@pytest.mark.parametrize("field,n", [
-    ("BLS12_377_FQ", 2), ("BLS12_377_FQ", 21), ("BLS12_377_FR", 16),
-    ("MNT4753_FQ", 11)])
-def test_inversion_levels_match_python_ints(field, n):
-    """One level of the up sweep (prefix products inside each run, run
-    products) and of the down sweep (inverses from the run products'
-    inverses), as the two inversion kernels compute them; zeros count as one
-    going up and come out as zero."""
-    P = getattr(TP, field)
-    p, run = P.modulus, EK.INV_RUN
-    rng = np.random.default_rng(100 + n)
-    vals = [int.from_bytes(rng.bytes(100), "little") % p for _ in range(n)]
-    vals[1] = 0
-    vals[n - 1] = 0
+# the tile edges of the inversion kernels: one tile of INV_TILE elements and
+# the next, on a 16-digit field (BLS12-377 Fr), so that the cases stay cheap
+B = EK.INV_TILE
+TILE_EDGES = [1, 2, B - 1, B, B + 1, 2 * B + 3]
+
+
+def tile_edge_values(n):
+    """n seeded values below BLS12-377 Fr's modulus, zero on the first and
+    the last element of every tile of three or more and, past two tiles, on
+    the whole second tile."""
+    p = TP.BLS12_377_FR.modulus
+    rng = np.random.default_rng(200 + n)
+    vals = [int.from_bytes(rng.bytes(40), "little") % p for _ in range(n)]
+    for i in range(0, n, B):
+        if min(i + B, n) - i >= 3:
+            vals[i] = vals[min(i + B, n) - 1] = 0
+    if n > 2 * B:
+        vals[B:2 * B] = [0] * B
+    return vals
+
+
+@pytest.mark.parametrize("n", TILE_EDGES)
+def test_batch_inverse_at_tile_edges(n):
+    """The shared inversion at the tile edges against python's pow and the
+    JAX package's fp.batch_inverse_tree."""
+    from gingerlib_tpu import params as JP
+    from gingerlib_tpu.fields import fp as jfp
+    P = TP.BLS12_377_FR
+    p = P.modulus
+    vals = tile_edge_values(n)
     x = torch.from_numpy(tfp.fp_from_ints(P, vals))
-    pre, roots = EK.inv_up_plain(P, x)
-    want_pre, want_roots = [], []
-    for i, v in enumerate(vals):
-        acc = 1 if i % run == 0 else want_pre[-1]
-        want_pre.append(acc * (v or 1) % p)
-        if i % run == run - 1 or i == n - 1:
-            want_roots.append(want_pre[-1])
-    assert tfp.fp_to_ints(P, pre) == want_pre
-    assert tfp.fp_to_ints(P, roots) == want_roots
-    rinv = torch.from_numpy(tfp.fp_from_ints(
-        P, [pow(v, -1, p) for v in want_roots]))
-    got = tfp.fp_to_ints(P, EK.inv_down_plain(P, x, pre, rinv))
-    assert got == [pow(v, -1, p) if v else 0 for v in vals]
+    got = EK.batch_inverse(P, x)
+    assert tfp.fp_to_ints(P, got) == [pow(v, -1, p) if v else 0
+                                      for v in vals]
+    jf = JP.BLS12_377_FR
+    want = jax.jit(lambda a: jfp.batch_inverse_tree(jf, a))(to_jax(x))
+    assert np.array_equal(got.numpy(), np.asarray(want).astype(np.int64))
+
+
+@pytest.mark.parametrize("n", TILE_EDGES)
+def test_inversion_kernels_plain_versions_match_python_ints(n):
+    """What the up, tail and down kernels compute, as their plain versions:
+    up's trees level by level (node i of a level = node i times node i + w/2
+    below it, a zero counting as one) and the tiles' products; the tail's
+    inverses of the products; down's inverses; zeros come out as zero."""
+    P = TP.BLS12_377_FR
+    p = P.modulus
+    vals = tile_edge_values(n)
+    x = torch.from_numpy(tfp.fp_from_ints(P, vals))
+    want_inv = [pow(v, -1, p) if v else 0 for v in vals]
+    if n <= B:
+        got = EK.inv_tail_plain(P, x)
+        assert tfp.fp_to_ints(P, got) == want_inv
+        return
+    tree, roots = EK.inv_up_plain(P, x)
+    tiles = -(-n // B)
+    assert tree.shape == (tiles, 2 * B - 1, P.n_digits)
+    padded = vals + [0] * (tiles * B - n)
+    for t in range(tiles):
+        level = padded[t * B:(t + 1) * B]
+        rows = list(level)
+        level = [v or 1 for v in level]
+        while len(level) > 1:
+            h = len(level) // 2
+            level = [a * b % p for a, b in zip(level[:h], level[h:])]
+            rows += level
+        # Montgomery forms; a zero leaf stays zero, its parent counts one
+        assert tfp.fp_to_ints(P, tree[t]) == rows, t
+        assert tfp.fp_to_ints(P, roots[t:t + 1]) == [level[0]], t
+    rinv = EK.inv_tail_plain(P, roots)
+    assert tfp.fp_to_ints(P, rinv) == [
+        pow(v, -1, p) for v in tfp.fp_to_ints(P, roots)]
+    got = EK.inv_down_plain(P, tree, rinv, n)
+    assert tfp.fp_to_ints(P, got) == want_inv
 
 
 def test_unpack_limbs_splits_32_bit_words_into_digits():
@@ -197,25 +246,28 @@ def test_unpack_limbs_splits_32_bit_words_into_digits():
 
 def test_launch_widths_by_class():
     """The classes of widths chip_smoke.py reports the curve kernels'
-    launches in: K4's four, powers of 8 for K5 and K6."""
+    launches in: K4's four; for K5 and K6 one tile of the inversion, then
+    octaves."""
     assert [EK.width_class("ec_proj_add", n) for n in
             (1, 2, 1 << 10, (1 << 10) + 1, 1 << 15, (1 << 15) + 1)] == [
         "1", "2-2^10", "2-2^10", "2^10-2^15", "2^10-2^15", "over_2^15"]
+    assert [EK.width_class("inv_tree_tail", n) for n in (1, 2, 64, B)] == [
+        "1-2^9"] * 4
     assert [EK.width_class("inv_tree_up", n) for n in
-            (2, 8, 9, 64, 65, 1 << 18, (1 << 18) + 1)] == [
-        "1-2^3", "1-2^3", "2^3-2^6", "2^3-2^6", "2^6-2^9", "2^15-2^18",
-        "2^18-2^21"]
-    before = tfp.launch_counts["inv_tree_up"]
+            (B + 1, 2 * B, 2 * B + 1, 1 << 15, (1 << 15) + 1, 1 << 19)] == [
+        "2^9-2^10", "2^9-2^10", "2^10-2^11", "2^14-2^15", "2^15-2^16",
+        "2^18-2^19"]
+    assert EK.width_class("ec_affine_pre", 1 << 16) == "2^15-2^16"
+    before = tfp.launch_counts["inv_tree_tail"]
     EK.reset_launch_widths()
     try:
         for n in (8, 4, 64, 8):
-            EK._launched(0, "inv_up", "inv_tree_up", n)
-        assert EK.launch_widths["inv_tree_up"] == {8: 2, 4: 1, 64: 1}
-        assert EK.launches_by_class("inv_tree_up") == {"1-2^3": 3,
-                                                       "2^3-2^6": 1}
+            EK._launched(0, "inv_tail", "inv_tree_tail", n)
+        assert EK.launch_widths["inv_tree_tail"] == {8: 2, 4: 1, 64: 1}
+        assert EK.launches_by_class("inv_tree_tail") == {"1-2^9": 4}
     finally:
         EK.reset_launch_widths()
-        tfp.launch_counts["inv_tree_up"] = before
+        tfp.launch_counts["inv_tree_tail"] = before
 
 
 def test_supports_base_field_curves_only():
@@ -225,7 +277,8 @@ def test_supports_base_field_curves_only():
 
 
 @pytest.mark.parametrize("wrapper", ["proj_add", "affine_pre", "affine_post",
-                                     "batch_inverse", "inv_up", "inv_down"])
+                                     "batch_inverse", "inv_up", "inv_tail",
+                                     "inv_down"])
 def test_kernel_wrappers_refuse_cpu_tensors(bls, wrapper):
     """No fallback: the launching half of a wrapper raises on a tensor that
     is not on a GPU instead of taking the plain version."""
@@ -240,9 +293,10 @@ def test_kernel_wrappers_refuse_cpu_tensors(bls, wrapper):
             tg, x1, y1, x1, y1, x2, y2, inf1, inf2, inf1),
         "batch_inverse": lambda: EK.batch_inverse_cuda(tg.fp, x1[:, 0]),
         "inv_up": lambda: EK.inv_up_cuda(tg.fp, x1[:, 0]),
+        "inv_tail": lambda: EK.inv_tail_cuda(tg.fp, x1[:, 0]),
         "inv_down": lambda: EK.inv_down_cuda(
-            tg.fp, x1[:, 0], torch.zeros(N, 12, dtype=torch.int32),
-            x1[:2, 0]),
+            tg.fp, torch.zeros(1, 2 * B - 1, 12, dtype=torch.int32),
+            x1[:1, 0], N),
     }
     with pytest.raises(ValueError, match="CUDA"):
         calls[wrapper]()

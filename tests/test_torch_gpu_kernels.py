@@ -55,21 +55,71 @@ def test_batch_affine_add_matches_plain(curve, points):
         and torch.equal(ginf, winf)
 
 
-def test_inversion_levels_match_plain(curve, points):
-    """One level of the up and of the down kernel, on a ragged batch with
-    zeros, against their array forms."""
-    fp_params = curve.fp
-    x = points[1][0][:N - 3, 0].clone()
-    x[1] = x[8] = x[N - 4] = 0
-    pre_packed, roots = EK.inv_up_cuda(fp_params, x)
-    pre = EK.unpack_limbs(pre_packed)
-    want_pre, want_roots = EK.inv_up_plain(fp_params, x)
-    assert torch.equal(pre, want_pre) and torch.equal(roots, want_roots)
-    rinv = EK.batch_inverse(fp_params, roots)
-    assert torch.equal(EK.inv_down_cuda(fp_params, x, pre_packed, rinv),
-                       EK.inv_down_plain(fp_params, x, pre, rinv))
-    assert torch.equal(EK.batch_inverse(fp_params, x),
-                       EK.batch_inverse_plain(fp_params, x))
+B = EK.INV_TILE
+
+
+@pytest.mark.parametrize("n", [1, 2, B - 1, B, B + 1, 2 * B + 3])
+def test_inversion_kernels_match_plain_at_tile_edges(curve, n):
+    """The tail kernel (up to a tile), or up and down around the inversion
+    of the tiles' products, against their plain versions and python's pow:
+    zeros on the first and last element of every tile of three or more and,
+    past two tiles, on the whole second tile.  A batch of up to a tile takes
+    one launch, one of up to B^2 three, and neither the inverse kernel."""
+    from gingerlib_tpu_torch.fields import fp
+    F = curve.fp
+    vals = rand_below(F.modulus, n, seed=n)
+    for i in range(0, n, B):
+        if min(i + B, n) - i >= 3:
+            vals[i] = vals[min(i + B, n) - 1] = 0
+    if n > 2 * B:
+        vals[B:2 * B] = [0] * B
+    x = torch.from_numpy(fp.fp_from_ints(F, vals)).to(curve.device)
+    fp.reset_launch_counts()
+    got = EK.batch_inverse(F, x)
+    launched = {k: v for k, v in fp.launch_counts.items() if v}
+    if n <= B:
+        assert launched == {"inv_tree_tail": 1}
+        assert torch.equal(EK.inv_tail_cuda(F, x), EK.inv_tail_plain(F, x))
+    else:
+        assert launched == {"inv_tree_up": 1, "inv_tree_tail": 1,
+                            "inv_tree_down": 1}
+        tree, roots = EK.inv_up_cuda(F, x)
+        want_tree, want_roots = EK.inv_up_plain(F, x)
+        assert torch.equal(EK.unpack_limbs(tree), want_tree)
+        assert torch.equal(roots, want_roots)
+        rinv = EK.inv_tail_cuda(F, roots)
+        assert torch.equal(rinv, EK.inv_tail_plain(F, roots))
+        assert torch.equal(EK.inv_down_cuda(F, tree, rinv, n),
+                           EK.inv_down_plain(F, want_tree, rinv, n))
+    assert torch.equal(got, EK.batch_inverse_plain(F, x))
+    assert fp.fp_to_ints(F, got) == [pow(v, -1, F.modulus) if v else 0
+                                     for v in vals]
+
+
+@pytest.mark.parametrize("form", ["dense", "strided", "one_lane",
+                                  "expanded"])
+def test_affine_pre_and_post_match_plain(curve, points, form):
+    """K5's two kernels on the special lanes, with operands as the tree
+    levels pass them (even and odd halves), one lane, and a row expanded
+    over the batch."""
+    a_pt, b_pt = affine_pairs(curve, points[1])
+    (x1, y1), inf1 = a_pt
+    (x2, y2), inf2 = b_pt
+    ops = {"dense": (x1, y1, x2, y2, inf1, inf2),
+           "strided": (x1[0::2], y1[0::2], x2[1::2], y2[1::2], inf1[0::2],
+                       inf2[1::2]),
+           "one_lane": (x1[:1], y1[:1], x2[:1], y2[:1], inf1[:1], inf2[:1]),
+           "expanded": (x1, y1, x2[9:10].expand_as(x2),
+                        y2[9:10].expand_as(y2), inf1, inf2)}[form]
+    pre = EK.affine_pre(curve, *ops)
+    want = EK.affine_pre_plain(curve, *ops)
+    assert all(torch.equal(g, w) for g, w in zip(pre, want))
+    num, den, inf3 = want
+    dinv = EK.batch_inverse_plain(
+        curve.fp, den.reshape(den.shape[0], -1)).reshape(den.shape)
+    args = (num, dinv, *ops, inf3)
+    assert all(torch.equal(g, w) for g, w in zip(
+        EK.affine_post(curve, *args), EK.affine_post_plain(curve, *args)))
 
 
 def test_msm_hybrid_matches_naive(curve, points):

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Hold this tree's field, projective-addition, inverse and Poseidon kernels
-against another checkout's, on one NVIDIA GPU, in turns.
+"""Hold this tree's field, curve, inverse and Poseidon kernels against
+another checkout's, on one NVIDIA GPU, in turns.
 
-    python3 tools/kernel_ab.py --other DIR [--sections k1,k4,k2,end_to_end]
+    python3 tools/kernel_ab.py --other DIR \
+        [--sections k1,k4,k2,k5k6,end_to_end]
 
 DIR is a checkout of another commit (e.g. ``git archive <commit> | tar -x -C
 DIR``); only its ``gingerlib_tpu_torch/csrc`` is read.  Its ``mont_mul.cu``,
-``fp_addsub.cu``, ``ec_add.cu``, ``inv_bea.cu`` and ``poseidon.cu`` are
-built with nvcc beside this tree's libraries and swapped into this tree's
-wrappers (``fields/fp.py`` looks its C entry points up by name), so both
-run the same Python.  The kernels' C interface is the same in both, except
-that an inverse kernel from before the divsteps inverse takes no -p^-1 mod
-2^32 (it is dropped for it).  It prints one JSON line a section:
+``fp_addsub.cu``, ``ec_add.cu``, ``inv_bea.cu`` and ``poseidon.cu`` (and for
+``k5k6`` its ``ec_affine.cu`` and ``inv_tree.cu``) are built with nvcc
+beside this tree's libraries and swapped into this tree's wrappers
+(``fields/fp.py`` looks its C entry points up by name), so both run the
+same Python.  The kernels' C interface is the same in both, except that an
+inverse kernel from before the divsteps inverse takes no -p^-1 mod 2^32 (it
+is dropped for it) and the inversion kernels from before the tiled tree
+(driven as described under ``k5k6``).  It prints one JSON line a section:
 
 * ``exact``: the two trees' outputs at every shape below are equal (integer
   arithmetic: tolerance 0), and the same for a one-lane doubling;
@@ -30,6 +33,12 @@ that an inverse kernel from before the divsteps inverse takes no -p^-1 mod
   calls it) and at 2^15 rows, of the Poseidon kernel on 2^15 MNT4-753
   sponges, and host-clock seconds of a 2^16-leaf MNT4-753 Poseidon Merkle
   tree (both trees' roots must be equal);
+* ``k5k6``: device time of the shared inversion (``batch_inverse``), of
+  the batched affine addition (pre, inversion, post) and of its pre and
+  post kernels alone, on MNT4-753 G1 at 8, 64, 4096, 2^15, 2^18 and 2^19
+  lanes, every 97th element zero and every 61st lane at infinity; the
+  other tree's affine kernels and inversion kernels (in a tree from before
+  the tiled inversion, its runs of 8 driven as its wrapper drove them);
 * ``end_to_end``: host-clock seconds of a 2^10-
   constraint MNT4-753 Groth16 setup and prove (checked against the
   python-int oracle), of the 2^16 rung's G1 fixed-base loop (768 steps over
@@ -64,8 +73,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True,
                     help="checkout of the commit to compare with")
-    ap.add_argument("--sections", default="k1,k4,k2,end_to_end",
-                    help="comma-separated subset of k1, k4, k2, end_to_end")
+    ap.add_argument("--sections", default="k1,k4,k2,k5k6,end_to_end",
+                    help="comma-separated subset of k1, k4, k2, k5k6, "
+                         "end_to_end")
     args = ap.parse_args()
     sections = set(args.sections.split(","))
     if not torch.cuda.is_available():
@@ -256,10 +266,124 @@ def main():
         if not torch.equal(roots["this"], roots["other"]):
             raise AssertionError("the Merkle roots differ")
         checked.append("merkle 2^16 root")
+    k5k6 = {}
+    if "k5k6" in sections:
+        # K5 keeps its C interface; K6's is this tree's three kernels, or,
+        # in a tree from before them, the run-of-8 up and down kernels with
+        # the last root through the inverse kernel, driven here as that
+        # tree's wrapper drove them
+        k56 = {"this": {}, "other": {}}
+        other56 = cuda_lib.build(other_csrc, os.path.join(cuda_lib.BUILD,
+                                                          "other"),
+                                 ["ec_affine", "inv_tree"])
+        for name in ("gl_ec_affine_pre", "gl_ec_affine_post"):
+            k56["this"][name] = cuda_lib.function(name)
+            k56["other"].update(cuda_lib.load(other56["ec_affine"], (name,)))
+        with open(os.path.join(other_csrc, "inv_tree.cu")) as f:
+            tiled = "gl_inv_tree_tail" in f.read()
+        tree_fns = ("gl_inv_tree_up", "gl_inv_tree_tail", "gl_inv_tree_down")
+        for name in tree_fns:
+            k56["this"][name] = cuda_lib.function(name)
+        if tiled:
+            k56["other"].update(cuda_lib.load(other56["inv_tree"], tree_fns))
+        else:
+            lib = ctypes.CDLL(other56["inv_tree"])
+            vp, i, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+            run_up, run_down = lib.gl_inv_tree_up, lib.gl_inv_tree_down
+            run_up.argtypes = [i, vp, vp, vp, i, i, vp, u32, vp]
+            run_down.argtypes = [i, vp, vp, vp, vp, i, i, vp, u32, vp]
+            run_up.restype = run_down.restype = i
+
+        def run_inverse(x):
+            """The shared inversion of a tree from before the tiles: runs of
+            8 up, recursion, runs of 8 down, one root through fp.inv_mod."""
+            n = x.shape[0]
+            if n == 1:
+                return fp.inv_mod(fq, x)
+            stream = torch.cuda.current_stream().cuda_stream
+            consts = fq.kernel_consts.ctypes.data
+            pre = torch.empty((n, nd // 2), dtype=torch.int32, device=dev)
+            roots = torch.empty((-(-n // 8), nd), dtype=torch.int64,
+                                device=dev)
+            out = torch.empty_like(x)
+            if run_up(nd, x.data_ptr(), pre.data_ptr(), roots.data_ptr(), n,
+                      8, consts, fq.inv32, stream):
+                raise RuntimeError("launch failed")
+            rinv = run_inverse(roots)
+            if run_down(nd, x.data_ptr(), pre.data_ptr(), rinv.data_ptr(),
+                        out.data_ptr(), n, 8, consts, fq.inv32, stream):
+                raise RuntimeError("launch failed")
+            return out
+
+        def inverse(tree, x):
+            fp.use_kernels(k56[tree])
+            if tree == "other" and not tiled:
+                return run_inverse(x)
+            return ec_kernels.batch_inverse_cuda(fq, x)
+
+        def affine_add(tree, a_pt, b_pt):
+            fp.use_kernels(k56[tree])
+            (x1, y1), inf1 = a_pt
+            (x2, y2), inf2 = b_pt
+            num, den, inf3 = ec_kernels.affine_pre_cuda(g1, x1, y1, x2, y2,
+                                                        inf1, inf2)
+            dinv = inverse(tree, den.reshape(-1, nd)).reshape(den.shape)
+            return (*ec_kernels.affine_post_cuda(
+                g1, num, dinv, x1, y1, x2, y2, inf1, inf2, inf3), inf3)
+
+        def both(fn):
+            res = {tree: fn(tree) for tree in ("other", "this")}
+            fp.use_kernels(k56["this"])
+            return res
+
+        pts = g1.to_affine(multiples(1 << 18, 7))
+        for lanes in (8, 64, 4096, 1 << 15, 1 << 18, 1 << 19):
+            reps = 50 if lanes <= 4096 else 10
+            x = elems(lanes)
+            x[::97] = 0
+            same(f"batch_inverse [{lanes}]",
+                 both(lambda tree: inverse(tree, x)))
+            copies = -(-lanes // (1 << 18))
+            ax, ay = (torch.cat([c] * copies)[:lanes] for c in pts)
+            inf = torch.zeros(lanes, dtype=torch.bool, device=dev)
+            inf[1::61] = True
+            a_pt = ((ax, ay), inf)
+            b_pt = ((ax.roll(1, 0), ay.roll(1, 0)), inf.roll(3, 0))
+            same(f"batch_affine_add [{lanes}]",
+                 both(lambda tree: affine_add(tree, a_pt, b_pt)))
+            checked += [f"batch_inverse [{lanes}]",
+                        f"batch_affine_add [{lanes}]"]
+            (x1, y1), inf1 = a_pt
+            (x2, y2), inf2 = b_pt
+            num, den, inf3 = ec_kernels.affine_pre_cuda(g1, x1, y1, x2, y2,
+                                                        inf1, inf2)
+            dinv = ec_kernels.batch_inverse_cuda(
+                fq, den.reshape(-1, nd)).reshape(den.shape)
+            post_args = (num, dinv, x1, y1, x2, y2, inf1, inf2, inf3)
+
+            def kernel_ms(tree, fn):
+                fp.use_kernels(k56[tree])
+                return graph_ms(fn, reps)
+
+            k5k6[lanes] = {
+                "batch_inverse": in_turns(lambda tree: graph_ms(
+                    lambda: inverse(tree, x), reps)),
+                "batch_affine_add": in_turns(lambda tree: graph_ms(
+                    lambda: affine_add(tree, a_pt, b_pt), reps)),
+                "affine_pre": in_turns(lambda tree: kernel_ms(
+                    tree, lambda: ec_kernels.affine_pre_cuda(
+                        g1, x1, y1, x2, y2, inf1, inf2))),
+                "affine_post": in_turns(lambda tree: kernel_ms(
+                    tree, lambda: ec_kernels.affine_post_cuda(
+                        g1, *post_args)))}
+            del x, ax, ay, a_pt, b_pt, x1, y1, x2, y2, num, den, dinv, \
+                post_args
+        fp.use_kernels(k56["this"])
     print("exact " + json.dumps(checked), flush=True)
     print("k1 " + json.dumps(k1), flush=True)
     print("k4 " + json.dumps(k4), flush=True)
     print("k2 " + json.dumps(k2), flush=True)
+    print("k5k6 " + json.dumps(k5k6), flush=True)
 
     if "end_to_end" in sections:
         from gingerlib_tpu_torch.circuits import benchmark_circuit
