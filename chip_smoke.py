@@ -20,18 +20,25 @@ What it does, in order (any failure raises, so the exit code is non-zero):
    the inversion's three kernels: up, tail and down) on real curve points
    with every special lane mixed in, at 2^15, 2^18 and 2^19 lanes, the
    inversion also at the edges of its tiles, and the RNS kernels (the RNS multiply at
-   MNT4-753 Fq [1] and [2^16] and BLS12-377 Fq [2^12], six chained
-   squarings against python's pow, times at 2^16 and 2^20 lanes beside the
-   positional multiply; the RNS affine addition's pre and post kernels and
-   its K7 tree at 2^18 and 2^16 MNT4-753 G1 lanes, against their plain
-   versions and the positional addition);
+   MNT4-753 Fq [1] and [2^16] and BLS12-377 Fq [2^12], around its tile of 16
+   (1, 15, 16, 17, 127, 128, 129 elements) and at 2^15, 2^18 and 2^19, with
+   rows of every residue at m_i - 1, strided and broadcast operands and the
+   inversion tree's paired down-sweep, six chained squarings against
+   python's pow, times at 1, 2^16 and 2^20 lanes beside the positional
+   multiply; the RNS affine addition's pre and post kernels and its K7 tree
+   at the same widths of MNT4-753 G1 lanes and at 2^16, against their plain
+   versions and the positional addition; each with its bound beside the
+   bound as PR 4-8 counted it, the extensions on the CUDA cores);
 3. holds the Pippenger MSMs (``msm_hybrid`` on G1 at two cutoffs,
    ``msm_affine`` on G2, ``msm_affine`` over RNS G1) against ``msm_naive``
    at 2^12 points, and times one 2^16-point MSM of each (``msm`` line; G1
    at three cutoffs); drives the RNS path -- ``msm_affine`` over MNT4-753
-   G1 built with ``ec_rns=True`` at 2^16 points, launches counted, against
-   ``msm_hybrid`` and the closed form, the positional ``msm_affine`` beside
-   it (``ec_rns`` line); then the pow
+   G1 built with ``ec_rns=True`` at 2^16 points, launches counted (K7's
+   must be 9,909: each addition's tree levels up and down and its root)
+   and by width, against ``msm_hybrid`` and the closed form, the
+   positional ``msm_affine`` beside it (``ec_rns`` line), and K7, pre and
+   post at the widths it launched them (``ec_rns_by_width`` line: time,
+   bound and loss by class of widths); then the pow
    chain at [1, 48] and [4096, 48] (Legendre and square-root exponents of
    MNT4-753 Fq and Fr, a short one) and the Poseidon permutation on the zero
    state and on 2^15 seeded sponges with special lanes, both parameter sets;
@@ -78,6 +85,10 @@ import torch
 TOXIC = dict(alpha=123, beta=456, gamma=789, delta=1011, t=314159)
 R_BLIND, S_BLIND = 31337, 71717
 NUM_INPUTS = 4
+# K7 launches of msm_affine over MNT4-753 G1 at 2^16 points (c = 11, 69
+# windows in 9 chunks: 405 additions, sum L = 4,752 tree levels): L up, one
+# at the root, L down, one launch each
+RNS_PATH_K7_LAUNCHES = 9909
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): 3.35 TB/s of HBM, and
 # 67 TFLOP/s float32 outside the tensor cores, i.e. 33.5e12 fused
@@ -87,6 +98,9 @@ NUM_INPUTS = 4
 # against 16.75e12 a second.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT32_OPS_PER_S = 67e12 / 2 / 2
+# dense int8 tensor-core rate (a multiply-add is two operations); the RNS
+# kernels run their inner products there, as u8 x u8 products
+PEAK_INT8_OPS_PER_S = 1.979e15
 
 
 def main():
@@ -184,11 +198,13 @@ def main():
         torch.cuda.synchronize()
         return out, e0.elapsed_time(e1) / 1e3
 
-    def bound(nbytes, nops):
-        """(bound_ms, bound_by): the larger of the bytes over the memory
-        rate and the 32-bit integer operations over their peak rate."""
+    def bound(nbytes, nops, tensor_ops=0):
+        """(bound_ms, bound_by): the largest of the bytes over the memory
+        rate, the 32-bit integer operations over their peak rate and the
+        byte products of the tensor cores over the int8 rate."""
         by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        by_ops = nops / PEAK_INT32_OPS_PER_S * 1e3
+        by_ops = max(nops / PEAK_INT32_OPS_PER_S,
+                     tensor_ops / PEAK_INT8_OPS_PER_S) * 1e3
         return max(by_bytes, by_ops), \
             "bytes" if by_bytes >= by_ops else "operations"
 
@@ -898,11 +914,12 @@ def main():
                 for label, m in sorted(classes.items(), key=lambda kv: min(
                     n for _, n in kv[1]))]
 
-    def timed_row(key, label, launches, n_widths, n, fn, nbytes, nops):
+    def timed_row(key, label, launches, n_widths, n, fn, nbytes, nops,
+                  tensor_ops=0):
         """One class of a kernel's launches: device time at its most
         frequent width, the bound there and the class's loss, its launches
         x (time - bound) at that width."""
-        b_ms, b_by = bound(nbytes, nops)
+        b_ms, b_by = bound(nbytes, nops, tensor_ops)
         reps = 100 if n <= 1 << 12 else 20
         row = {"kernel": key, "class": label, "launches": launches,
                "widths": n_widths, "timed_width": n, "ms": time_ms(fn, reps),
@@ -1036,6 +1053,7 @@ def main():
     g1r = CI.mnt4753_g1(ec_rns=True)
     rctx = rns.make_context(p)
     K_CH = rctx.k
+    WDT = rns.crt_width(rctx)
 
     def madd_ops(terms, term_bits):
         """32-bit integer operations of a sum of `terms` products, each below
@@ -1043,14 +1061,62 @@ def main():
         64-bit sum (two operations) each time the 32-bit one could fill."""
         return terms + 2 * -(-terms // (1 << (32 - term_bits)))
 
-    # 32-bit integer operations of one RNS multiply, from its formulas: two
-    # k x k base extensions (14-bit residue times 14-bit constant: below
-    # 2^28, one multiply-add a term), about 10k channel products with their
-    # reductions (multiply, high multiply, multiply, subtract, compare: 5
-    # each) and 2k alpha terms (below 2^25, a 32-bit sum: 1 each)
-    RNS_OPS = 2 * K_CH * madd_ops(K_CH, 28) + 5 * 10 * K_CH + 2 * K_CH
+    # The work of one RNS multiply, from its formulas.  Channelwise, 32-bit
+    # integer operations: about 10k channel products with their reductions
+    # (multiply, high multiply, multiply, subtract, compare: 5 each) and 2k
+    # alpha terms (below 2^25, a 32-bit sum: 1 each).  Inner products, on
+    # the tensor cores: two k x k base extensions, each term a product of
+    # two values below 2^14, i.e. four u8 x u8 products of their byte
+    # splits, two operations (multiply and add) each.
+    RNS_OPS = 5 * 10 * K_CH + 2 * K_CH
+    RNS_TENSOR_OPS = 2 * K_CH * K_CH * 4 * 2
+    # the count of PR 4-8, for the side-by-side line: the extensions' terms
+    # as 32-bit multiply-adds (one a term, 64-bit folds) on the CUDA cores
+    RNS_OPS_CUDA_CORES = 2 * K_CH * madd_ops(K_CH, 28) + RNS_OPS
     RES_BYTES = 2 * K_CH * 2        # an element's residues at 2 bytes each
     PACKED_BYTES = RK.LANES * 4     # what the packed int32 layout moves
+
+    def k7_work(n):
+        """(bytes, channelwise operations, tensor operations, operations as
+        counted before) of n RNS multiplies."""
+        return (3 * n * RES_BYTES, n * RNS_OPS, n * RNS_TENSOR_OPS,
+                n * RNS_OPS_CUDA_CORES)
+
+    def pre_work(n, dbl):
+        """The same for pre on n lanes, dbl of them doubling: four digit
+        rows to residues (2k sums of nd digit terms, each 16 x 14 bits: four
+        byte products on the tensor cores; a 64-bit channel reduction, 10
+        operations, a sum), four normalising multiplies and a squaring where
+        a lane doubles, two channel subtractions (3 operations a channel)."""
+        conv_before = 4 * 2 * K_CH * madd_ops(nd, 30)
+        ch = n * (4 * 2 * K_CH * 10 + 4 * RNS_OPS + 2 * 2 * K_CH * 3) \
+            + dbl * RNS_OPS
+        return (n * (4 * elem_bytes + 2 + 5 * RES_BYTES + 2), ch,
+                n * (4 * 2 * K_CH * nd * 4 * 2 + 4 * RNS_TENSOR_OPS)
+                + dbl * RNS_TENSOR_OPS,
+                n * (conv_before + 4 * RNS_OPS_CUDA_CORES + 2 * 2 * K_CH * 3)
+                + dbl * RNS_OPS_CUDA_CORES)
+
+    def post_work(n, live):
+        """The same for post on n lanes, live of them not a select: five
+        multiplies and five offset subtractions (6 operations a channel),
+        two CRTs (wdt sums of k sigma terms on the tensor cores, k sigma
+        products and alpha terms, the alpha subtraction of each column, the
+        carries and borrows of nd + 1 digits and a subtraction: 6 k + 6 wdt
+        + 8 (nd + 1))."""
+        tail = 4 * WDT + 8 * (nd + 1)
+        ch = live * (5 * RNS_OPS + 5 * 2 * K_CH * 6
+                     + 2 * (6 * K_CH + 2 * WDT + tail))
+        return (n * (5 * RES_BYTES + 6 * elem_bytes + 3), ch,
+                live * (5 * RNS_TENSOR_OPS + 2 * K_CH * WDT * 4 * 2),
+                live * (5 * RNS_OPS_CUDA_CORES + 5 * 2 * K_CH * 6
+                        + 2 * (WDT * madd_ops(K_CH, 30) + tail)))
+
+    def work_bounds(work):
+        """(bound_ms, bound_by, bound_ms as counted before)."""
+        nbytes, ops, tensor, before = work
+        b_ms, b_by = bound(nbytes, ops, tensor)
+        return b_ms, b_by, bound(nbytes, before)[0]
 
     def packed(F, digits):
         ctx = rns.make_context(F.modulus)
@@ -1066,19 +1132,43 @@ def main():
         return vals, torch.from_numpy(
             limbs.to_digits_batch(vals[:n], F.n_digits)).to(dev)
 
+    RNS_EDGES = (1, 15, 16, 17, 127, 128, 129)   # around the tile of 16
+    RNS_WIDE = (1 << 15, 1 << 18, 1 << 19)
+
+    def lanes_of(a_pt, b_pt, n, start=0):
+        """Lanes start .. start + n - 1 of an addition's operands."""
+        cut = lambda t: t[start:start + n]
+        return tuple(((tuple(cut(c) for c in pt[0])), cut(pt[1]))
+                     for pt in (a_pt, b_pt))
+
+    def rns_case(points, n):
+        """Operands of the RNS addition on n lanes (special lanes first;
+        below 9 lanes, the first n of a 9-lane case) from the affine
+        points, repeated as needed."""
+        m = max(n, 9)
+        copies = -(-m // points[0].shape[0])
+        return lanes_of(*affine_case(g1, tuple(
+            torch.cat([c] * copies) for c in points), m), n)
+
     def ec_rns_kernel_section():
-        """K7 at MNT4-753 Fq [1] and [2^16] and BLS12-377 Fq [2^12], six
-        chained squarings against python's pow, times at [2^16] and
-        [2^20] beside K1; K8's pre, tree and post at 2^18 and 2^16
-        MNT4-753 G1 lanes with the special lanes, against their plain
-        versions, the whole addition at 2^16 also against the positional
-        one (K5/K6), and BLS12-377 G1 at 256 lanes.
+        """K7 at MNT4-753 Fq [1] and [2^16] and BLS12-377 Fq [2^12], around
+        the tile of 16 (1 .. 129 elements) and at 2^15, 2^18 and 2^19, with
+        rows of every residue at m_i - 1, strided, broadcast and the paired
+        down-sweep, six chained squarings against python's pow, times at 1,
+        2^16 and 2^20 beside K1; K8's pre, tree and post at the same
+        widths on MNT4-753 G1 lanes with the special lanes, against their
+        plain versions, the whole addition at 2^16 also against the
+        positional one (K5/K6), and BLS12-377 G1 at 256 lanes.
         Returns ({kernel: its row}, the line's dict)."""
         line, rows = {"channels": K_CH}, {}
         err7 = 0
         n16 = 1 << 16
         _, d16 = field_digits(fq, n16, seed=61)
         x16 = packed(fq, d16)
+        m_row = torch.from_numpy(
+            RK.kernel_consts(p)[:RK.LANES].astype("int64")).to(dev)
+        x16[5] = x16[6] = torch.where(m_row > 1, m_row - 1, 0).to(
+            torch.int32)                      # every residue at m_i - 1
         y16 = x16.roll(1, 0)
         for F, n in ((fq, 1), (fq, n16), (PP.BLS12_377_FQ, 1 << 12)):
             x = x16[5:6] if n == 1 else (
@@ -1087,13 +1177,28 @@ def main():
             err7 = max(err7, compare(
                 f"rns_mont {F.name} [{n}]", RK.mont_mul_rns(F.modulus, x, y),
                 RK.mont_mul_rns_plain(F.modulus, x, y)))
-        # the tree's shapes: strided halves, one row against all
+        # the tree's shapes: strided halves, one row against all, the paired
+        # down-sweep
         err7 = max(err7, compare(
             "rns_mont even/odd halves", RK.mont_mul_rns(p, x16[0::2],
                                                         x16[1::2]),
             RK.mont_mul_rns_plain(p, x16[0::2], x16[1::2])), compare(
             "rns_mont one row against all", RK.mont_mul_rns(p, x16, y16[:1]),
-            RK.mont_mul_rns_plain(p, x16, y16[:1])))
+            RK.mont_mul_rns_plain(p, x16, y16[:1])), compare(
+            "rns_mont paired down-sweep", RK.mont_mul_rns_down(
+                p, y16[:n16 // 2], x16),
+            RK.mont_mul_rns_down_plain(p, y16[:n16 // 2], x16)))
+        for n in RNS_EDGES + RNS_WIDE:
+            x = x16.repeat(-(-n // n16), 1)[:n]
+            y = x.roll(3, 0)
+            err7 = max(err7, compare(f"rns_mont [{n}]", RK.mont_mul_rns(
+                p, x, y), RK.mont_mul_rns_plain(p, x, y)))
+            if n % 2 == 0:
+                err7 = max(err7, compare(
+                    f"rns_mont paired down-sweep [{n}]",
+                    RK.mont_mul_rns_down(p, y[:n // 2], x),
+                    RK.mont_mul_rns_down_plain(p, y[:n // 2], x)))
+            del x, y
         # six chained squarings from x M_A, held to python's pow
         vals, d = field_digits(fq, 64, seed=63)
         r2 = torch.from_numpy(RK.rns_row(rctx, rctx.MA * rctx.MA % p)).to(
@@ -1111,20 +1216,22 @@ def main():
                     [g % p for g in got] != [w * rctx.MA % p for w in want]:
                 raise AssertionError("rns_mont: chained squarings disagree "
                                      "with pow")
-        # times at 2^16 and 2^20 lanes, K1 on as many elements beside
+        # times at 1, 2^16 and 2^20 lanes, K1 on as many elements beside
         k7 = []
         a16 = rand_elems(n16)
-        for n in (n16, 1 << 20):
-            reps = n // n16
-            x = x16.repeat(reps, 1)
-            a = a16.repeat(reps, 1)
-            b_ms, b_by = bound(3 * n * RES_BYTES, n * RNS_OPS)
+        for n in (1, n16, 1 << 20):
+            x = x16.repeat(-(-n // n16), 1)[:n]
+            a = a16.repeat(-(-n // n16), 1)[:n]
+            reps = 200 if n == 1 else 20
+            b_ms, b_by, b_before = work_bounds(k7_work(n))
             row = {"lanes": n, "ms": time_ms(
-                lambda: RK.mont_mul_rns(p, x, x), 20),
+                lambda: RK.mont_mul_rns(p, x, x), reps),
+                "device_ms": graph_ms(lambda: RK.mont_mul_rns(p, x, x), reps),
                 "bound_ms": b_ms, "bound_by": b_by,
+                "bound_ms_before": b_before,
                 "packed_layout_bytes_ms":
                     3 * n * PACKED_BYTES / PEAK_BYTES_PER_S * 1e3,
-                "k1_mont_mul_ms": time_ms(lambda: fp.mont_mul(fq, a, a), 20)}
+                "k1_mont_mul_ms": time_ms(lambda: fp.mont_mul(fq, a, a), reps)}
             if n == n16:
                 row["plain_ms"] = time_ms(
                     lambda: RK.mont_mul_rns_plain(p, x, x), 3)
@@ -1153,18 +1260,29 @@ def main():
                                  ER.ecr_post_plain(g1r, *post_args))
             return (e_pre, e_tree, e_post), pre, dinv, post_args
 
-        # K8 at the path's largest addition width: msm_affine's first tree
-        # level over one chunk (8 windows x 2^16 points) adds 2^18 lanes
-        e_pre, e_tree, e_post = hold_k8(*affine_case(
-            g1, multiples(g1, 1 << 18, seed=66)[1], 1 << 18), "2^18")[0]
+        # K8 around the tile and at wide batches; 2^18 is the path's largest
+        # addition (msm_affine's first tree level over one chunk of 8
+        # windows x 2^16 points)
+        err_pre = err_post = 0
+        pts = multiples(g1, 1 << 18, seed=66)[1]
+        for n in RNS_EDGES + RNS_WIDE:
+            for start in ((0, 8) if n == 1 else (0,)):
+                case = rns_case(pts, n) if start == 0 else \
+                    lanes_of(*rns_case(pts, 9), 1, start)
+                e = hold_k8(*case, f"{n} from lane {start}")[0]
+                err_pre, err7, err_post = (max(err_pre, e[0]), max(err7, e[1]),
+                                           max(err_post, e[2]))
+                del case
+        del pts
         # ... and at 2^16 lanes, the width of the times below
         _, aff, _ = multiples(g1, n16, seed=64)
         a_pt, b_pt = affine_case(g1, aff, n16)
         (x1, y1), inf1 = a_pt
         (x2, y2), inf2 = b_pt
         errs, pre, dinv, post_args = hold_k8(a_pt, b_pt, "2^16")
-        err_pre, err_post = max(e_pre, errs[0]), max(e_post, errs[2])
-        err7 = max(err7, e_tree, errs[1])
+        err_pre, err_post = max(err_pre, errs[0]), max(err_post, errs[2])
+        err7 = max(err7, errs[1])
+        rows["rns_mont"]["max_abs_err"] = err7
         num, den, x1r, y1r, x2r, inf3, dead = pre
         got = g1r.batch_affine_add(a_pt, b_pt)
         flat = lambda r: (r[0][0], r[0][1], r[1])
@@ -1196,33 +1314,19 @@ def main():
         dbl = int((~inf1 & ~inf2 & (x1 == x2).all(-1).reshape(-1)
                    & (y1 == y2).all(-1).reshape(-1)).sum())
         live = int((~(inf1 | inf2 | inf3)).sum())
-        wdt = rns.crt_width(rctx)
-        # pre: four digit rows to residues (2k sums of nd 16-bit digit times
-        # 14-bit residue terms, below 2^30), four normalising multiplies a
-        # lane and a squaring where it doubles, two channel additions or
-        # subtractions (3 operations a channel); post: five multiplies, five
-        # offset subtractions and two CRTs (wdt sums of k 14-bit sigma times
-        # 16-bit digit terms, then the carries and subtractions of nd + 1
-        # digits) where lambda is used
-        pre_ops = n16 * (4 * 2 * K_CH * madd_ops(nd, 30) + 4 * RNS_OPS
-                         + 2 * 2 * K_CH * 3) + dbl * RNS_OPS
-        post_ops = live * (5 * RNS_OPS + 5 * 2 * K_CH * 6
-                           + 2 * (wdt * madd_ops(K_CH, 30) + 4 * wdt
-                                  + 8 * (nd + 1)))
-        for name, err, nbytes, nops, kern, plain in (
-                ("ecr_pre", err_pre,
-                 n16 * (4 * elem_bytes + 2 + 5 * RES_BYTES + 2), pre_ops,
+        for name, err, work, kern, plain in (
+                ("ecr_pre", err_pre, pre_work(n16, dbl),
                  lambda: ER.ecr_pre(g1r, x1, y1, x2, y2, inf1, inf2),
                  lambda: ER.ecr_pre_plain(g1r, x1, y1, x2, y2, inf1, inf2)),
-                ("ecr_post", err_post,
-                 n16 * (5 * RES_BYTES + 6 * elem_bytes + 3), post_ops,
+                ("ecr_post", err_post, post_work(n16, live),
                  lambda: ER.ecr_post(g1r, *post_args),
                  lambda: ER.ecr_post_plain(g1r, *post_args))):
-            b_ms, b_by = bound(nbytes, nops)
+            b_ms, b_by, b_before = work_bounds(work)
             rows[name] = {"lanes": n16, "max_abs_err": err,
                           "ms": time_ms(kern, 10),
+                          "device_ms": graph_ms(kern, 10),
                           "plain_ms": time_ms(plain, 2), "bound_ms": b_ms,
-                          "bound_by": b_by}
+                          "bound_by": b_by, "bound_ms_before": b_before}
         before = dict(fp.launch_counts)
         g1r.batch_affine_add(a_pt, b_pt)
         launches = {k: v - before[k] for k, v in fp.launch_counts.items()
@@ -1321,10 +1425,25 @@ def main():
         # same points and scalars, launches counted from zero; then the
         # positional msm_affine over G1 beside it
         fp.reset_launch_counts()
+        ec_kernels.reset_launch_widths()
         res, secs = event_seconds(lambda: msm_mod.msm_affine(g1r, ax, ay, sd))
         path = {"points": n16, "seconds": secs, "points_per_s": n16 / secs,
                 "path_launches": {k: v for k, v in fp.launch_counts.items()
-                                  if v}}
+                                  if v},
+                "launches_by_width": {
+                    k: dict(sorted(ec_kernels.launch_widths[k].items()))
+                    for k in ec_kernels.RNS_KERNELS}}
+        # K7 on the path: an addition of n lanes pads to 2^L >= 128 lanes
+        # and multiplies L levels up, once at the root and L levels down,
+        # each level one launch
+        want_k7 = sum(c * (2 * max(7, (n - 1).bit_length()) + 1)
+                      for n, c in path["launches_by_width"]["ecr_pre"].items())
+        if path["path_launches"].get("rns_mont") != want_k7 or \
+                want_k7 != RNS_PATH_K7_LAUNCHES:
+            raise AssertionError(
+                f"K7 launched {path['path_launches'].get('rns_mont')} times "
+                f"on the RNS path: the additions' widths give {want_k7}, "
+                f"and 2^16 points {RNS_PATH_K7_LAUNCHES}")
         same_point("msm_affine rns 2^16 against msm_hybrid", g1, res,
                    results["default_2p15"])
         closed_form("msm_affine rns 2^16", g1, host_g1, res, ks, sc)
@@ -1343,6 +1462,60 @@ def main():
 
     ec_line["path"] = ec_path = msm_section()
     print("ec_rns " + json.dumps(ec_line), flush=True)
+
+    def ec_rns_by_width(widths):
+        """K7, pre and post at the widths the 2^16-point RNS msm_affine
+        launched them, as ``inv_tree_by_width``: K7 on seeded residues, pre
+        and post on lanes of 2^18 seeded points (repeated above 2^18 lanes)
+        with the special lanes first, each checked against its plain
+        version."""
+        rows = []
+        _, d16 = field_digits(fq, 1 << 16, seed=67)
+        x16 = packed(fq, d16)
+        for label, launches, n_widths, n in classes_of(
+                "rns_mont", widths["rns_mont"]):
+            x = x16.repeat(-(-n // x16.shape[0]), 1)[:n]
+            y = x.roll(1, 0)
+            compare(f"rns_mont [{n}]", RK.mont_mul_rns(p, x, y),
+                    RK.mont_mul_rns_plain(p, x, y))
+            nbytes, ops, tensor, _ = k7_work(n)
+            rows.append(timed_row("rns_mont", label, launches, n_widths, n,
+                                  lambda: RK.mont_mul_rns(p, x, y), nbytes,
+                                  ops, tensor))
+            del x, y
+        pts = multiples(g1, 1 << 18, seed=7)[1]
+        for label, launches, n_widths, n in classes_of(
+                "ecr_pre", widths["ecr_pre"]):
+            a_pt, b_pt = rns_case(pts, n)
+            (x1, y1), inf1 = a_pt
+            (x2, y2), inf2 = b_pt
+            pre = ER.ecr_pre(g1r, x1, y1, x2, y2, inf1, inf2)
+            compare_all(f"ecr_pre [{n}]", pre, ER.ecr_pre_plain(
+                g1r, x1, y1, x2, y2, inf1, inf2))
+            num, den, x1r, y1r, x2r, inf3, dead = pre
+            dinv = ER.tree_inverse_rns(g1r, den, dead)
+            post_args = (num, dinv, x1r, y1r, x2r, x1, y1, x2, y2, inf1,
+                         inf2, inf3)
+            compare_all(f"ecr_post [{n}]", ER.ecr_post(g1r, *post_args),
+                        ER.ecr_post_plain(g1r, *post_args))
+            dbl = int((~inf1 & ~inf2 & (x1 == x2).all(-1).reshape(-1)
+                       & (y1 == y2).all(-1).reshape(-1)).sum())
+            live = int((~(inf1 | inf2 | inf3)).sum())
+            nbytes, ops, tensor, _ = pre_work(n, dbl)
+            rows.append(timed_row(
+                "ecr_pre", label, launches, n_widths, n,
+                lambda: ER.ecr_pre(g1r, x1, y1, x2, y2, inf1, inf2),
+                nbytes, ops, tensor))
+            nbytes, ops, tensor, _ = post_work(n, live)
+            rows.append(timed_row(
+                "ecr_post", label, launches, n_widths, n,
+                lambda: ER.ecr_post(g1r, *post_args), nbytes, ops, tensor))
+            del a_pt, b_pt, x1, y1, x2, y2, pre, num, den, dinv, post_args
+        return rows
+
+    rns_by_width = ec_rns_by_width(ec_path["launches_by_width"])
+    print("ec_rns_by_width " + json.dumps(loss_line(rns_by_width)),
+          flush=True)
     for name, replaces in (("rns_mont", "gingerlib_tpu/ops/pallas_rns.py:187"),
                            ("ecr_pre", "gingerlib_tpu/ops/pallas_ec_rns.py:289"),
                            ("ecr_post",
@@ -1354,10 +1527,17 @@ def main():
                 "rns_mont.cu" if name == "rns_mont" else "ec_rns.cu"),
             "replaces": replaces, "launches": 0, "lanes": 1 << 16,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "device_ms": row["device_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
+            "bound_ms_before": row["bound_ms_before"],
             # no PyTorch call computes an RNS multiply or a curve addition
             "library_ms": None,
+            "by_width": [
+                {key: r[key] for key in ("class", "launches", "timed_width",
+                                         "ms", "device_ms", "bound_ms",
+                                         "loss_ms")}
+                for r in rns_by_width if r["kernel"] == name],
         })
 
     # ------------------------------------------------------------------
@@ -1633,12 +1813,13 @@ def main():
             k: v - out["setup_launches"][k]
             for k, v in out["path_launches"].items()}
         out["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        curve_keys = [k for k in ec_kernels.launch_widths
+                      if k not in ec_kernels.RNS_KERNELS]
         out["curve_launches_by_width"] = {
-            k: dict(sorted(v.items()))
-            for k, v in ec_kernels.launch_widths.items()}
+            k: dict(sorted(ec_kernels.launch_widths[k].items()))
+            for k in curve_keys}
         out["curve_launches_by_lanes"] = {
-            k: ec_kernels.launches_by_class(k)
-            for k in ec_kernels.launch_widths}
+            k: ec_kernels.launches_by_class(k) for k in curve_keys}
         t = time.perf_counter()
         want = groth16_host.expected_proof("mnt4753", cs, **TOXIC,
                                            r=R_BLIND, s=S_BLIND)
@@ -1899,9 +2080,11 @@ def main():
             k["launches_2p16_path"] = full["path_launches"][name]
             if k["launches_2p16_path"] <= 0:
                 raise AssertionError(f"the 2^16 path never launched {name}")
-        if name in ec_kernels.launch_widths:
+        curve = name in ec_kernels.launch_widths and \
+            name not in ec_kernels.RNS_KERNELS
+        if curve:
             k["launches_by_lanes"] = full["curve_launches_by_lanes"][name]
-        if name in ec_kernels.launch_widths and name != "ec_proj_add":
+        if curve and name != "ec_proj_add":
             k["by_width"] = [
                 {key: r[key] for key in ("class", "launches", "timed_width",
                                          "ms", "device_ms", "bound_ms",

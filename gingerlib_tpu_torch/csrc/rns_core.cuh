@@ -1,313 +1,565 @@
-// Double-base RNS Montgomery arithmetic, one field element per WARP.
-// Shared by the RNS multiply (rns_mont.cu, K7) and the RNS batched affine
-// addition (ec_rns.cu, K8).  The scheme, its bounds and the alpha estimate
-// are those of gingerlib_tpu_torch/ops/rns.py (and of the JAX package's
-// ops/rns.py); the functions here compute the same residues.
+// Double-base RNS Montgomery arithmetic on tiles of 16 elements, the inner
+// products on the integer tensor cores.  Shared by the RNS multiply
+// (rns_mont.cu, K7) and the RNS batched affine addition (ec_rns.cu, K8).
+// The scheme, its bounds and the alpha estimates are those of
+// gingerlib_tpu_torch/ops/rns.py (and of the JAX package's ops/rns.py); the
+// functions here compute the same residues.
 //
 // Packed layout: an element is a row of 128 32-bit words, base-A channel i
 // in word i, base-B channel j in word 64 + j (k <= 64 channels a base),
-// every other word zero.  A warp owns one element: lane t holds the words
-// t and t + 32 of base A and 64 + t and 96 + t of base B (struct Elem), so
-// all channelwise steps are two operations a thread on each base, and loads
-// and stores of a row are four coalesced 128-byte transactions.
+// every other word zero.
 //
-// Constants (one block of 32-bit words, copied into shared memory):
-//   rows [N_ROWS][128]: moduli m, mu = floor(2^32 / m), Kawamura sigma
-//     factors, alpha weights w, -p^-1 (A words), p and M_A^-1 (B words),
-//     |M_A|_{m'} (B words), |M_B|_m (A words), 2^32 mod m.  Words outside
-//     the channels hold m = 1, mu = 2^32 - 1 and zeros, so that every step
-//     leaves them 0 without a test.
-//   EXT_AB [k][64]: |M_A/m_i|_{m'_j} for source channel i, destination j;
-//   EXT_BA [k][64]: |M_B/m'_j|_{m_i} for source j, destination i.
+// A block of 128 threads (4 warps) owns a tile of 16 elements, the M of
+// mma.m16n8k32.  Thread (warp w, group g = lane / 4, t = lane % 4) holds
+// rows g and g + 8 of the tile and, in each base, the four channels
+// 16 w + 8 h + 2 t + b (h, b in {0, 1}): exactly the entries of the
+// accumulator fragments of the n-tiles 2 w and 2 w + 1 (struct Elem).  So
+// the channelwise steps run one thread an (element, channel word) set, on
+// what the tensor cores leave in that thread, and an element's words move
+// to and from memory as 8-byte pairs, 32 bytes of a row a quad.
 //
-// Channel reduction: for any 32-bit v, q = umulhi(v, mu) is floor(v/m) or
-// one less (mu = floor(2^32/m) errs by less than one part in 2^32 of v), so
-// one conditional subtract gives v mod m: exact, whatever v, unlike the
-// TPU's Barrett form, which needed v < 2^29.5 and four subtracts.
+// Inner products.  Every base extension and conversion is a product of a
+// [16, K] operand (sigmas or digits of the tile's rows, K <= 64) with a
+// constant [K, N] matrix.  Both hold values below 2^16, so each is split
+// into bytes, x = 2^8 x_hi + x_lo, and the product is four u8 x u8 -> s32
+// products, recombined as 2^16 hh + 2^8 (hl + lh) + ll in 64 bits.  A
+// partial sum has at most 64 terms of at most 255 * 255, so it stays below
+// 64 * 65025 < 2^22 (the merged hl + lh below 2^23): exact in s32.  The
+// recombined sum is below 64 * 2^30 = 2^36, reduced by red64.
+//   A operand: two byte planes [16][PLANE_STRIDE] in shared memory, written
+//     by the threads that computed the values (stride 80 bytes: fragment
+//     loads hit 32 distinct banks).
+//   B operand: in the constant block, pre-split by the host into fragment
+//     order, [K/32][N/8][plane][lane][2 words] (ops/rns_kernels.py,
+//     mma_fragments), so a lane loads its fragment as one 8-byte word.
+// The TPU ran the same products as bf16 matrix products over 7-bit splits
+// (pallas_rns.py _base_extend_k:113, _to_rns_k:289, _from_rns_k:315).
 //
-// Base extension: the sigmas of the source base go to a 64-word scratch row
-// of the warp in shared memory; each lane accumulates the inner products of
-// its two destination channels over the k sigmas in 64 bits (k terms below
-// 2^28 each: < 2^34), reads the constant matrix row by row (conflict-free:
-// lane t reads words t and t + 32 of a row), and reduces once.  alpha is a
-// warp sum of sigma * w (< 2^31, see rns.py MAX_K).  The TPU split these
-// products into 7-bit bf16 halves for its matrix unit; that was the
-// hardware's need, not the function's, and is not carried over.
+// Channel reduction: for any 32-bit v, q = umulhi(v, mu) (mu = floor(2^32 /
+// m)) is floor(v/m) or one less, so one conditional subtract gives v mod m;
+// a value that only feeds a product or another reduction skips it (redl).
+// Words outside the channels hold m = 1, mu = 2^32 - 1 and zeros, so every
+// step leaves them 0 without a test.  alpha is the row sum of sigma * w
+// (< 2^31, rns.py MAX_K): a quad shuffle, then the four warps' partial sums
+// through shared memory.
+//
+// Phases: each product writes its A planes and alpha parts, waits at one
+// barrier and reads them.  Consecutive products alternate between two
+// buffers (Core::buf, the same in every thread), so the barrier of the next
+// product also orders the reads of this one before the writes of the one
+// after: one barrier a product.  Every thread of the block calls every
+// function below, in the same order.
+//
+// Constant block (words): rows [N_ROWS][128] -- moduli, mu, Kawamura sigma
+// factors, alpha weights w, -p^-1 sigma (A words), p, M_A^-1 and M_A^-1
+// sigma (B words), -|M_A|_{m'} (B words), -|M_B|_m (A words), 2^32 mod m --
+// then the two extension matrices |M_A/m_i|_{m'_j} and |M_B/m'_j|_{m_i} as
+// fragments of [64, 64] each (zero beyond k).  The folded products save a
+// reduction where the multiply needs only the sigma of q or of t, and the
+// negated corrections let an extension end in one 64-bit reduction.
 #pragma once
 
 #include <stdint.h>
 
 namespace rns {
 
-constexpr int LANES = 128;           // words of a packed element
-constexpr int B_ROW = 64;            // first word of base B
+constexpr int LANES = 128;            // words of a packed element
+constexpr int B_ROW = 64;             // first word of base B
 constexpr int W_BITS = 25;
 constexpr uint32_t ALPHA_OFF = 1u << 20;
 constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr int TILE = 16;              // elements a tile
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int KMAX = 64;              // the K of every product, padded
+constexpr int STAGE_WORDS = LANES + 8;   // a staged row: conflict-free pairs
+constexpr int PLANE_STRIDE = KMAX + 16;  // bytes between rows of a plane
 
-enum Row { M, MU, SIG, W, NEGPINV, PB, MAINV, CORR_AB, CORR_BA, P32, N_ROWS };
+enum Row { M, MU, SIG, W, QSIG, PB, MAINV, TSIG, NCORR_AB, NCORR_BA, P32,
+           N_ROWS };
 
-// 32-bit words of the constant block for k channels a base
-__host__ __device__ constexpr int const_words(int k) {
-  return N_ROWS * LANES + 2 * k * B_ROW;
+// words of a [k, n] B operand in fragment order
+__host__ __device__ constexpr int frag_words(int k, int n) {
+  return k / 32 * (n / 8) * 2 * 64;
 }
+constexpr int EXT_WORDS = frag_words(KMAX, B_ROW);
+constexpr int CONST_WORDS = N_ROWS * LANES + 2 * EXT_WORDS;
+// shared workspace of the core: planes [2 buffers][2 planes][TILE][stride]
+// bytes, then alpha parts [2 buffers][WARPS][TILE] words
+constexpr int PLANES_WORDS = 2 * 2 * TILE * PLANE_STRIDE / 4;
+constexpr int WORK_WORDS = PLANES_WORDS + 2 * WARPS * TILE;
 
-struct Consts {                      // views into shared memory
-  const uint32_t* row;               // [N_ROWS][LANES]
-  const uint32_t* ext_ab;            // [k][64]
-  const uint32_t* ext_ba;            // [k][64]
-  int k;
+struct Core {                // shared-memory addresses (32-bit) and roles
+  uint32_t row;              // [N_ROWS][LANES] words
+  uint32_t ext_ab, ext_ba;   // fragments
+  uint32_t planes;           // [2 buffers][2 planes][TILE][PLANE_STRIDE]
+  uint32_t apart;            // [2 buffers][WARPS][TILE] words
+  int ks;                    // k-steps of an extension: ceil(k / 32)
+  int buf;                   // the buffer of the next product
+  int w, g, t, lane;         // warp, row group, thread in group, lane
 };
 
-__device__ __forceinline__ Consts consts_at(const uint32_t* sm, int k) {
-  Consts K;
-  K.row = sm;
-  K.ext_ab = sm + N_ROWS * LANES;
-  K.ext_ba = K.ext_ab + k * B_ROW;
-  K.k = k;
-  return K;
+struct Elem {               // rows g and g + 8, slots q = 2 h + b
+  uint32_t a[2][4];
+  uint32_t b[2][4];
+};
+
+struct AFrag {              // A fragments of both planes, two k-steps
+  uint32_t lo[2][4];
+  uint32_t hi[2][4];
+};
+
+// ---------------------------------------------------------------------------
+// PTX: shared memory by address, the tensor-core product, asynchronous copy
+// ---------------------------------------------------------------------------
+// Shared memory is addressed by 32-bit shared-window addresses through
+// ld/st.shared, so that no access goes through a generic pointer (which a
+// function that is not inlined could not tell from local memory).
+
+__device__ __forceinline__ uint32_t smem(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// Copies `words` words into shared memory with the whole block (no barrier).
+__device__ __forceinline__ uint32_t lds(uint32_t a) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(a) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint2 lds2(uint32_t a) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(v.x), "=r"(v.y) : "r"(a) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void sts(uint32_t a, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(a), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void sts16(uint32_t a, uint32_t v) {
+  asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(a), "h"((uint16_t)v)
+               : "memory");
+}
+
+// d += a * b, a 16 x 32 u8 (row), b 32 x 8 u8 (col), d 16 x 8 s32
+__device__ __forceinline__ void mma_u8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// 16 bytes global -> shared; zeros where `ok` is false (nothing is read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  int n = ok ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Asks for `words` words (a multiple of 4, 16-byte aligned at both ends)
+// to be copied into shared memory by the whole block, all in flight at
+// once; the caller commits and waits.
 __device__ __forceinline__ void stage(uint32_t* dst, const uint32_t* src,
                                       int words) {
-  for (int i = threadIdx.x; i < words; i += blockDim.x) dst[i] = src[i];
+  for (int i = 4 * threadIdx.x; i < words; i += 4 * blockDim.x)
+    cp_async16(dst + i, src + i, true);
 }
 
-struct Elem {
-  uint32_t a[2];   // words lane, lane + 32
-  uint32_t b[2];   // words 64 + lane, 96 + lane
+__device__ __forceinline__ Core core_at(const uint32_t* consts_sm,
+                                        uint32_t* work, int k) {
+  Core C;
+  C.row = smem(consts_sm);
+  C.ext_ab = C.row + 4 * N_ROWS * LANES;
+  C.ext_ba = C.ext_ab + 4 * EXT_WORDS;
+  C.planes = smem(work);
+  C.apart = C.planes + 4 * PLANES_WORDS;
+  C.ks = (k + 31) / 32;
+  C.buf = 0;
+  C.w = threadIdx.x >> 5;
+  C.lane = threadIdx.x & 31;
+  C.g = C.lane >> 2;
+  C.t = C.lane & 3;
+  return C;
+}
+
+// the channel word (0..63 of a base) of slot q of this thread
+__device__ __forceinline__ int chan(const Core& C, int q) {
+  return 16 * C.w + 8 * (q >> 1) + 2 * C.t + (q & 1);
+}
+
+__device__ __forceinline__ uint32_t rowv(const Core& C, int r, int c) {
+  return lds(C.row + 4 * (r * LANES + c));
+}
+
+// ---------------------------------------------------------------------------
+// channel arithmetic, on constants held in registers
+// ---------------------------------------------------------------------------
+
+struct Mod {                 // a channel's modulus, floor(2^32 / m), 2^32 mod m
+  uint32_t m, mu, p32;
 };
 
-__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
-__device__ __forceinline__ int col_a(int q) { return q * 32 + lane_id(); }
-__device__ __forceinline__ int col_b(int q) {
-  return B_ROW + q * 32 + lane_id();
+__device__ __forceinline__ Mod mod_at(const Core& C, int c) {
+  return Mod{rowv(C, M, c), rowv(C, MU, c), rowv(C, P32, c)};
 }
 
-__device__ __forceinline__ uint32_t rowv(const Consts& K, int r, int c) {
-  return K.row[r * LANES + c];
+// v mod m up to one m, in [0, 2m), for any 32-bit v: enough for a value
+// that only feeds a product (below 2m times below m: < 2^29) or another
+// reduction
+__device__ __forceinline__ uint32_t redl(uint32_t v, const Mod& m) {
+  return v - __umulhi(v, m.mu) * m.m;
 }
 
 // v mod m for any 32-bit v
-__device__ __forceinline__ uint32_t mod_m(uint32_t v, uint32_t m,
-                                          uint32_t mu) {
-  uint32_t r = v - __umulhi(v, mu) * m;
-  return r >= m ? r - m : r;
+__device__ __forceinline__ uint32_t red(uint32_t v, const Mod& m) {
+  const uint32_t r = redl(v, m);
+  return r >= m.m ? r - m.m : r;
 }
 
-__device__ __forceinline__ uint32_t mod_c(const Consts& K, uint32_t v,
-                                          int c) {
-  return mod_m(v, rowv(K, M, c), rowv(K, MU, c));
+// v mod m up to one m, for v < 2^46 (here always below 2^37)
+__device__ __forceinline__ uint32_t red64l(uint64_t v, const Mod& m) {
+  return redl(redl((uint32_t)v, m) + (uint32_t)(v >> 32) * m.p32, m);
 }
 
-// v mod m for v < 2^50
-__device__ __forceinline__ uint32_t mod_c64(const Consts& K, uint64_t v,
-                                            int c) {
-  uint32_t lo = mod_c(K, (uint32_t)v, c);
-  return mod_c(K, lo + (uint32_t)(v >> 32) * rowv(K, P32, c), c);
+__device__ __forceinline__ uint32_t red64(uint64_t v, const Mod& m) {
+  const uint32_t r = red64l(v, m);
+  return r >= m.m ? r - m.m : r;
 }
 
-__device__ __forceinline__ uint32_t mulmod(const Consts& K, uint32_t a,
-                                           uint32_t b, int c) {
-  return mod_c(K, a * b, c);         // residues < 2^14: a * b < 2^28
+__device__ __forceinline__ uint32_t mulmod(uint32_t a, uint32_t b,
+                                           const Mod& m) {
+  return red(a * b, m);               // below 2m times below m: < 2^29
 }
 
-// the extension's destination residue: (acc - alpha * |M_src|) mod m
-__device__ __forceinline__ uint32_t ext_finish(const Consts& K, uint64_t acc,
-                                               uint32_t alpha, int corr_row,
-                                               int c) {
-  uint32_t r = mod_c64(K, acc, c);
-  uint32_t s = mod_c(K, alpha * rowv(K, corr_row, c), c);
-  return r >= s ? r - s : r + rowv(K, M, c) - s;
+// The extension's sum before its reduction: acc - alpha |M_src| as acc +
+// alpha ncorr, ncorr = -|M_src| mod m (acc < 2^36, alpha < 2^7: the sum
+// is below 2^37); red64 of it is the destination residue.
+__device__ __forceinline__ uint64_t ext_sum(uint64_t acc, uint32_t alpha,
+                                            uint32_t ncorr) {
+  return acc + (uint64_t)(alpha * ncorr);
 }
 
-// inner products of the warp's scratch sigmas with the two destination
-// columns of this lane (destination channel lane and lane + 32)
-__device__ __forceinline__ void ext_dot(const uint32_t* sig,
-                                        const uint32_t* mat, int k,
-                                        uint64_t (&acc)[2]) {
-  const int t = lane_id();
-  acc[0] = acc[1] = 0;
-  for (int i = 0; i < k; i++) {
-    uint32_t s = sig[i];
-    acc[0] += (uint64_t)s * mat[i * B_ROW + t];
-    acc[1] += (uint64_t)s * mat[i * B_ROW + 32 + t];
-  }
+// ---------------------------------------------------------------------------
+// products on the tensor cores
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t plane(const Core& C, int buf, int pl) {
+  return C.planes + (buf * 2 + pl) * TILE * PLANE_STRIDE;
 }
 
-// out = x * y * M_A^-1 (mod p); out < 3p when x * y < 2^10 p^2 (rns.py).
-// `sig` is the warp's 64-word scratch row.  Every lane of the warp calls it.
-__device__ __noinline__ void mont(const Consts& K, uint32_t* sig,
-                                  const Elem& x, const Elem& y, Elem& out) {
-  uint32_t sb[2], part = 0;
-  // q = s * (-p^-1) on base A, its sigmas into the scratch row
+// the thread's values v[row][slot] (< 2^16) into the byte planes of the
+// current buffer, at their channel columns
+__device__ __forceinline__ void put_planes(const Core& C,
+                                           const uint32_t (&v)[2][4]) {
+  const uint32_t lo = plane(C, C.buf, 0), hi = plane(C, C.buf, 1);
 #pragma unroll
-  for (int q = 0; q < 2; q++) {
-    int c = col_a(q);
-    uint32_t s = mulmod(K, x.a[q], y.a[q], c);
-    uint32_t qa = mulmod(K, s, rowv(K, NEGPINV, c), c);
-    uint32_t sg = mulmod(K, qa, rowv(K, SIG, c), c);
-    sig[c] = sg;
-    part += sg * rowv(K, W, c);
-    sb[q] = mulmod(K, x.b[q], y.b[q], col_b(q));
-  }
-  // q-extension A -> B, alpha without offset: never an overestimate
-  uint32_t alpha = __reduce_add_sync(FULL, part) >> W_BITS;
-  __syncwarp();
-  uint64_t acc[2];
-  ext_dot(sig, K.ext_ab, K.k, acc);
-  __syncwarp();
-  part = 0;
+  for (int r = 0; r < 2; r++)
 #pragma unroll
-  for (int q = 0; q < 2; q++) {
-    int c = col_b(q);
-    uint32_t qb = ext_finish(K, acc[q], alpha, CORR_AB, c);
-    uint32_t qp = mulmod(K, qb, rowv(K, PB, c), c);
-    uint32_t tb = mulmod(K, mod_c(K, sb[q] + qp, c), rowv(K, MAINV, c), c);
-    out.b[q] = tb;
-    uint32_t sg = mulmod(K, tb, rowv(K, SIG, c), c);
-    sig[q * 32 + lane_id()] = sg;
-    part += sg * rowv(K, W, c);
+    for (int h = 0; h < 2; h++) {
+      const uint32_t o = (C.g + 8 * r) * PLANE_STRIDE + chan(C, 2 * h);
+      const uint32_t v0 = v[r][2 * h], v1 = v[r][2 * h + 1];
+      sts16(lo + o, (v0 & 0xFF) | (v1 & 0xFF) << 8);
+      sts16(hi + o, (v0 >> 8) | (v1 >> 8) << 8);
+    }
+}
+
+// the A fragments of the current buffer's planes, ks k-steps
+__device__ __forceinline__ void load_a(const Core& C, int ks, AFrag& A) {
+  const uint32_t lo = plane(C, C.buf, 0), hi = plane(C, C.buf, 1);
+#pragma unroll
+  for (int s = 0; s < 2; s++) {
+    if (s < ks) {
+      const uint32_t o0 = C.g * PLANE_STRIDE + 32 * s + 4 * C.t,
+                     o1 = o0 + 8 * PLANE_STRIDE;
+      A.lo[s][0] = lds(lo + o0);
+      A.lo[s][1] = lds(lo + o1);
+      A.lo[s][2] = lds(lo + o0 + 16);
+      A.lo[s][3] = lds(lo + o1 + 16);
+      A.hi[s][0] = lds(hi + o0);
+      A.hi[s][1] = lds(hi + o1);
+      A.hi[s][2] = lds(hi + o0 + 16);
+      A.hi[s][3] = lds(hi + o1 + 16);
+    }
   }
+}
+
+// n-tile j of the product of A with the fragment-ordered B at shared
+// address `frag` (ntiles n-tiles in all): out[i] at row g + 8 (i / 2),
+// column 8 j + 2 t + i % 2
+__device__ __forceinline__ void product(const Core& C, const AFrag& A,
+                                        uint32_t frag, int ntiles, int j,
+                                        int ks, uint64_t (&out)[4]) {
+  int ll[4] = {0, 0, 0, 0}, mid[4] = {0, 0, 0, 0}, hh[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int s = 0; s < 2; s++) {
+    if (s < ks) {
+      const uint32_t f = frag + 8 * ((s * ntiles + j) * 64 + C.lane);
+      const uint2 bl = lds2(f), bh = lds2(f + 8 * 32);
+      mma_u8(ll, A.lo[s], bl);
+      mma_u8(mid, A.lo[s], bh);
+      mma_u8(mid, A.hi[s], bl);
+      mma_u8(hh, A.hi[s], bh);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; i++)
+    out[i] = ((uint64_t)(uint32_t)hh[i] << 16) +
+             ((uint64_t)(uint32_t)mid[i] << 8) + (uint32_t)ll[i];
+}
+
+// the warp's partial alpha sums of its rows (one a row, summed over the
+// quad) into the current buffer
+__device__ __forceinline__ void put_alpha(const Core& C, uint32_t (&part)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; r++) {
+    part[r] += __shfl_xor_sync(FULL, part[r], 1);
+    part[r] += __shfl_xor_sync(FULL, part[r], 2);
+  }
+  if (C.t == 0) {
+    const uint32_t a = C.apart + 4 * ((C.buf * WARPS + C.w) * TILE + C.g);
+    sts(a, part[0]);
+    sts(a + 4 * 8, part[1]);
+  }
+}
+
+__device__ __forceinline__ void get_alpha(const Core& C, uint32_t off,
+                                          uint32_t (&al)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; r++) {
+    uint32_t s = off;
+#pragma unroll
+    for (int w = 0; w < WARPS; w++)
+      s += lds(C.apart + 4 * ((C.buf * WARPS + w) * TILE + C.g + 8 * r));
+    al[r] = s >> W_BITS;
+  }
+}
+
+// One extension: the sigmas sg (and their alpha parts) in, then for each
+// of the thread's slots fin(q, sum of row g, sum of row g + 8, alpha of
+// row g, alpha of row g + 8) with the inner products of the rows' sigmas
+// with column chan(q) of the matrix `frag` (64 x 64).
+template <class Fin>
+__device__ __forceinline__ void extend(Core& C, const uint32_t (&sg)[2][4],
+                                       uint32_t (&part)[2], uint32_t off,
+                                       uint32_t frag, Fin&& fin) {
+  put_planes(C, sg);
+  put_alpha(C, part);
+  __syncthreads();
+  uint32_t al[2];
+  get_alpha(C, off, al);
+  AFrag A;
+  load_a(C, C.ks, A);
+#pragma unroll
+  for (int h = 0; h < 2; h++) {
+    uint64_t o[4];
+    product(C, A, frag, B_ROW / 8, 2 * C.w + h, C.ks, o);
+    fin(2 * h, o[0], o[2], al[0], al[1]);
+    fin(2 * h + 1, o[1], o[3], al[0], al[1]);
+  }
+  C.buf ^= 1;
+}
+
+// out = x * y * M_A^-1 (mod p) for the tile's rows; out < 3p when x * y <
+// 2^10 p^2 (rns.py).  Uses both buffers, leaves C.buf as it found it.
+__device__ __forceinline__ void mont_inline(Core C, const Elem& x,
+                                            const Elem& y, Elem& out) {
+  uint32_t sb[2][4], sg[2][4], part[2] = {0, 0};
+  // s = x y on both bases; the sigmas of q = s (-p^-1) on base A
+#pragma unroll
+  for (int q = 0; q < 4; q++) {
+    const int ca = chan(C, q), cb = B_ROW + ca;
+    const Mod ma = mod_at(C, ca), mb = mod_at(C, cb);
+    const uint32_t qsig = rowv(C, QSIG, ca), w = rowv(C, W, ca);
+#pragma unroll
+    for (int r = 0; r < 2; r++) {
+      sg[r][q] = mulmod(redl(x.a[r][q] * y.a[r][q], ma), qsig, ma);
+      part[r] += sg[r][q] * w;
+      sb[r][q] = redl(x.b[r][q] * y.b[r][q], mb);      // up to one m
+    }
+  }
+  // q-extension A -> B, alpha without offset: never an overestimate; then
+  // t = (s + q p) M_A^-1 on base B and its sigmas
+  uint32_t tg[2][4], tpart[2] = {0, 0}, tb[2][4];
+  extend(C, sg, part, 0, C.ext_ab,
+         [&](int q, uint64_t acc0, uint64_t acc1, uint32_t al0,
+             uint32_t al1) {
+           const int cb = B_ROW + chan(C, q);
+           const Mod mb = mod_at(C, cb);
+           const uint32_t ncorr = rowv(C, NCORR_AB, cb), pb = rowv(C, PB, cb),
+                          mainv = rowv(C, MAINV, cb),
+                          tsig = rowv(C, TSIG, cb), w = rowv(C, W, cb);
+#pragma unroll
+           for (int r = 0; r < 2; r++) {
+             const uint32_t qb =
+                 red64l(ext_sum(r ? acc1 : acc0, r ? al1 : al0, ncorr), mb);
+             const uint32_t u = redl(sb[r][q] + qb * pb, mb);  // < 2^30 in
+             tb[r][q] = mulmod(u, mainv, mb);
+             tg[r][q] = mulmod(u, tsig, mb);
+             tpart[r] += tg[r][q] * w;
+           }
+         });
   // t-extension B -> A, alpha with offset: exact (t < 3p << M_B)
-  alpha = (__reduce_add_sync(FULL, part) + ALPHA_OFF) >> W_BITS;
-  __syncwarp();
-  ext_dot(sig, K.ext_ba, K.k, acc);
-  __syncwarp();
+  uint32_t ta[2][4];
+  extend(C, tg, tpart, ALPHA_OFF, C.ext_ba,
+         [&](int q, uint64_t acc0, uint64_t acc1, uint32_t al0,
+             uint32_t al1) {
+           const int ca = chan(C, q);
+           const Mod ma = mod_at(C, ca);
+           const uint32_t ncorr = rowv(C, NCORR_BA, ca);
+           ta[0][q] = red64(ext_sum(acc0, al0, ncorr), ma);
+           ta[1][q] = red64(ext_sum(acc1, al1, ncorr), ma);
+         });
 #pragma unroll
-  for (int q = 0; q < 2; q++)
-    out.a[q] = ext_finish(K, acc[q], alpha, CORR_BA, col_a(q));
+  for (int r = 0; r < 2; r++)
+#pragma unroll
+    for (int q = 0; q < 4; q++) {
+      out.a[r][q] = ta[r][q];
+      out.b[r][q] = tb[r][q];
+    }
 }
 
-__device__ __forceinline__ void load_elem(const int* __restrict__ src,
-                                          Elem& e) {
-  const int t = lane_id();
-  e.a[0] = (uint32_t)src[t];
-  e.a[1] = (uint32_t)src[32 + t];
-  e.b[0] = (uint32_t)src[B_ROW + t];
-  e.b[1] = (uint32_t)src[B_ROW + 32 + t];
+// The same as one function that is not inlined, for kernels that call it
+// from several places (ec_rns.cu).
+__device__ __noinline__ void mont(Core C, const Elem& x, const Elem& y,
+                                  Elem& out) {
+  mont_inline(C, x, y, out);
 }
 
-__device__ __forceinline__ void store_elem(int* __restrict__ dst,
-                                           const Elem& e) {
-  const int t = lane_id();
-  dst[t] = (int)e.a[0];
-  dst[32 + t] = (int)e.a[1];
-  dst[B_ROW + t] = (int)e.b[0];
-  dst[B_ROW + 32 + t] = (int)e.b[1];
+// ---------------------------------------------------------------------------
+// elements in and out, channelwise helpers
+// ---------------------------------------------------------------------------
+
+// the thread's words of a staged tile at shared address `tile` (rows
+// STAGE_WORDS words apart)
+__device__ __forceinline__ void load_staged(const Core& C, uint32_t tile,
+                                            Elem& e) {
+#pragma unroll
+  for (int r = 0; r < 2; r++)
+#pragma unroll
+    for (int h = 0; h < 2; h++) {
+      const uint32_t p =
+          tile + 4 * ((C.g + 8 * r) * STAGE_WORDS + chan(C, 2 * h));
+      const uint2 va = lds2(p), vb = lds2(p + 4 * B_ROW);
+      e.a[r][2 * h] = va.x;
+      e.a[r][2 * h + 1] = va.y;
+      e.b[r][2 * h] = vb.x;
+      e.b[r][2 * h + 1] = vb.y;
+    }
 }
 
-// a constant row of 128 words (shared memory) as an element
-__device__ __forceinline__ void row_elem(const uint32_t* row, Elem& e) {
-  const int t = lane_id();
-  e.a[0] = row[t];
-  e.a[1] = row[32 + t];
-  e.b[0] = row[B_ROW + t];
-  e.b[1] = row[B_ROW + 32 + t];
+// Rows base .. base + 15 of a dense [n, 128] array: the thread's words,
+// straight from global memory (a quad reads 32 contiguous bytes of a row);
+// rows at or beyond n read as zeros.
+__device__ __forceinline__ void load_rows(const Core& C,
+                                          const int* __restrict__ src,
+                                          int base, int n, Elem& e) {
+#pragma unroll
+  for (int r = 0; r < 2; r++) {
+    const int row = base + C.g + 8 * r;
+#pragma unroll
+    for (int h = 0; h < 2; h++) {
+      uint2 va = make_uint2(0, 0), vb = make_uint2(0, 0);
+      if (row < n) {
+        const int* p = src + (size_t)row * LANES + chan(C, 2 * h);
+        va = *reinterpret_cast<const uint2*>(p);
+        vb = *reinterpret_cast<const uint2*>(p + B_ROW);
+      }
+      e.a[r][2 * h] = va.x;
+      e.a[r][2 * h + 1] = va.y;
+      e.b[r][2 * h] = vb.x;
+      e.b[r][2 * h + 1] = vb.y;
+    }
+  }
 }
 
-__device__ __forceinline__ void add(const Consts& K, const Elem& x,
+// the tile's rows below n into a dense [n, 128] array, as 8-byte pairs
+__device__ __forceinline__ void store_rows(const Core& C,
+                                           int* __restrict__ dst, int base,
+                                           int n, const Elem& e) {
+#pragma unroll
+  for (int r = 0; r < 2; r++) {
+    const int row = base + C.g + 8 * r;
+    if (row >= n) continue;
+#pragma unroll
+    for (int h = 0; h < 2; h++) {
+      int* p = dst + (size_t)row * LANES + chan(C, 2 * h);
+      *reinterpret_cast<uint2*>(p) =
+          make_uint2(e.a[r][2 * h], e.a[r][2 * h + 1]);
+      *reinterpret_cast<uint2*>(p + B_ROW) =
+          make_uint2(e.b[r][2 * h], e.b[r][2 * h + 1]);
+    }
+  }
+}
+
+// a constant row of 128 words at shared address `row` as an element
+__device__ __forceinline__ void row_elem(const Core& C, uint32_t row,
+                                         Elem& e) {
+#pragma unroll
+  for (int q = 0; q < 4; q++) {
+    const uint32_t a = lds(row + 4 * chan(C, q)),
+                   b = lds(row + 4 * (B_ROW + chan(C, q)));
+#pragma unroll
+    for (int r = 0; r < 2; r++) {
+      e.a[r][q] = a;
+      e.b[r][q] = b;
+    }
+  }
+}
+
+__device__ __forceinline__ void add(const Core& C, const Elem& x,
                                     const Elem& y, Elem& out) {
 #pragma unroll
-  for (int q = 0; q < 2; q++) {
-    out.a[q] = mod_c(K, x.a[q] + y.a[q], col_a(q));
-    out.b[q] = mod_c(K, x.b[q] + y.b[q], col_b(q));
+  for (int q = 0; q < 4; q++) {
+    const Mod ma = mod_at(C, chan(C, q)), mb = mod_at(C, B_ROW + chan(C, q));
+#pragma unroll
+    for (int r = 0; r < 2; r++) {
+      out.a[r][q] = red(x.a[r][q] + y.a[r][q], ma);
+      out.b[r][q] = red(x.b[r][q] + y.b[r][q], mb);
+    }
   }
 }
 
 // x + (off - y), off the residues of c p >= value(y): the value stays
 // non-negative, and grows by c p
-__device__ __forceinline__ void sub_off(const Consts& K, const Elem& x,
+__device__ __forceinline__ void sub_off(const Core& C, const Elem& x,
                                         const Elem& off, const Elem& y,
                                         Elem& out) {
 #pragma unroll
-  for (int q = 0; q < 2; q++) {
-    int ca = col_a(q), cb = col_b(q);
-    uint32_t ta = mod_c(K, off.a[q] + rowv(K, M, ca) - y.a[q], ca);
-    uint32_t tb = mod_c(K, off.b[q] + rowv(K, M, cb) - y.b[q], cb);
-    out.a[q] = mod_c(K, x.a[q] + ta, ca);
-    out.b[q] = mod_c(K, x.b[q] + tb, cb);
+  for (int q = 0; q < 4; q++) {
+    const Mod ma = mod_at(C, chan(C, q)), mb = mod_at(C, B_ROW + chan(C, q));
+#pragma unroll
+    for (int r = 0; r < 2; r++) {
+      const uint32_t ta = red(off.a[r][q] + ma.m - y.a[r][q], ma);
+      const uint32_t tb = red(off.b[r][q] + mb.m - y.b[r][q], mb);
+      out.a[r][q] = red(x.a[r][q] + ta, ma);
+      out.b[r][q] = red(x.b[r][q] + tb, mb);
+    }
   }
 }
 
-// positional digits (nd 16-bit digits in the warp's scratch `dig`) ->
-// residues: sum_j d_j |2^16j|_m with the table p2 [nd][128]
-__device__ __forceinline__ void to_rns(const Consts& K, const uint32_t* dig,
-                                       const uint32_t* p2, int nd, Elem& e) {
-  uint64_t acc[4] = {0, 0, 0, 0};
-  const int t = lane_id();
-  for (int j = 0; j < nd; j++) {
-    uint64_t d = dig[j];
-    const uint32_t* r = p2 + j * LANES;
-    acc[0] += d * r[t];
-    acc[1] += d * r[32 + t];
-    acc[2] += d * r[B_ROW + t];
-    acc[3] += d * r[B_ROW + 32 + t];
-  }
-  e.a[0] = mod_c64(K, acc[0], col_a(0));
-  e.a[1] = mod_c64(K, acc[1], col_a(1));
-  e.b[0] = mod_c64(K, acc[2], col_b(0));
-  e.b[1] = mod_c64(K, acc[3], col_b(1));
-}
-
-// residues of a value below 4p -> its canonical digits mod p (nd of them)
-// in the warp's scratch `dig`.  CRT from base A: digit columns
-// sum_i sigma_i D[i][j] - alpha MD[j] (d [k][64]: digits of M_A/m_i; md:
-// digits of M_A; wdt columns), exact alpha (offset), then lane 0 resolves
-// the carries and subtracts p (pd: its digits) while the value is >= p.
-// `col` is the warp's 64-entry 64-bit scratch row.
-__device__ __noinline__ void from_rns(const Consts& K, uint32_t* sig,
-                                      long long* col, uint32_t* dig,
-                                      const Elem& v, const uint32_t* d,
-                                      const uint32_t* md,
-                                      const uint32_t* pd, int wdt, int nd) {
-  const int t = lane_id();
-  uint32_t part = 0;
+// per row: keep a where take[r] is false, b where it is true
+__device__ __forceinline__ void select(const bool (&take)[2], const Elem& a,
+                                       const Elem& b, Elem& out) {
 #pragma unroll
-  for (int q = 0; q < 2; q++) {
-    int c = col_a(q);
-    uint32_t sg = mulmod(K, v.a[q], rowv(K, SIG, c), c);
-    sig[c] = sg;
-    part += sg * rowv(K, W, c);
-  }
-  uint32_t alpha = (__reduce_add_sync(FULL, part) + ALPHA_OFF) >> W_BITS;
-  __syncwarp();
-  uint64_t acc[2];
-  ext_dot(sig, d, K.k, acc);
+  for (int r = 0; r < 2; r++)
 #pragma unroll
-  for (int q = 0; q < 2; q++) {
-    int j = q * 32 + t;
-    if (j < wdt) col[j] = (long long)acc[q] - (long long)alpha * md[j];
-  }
-  __syncwarp();
-  if (t == 0) {
-    long long carry = 0;
-    for (int j = 0; j < wdt; j++) {   // the value: < 4p, so < 2^(16(nd+1))
-      long long s = col[j] + carry;
-      carry = s >> 16;                // arithmetic: a column may be negative
-      if (j <= nd) dig[j] = (uint32_t)(s & 0xFFFF);
+    for (int q = 0; q < 4; q++) {
+      out.a[r][q] = take[r] ? b.a[r][q] : a.a[r][q];
+      out.b[r][q] = take[r] ? b.b[r][q] : a.b[r][q];
     }
-    for (int round = 0; round < 3; round++) {
-      // value >= p?  compare from the top digit (digit nd of p is 0)
-      int ge = 1;
-      for (int j = nd; j >= 0; j--) {
-        uint32_t pj = j < nd ? pd[j] : 0;
-        if (dig[j] != pj) {
-          ge = dig[j] > pj;
-          break;
-        }
-      }
-      if (!ge) break;
-      int borrow = 0;
-      for (int j = 0; j <= nd; j++) {
-        int s = (int)dig[j] - (int)(j < nd ? pd[j] : 0) - borrow;
-        borrow = s < 0;
-        dig[j] = (uint32_t)(s + (borrow << 16));
-      }
-    }
-  }
-  __syncwarp();
 }
 
 }  // namespace rns

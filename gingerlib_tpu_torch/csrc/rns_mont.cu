@@ -7,73 +7,126 @@
 // gingerlib_tpu/ops/pallas_rns.py (pallas_rns.py:171-207; its core
 // _rns_mont_core:148 is also the tree kernel of pallas_ec_rns.py).  The TPU
 // kernel lays an element down a 128-row column and runs the two base
-// extensions as [128, 128] x [128, N] bf16 matrix products on 7-bit splits
-// (so that the matrix unit stays exact), with Barrett reductions on the
-// vector unit.  Here one WARP owns one element (rns_core.cuh): each lane
-// keeps four of its 128 words in registers, and each extension is a 64-bit
-// integer inner product of the k source sigmas (a shared-memory row of the
-// warp) with the constant matrix (shared memory, 2 k^2 words), two
-// destination channels a lane.  The block stages the constants once and then
-// walks over elements, eight warps at a time.
+// extensions as [128, 128] x [128, N] bf16 matrix products on 7-bit splits,
+// with Barrett reductions on the vector unit.  Here (rns_core.cuh) a block
+// of 128 threads owns a tile of 16 elements: the channelwise steps run on
+// the CUDA cores, one thread per (element, channel word) set, and each
+// extension is a [16, 64] x [64, 64] product on the integer tensor cores
+// (mma.m16n8k32 over byte splits, 16 a warp).  Blocks are persistent (as
+// many as fit, from the occupancy API): each stages the constants once,
+// then walks over tiles, asking by cp.async for the next tile's rows as
+// soon as the current ones are in registers.
 //
-// What bounds it on an H100: the integer multiply-adds.  A multiply is two
-// k x k extensions (2 k^2 = 6,962 multiply-adds at k = 59) plus about 10 k
-// channel products and their reductions, against 128 words x 3 of traffic;
-// chip_smoke.py computes both bounds and PERF.md holds the time beside
-// them.  The extensions run on the CUDA cores; the integer tensor cores
-// (int8 mma over 7-bit splits, as the TPU split them) are the known lever.
+// Row selection for the inversion tree's down-sweep: element e multiplies
+// row e >> x_shift of x by row e ^ y_xor of y, so one launch multiplies
+// each parent by the sibling of each of its two children.
+//
+// What bounds it on an H100: the bytes of the packed rows (3 x 512 a
+// multiply, against 3 x 236 bytes of residues) and the channelwise 32-bit
+// operations (~3,000 a multiply at k = 59); the extensions' byte products
+// (4 x 2 x 64 x 64 a multiply) take the tensor cores far below either.
+// chip_smoke.py computes the bound and PERF.md holds the time beside it.
 #include <cuda_runtime.h>
 
 #include "rns_core.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;   // elements in flight a block
+using rns::STAGE_WORDS;
+using rns::TILE;
 
-__global__ void __launch_bounds__(WARPS * 32)
-rns_mont_kernel(const int* __restrict__ x, long long x_stride,
-                const int* __restrict__ y, long long y_stride,
-                int* __restrict__ out, int n,
-                const uint32_t* __restrict__ consts, int k) {
-  extern __shared__ uint32_t sm[];
-  const int words = rns::const_words(k);
-  rns::stage(sm, consts, words);
-  uint32_t* sig = sm + words + (threadIdx.x / 32) * rns::B_ROW;
-  __syncthreads();
-  const rns::Consts K = rns::consts_at(sm, k);
-  // the element index is the same in all lanes of a warp: no divergence
-  for (int e = blockIdx.x * WARPS + threadIdx.x / 32; e < n;
-       e += gridDim.x * WARPS) {
-    rns::Elem a, b, r;
-    rns::load_elem(x + (size_t)e * x_stride, a);
-    rns::load_elem(y + (size_t)e * y_stride, b);
-    rns::mont(K, sig, a, b, r);
-    rns::store_elem(out + (size_t)e * rns::LANES, r);
+struct Operand {
+  const int* ptr;
+  long long stride;   // words between rows (0: one row for all)
+  int shift;          // row of element e: (e >> shift) ^ flip
+  int flip;
+};
+
+// Rows of tile `tile` of both operands into shared memory, 16 bytes a
+// copy, consecutive threads on consecutive chunks of a row; rows at or
+// beyond n are zero.
+__device__ __forceinline__ void fetch(const Operand (&op)[2], int tile, int n,
+                                      uint32_t* stage) {
+  constexpr int CHUNKS = rns::LANES / 4;
+  for (int i = threadIdx.x; i < 2 * TILE * CHUNKS; i += rns::THREADS) {
+    const int o = i / (TILE * CHUNKS), r = (i / CHUNKS) % TILE,
+              c = i % CHUNKS;
+    const int e = tile * TILE + r;
+    const bool ok = e < n;
+    const long long row = ok ? (e >> op[o].shift) ^ op[o].flip : 0;
+    rns::cp_async16(stage + (o * TILE + r) * STAGE_WORDS + 4 * c,
+                    op[o].ptr + row * op[o].stride + 4 * c, ok);
   }
+  rns::cp_async_commit();
+}
+
+// four blocks an SM: up to 128 registers a thread, no spill
+__global__ void __launch_bounds__(rns::THREADS, 4)
+rns_mont_kernel(const Operand x, const Operand y, int* __restrict__ out,
+                int n, const uint32_t* __restrict__ consts, int k) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  uint32_t* stage = sm + rns::CONST_WORDS;
+  uint32_t* work = stage + 2 * TILE * STAGE_WORDS;
+  const Operand op[2] = {x, y};
+  const int tiles = (n + TILE - 1) / TILE;
+  int tile = blockIdx.x;
+  rns::stage(sm, consts, rns::CONST_WORDS);
+  if (tile < tiles) fetch(op, tile, n, stage);
+  const rns::Core C = rns::core_at(sm, work, k);
+  const uint32_t st = rns::smem(stage);
+  for (; tile < tiles; tile += gridDim.x) {
+    rns::cp_async_wait_all();
+    __syncthreads();
+    rns::Elem a, b, r;
+    rns::load_staged(C, st, a);
+    rns::load_staged(C, st + 4 * TILE * STAGE_WORDS, b);
+    __syncthreads();                  // every thread has its words
+    if (tile + gridDim.x < tiles) fetch(op, tile + gridDim.x, n, stage);
+    rns::mont_inline(C, a, b, r);
+    rns::store_rows(C, out, tile * TILE, n, r);
+  }
+}
+
+size_t smem_bytes() {
+  return (rns::CONST_WORDS + 2 * TILE * STAGE_WORDS + rns::WORK_WORDS) *
+         sizeof(uint32_t);
 }
 
 }  // namespace
 
 // x, y: rows of 128 int32 words, x_stride / y_stride words apart (0: one
-// row for all); out: dense [n, 128]; consts: device block of
-// const_words(k) words (rns_core.cuh).  Returns cudaGetLastError() of the
-// launch, or -1 for a channel count above 64.
+// row for all), 16-byte aligned; element e takes row (e >> x_shift) of x
+// and row (e ^ y_xor) of y; out: dense [n, 128]; consts: device block of
+// rns::CONST_WORDS words (rns_core.cuh).  Returns the CUDA error of the
+// set-up or the launch, or -1 for a channel count above 64 or a shift or
+// flip other than 0 or 1.
 extern "C" int gl_rns_mont(int k, const void* x, long long x_stride,
-                           const void* y, long long y_stride, void* out,
-                           int n, const void* consts, void* stream) {
+                           int x_shift, const void* y, long long y_stride,
+                           int y_xor, void* out, int n, const void* consts,
+                           void* stream) {
   if (n <= 0) return 0;
-  if (k < 1 || k > rns::B_ROW) return -1;
-  size_t smem = (rns::const_words(k) + WARPS * rns::B_ROW) * sizeof(uint32_t);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rns_mont_kernel,
-                                                WARPS * 32, smem);
-  int blocks = (n + WARPS - 1) / WARPS;
-  int resident = (per_sm > 0 ? per_sm : 1) * sms;
-  if (blocks > resident) blocks = resident;
-  rns_mont_kernel<<<blocks, WARPS * 32, smem, (cudaStream_t)stream>>>(
-      (const int*)x, x_stride, (const int*)y, y_stride, (int*)out, n,
-      (const uint32_t*)consts, k);
+  if (k < 1 || k > rns::B_ROW || (x_shift & ~1) || (y_xor & ~1)) return -1;
+  static int per_sm[64];            // resident blocks an SM, by device
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const size_t smem = smem_bytes();
+  if (e == cudaSuccess && dev < 64 && per_sm[dev] == 0) {
+    e = cudaFuncSetAttribute(rns_mont_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm[dev], rns_mont_kernel, rns::THREADS, smem);
+  }
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = (n + TILE - 1) / TILE;
+  int resident = (dev < 64 && per_sm[dev] > 0 ? per_sm[dev] : 1) * sms;
+  const int blocks = tiles < resident ? tiles : resident;
+  const Operand xo = {(const int*)x, x_stride, x_shift, 0};
+  const Operand yo = {(const int*)y, y_stride, 0, y_xor};
+  rns_mont_kernel<<<blocks, rns::THREADS, smem, (cudaStream_t)stream>>>(
+      xo, yo, (int*)out, n, (const uint32_t*)consts, k);
   return (int)cudaGetLastError();
 }

@@ -54,7 +54,8 @@ _SIGNATURES = {
     "gl_poseidon_permute": ("poseidon", [_i, _vp, _vp, _i, _vp, _i, _i, _i,
                                          _u32, _vp]),
     # the constant blocks are device buffers
-    "gl_rns_mont": ("rns_mont", [_i, _vp, _ll, _vp, _ll, _vp, _i, _vp, _vp]),
+    "gl_rns_mont": ("rns_mont", [_i, _vp, _ll, _i, _vp, _ll, _i, _vp, _i, _vp,
+                                 _vp]),
     "gl_ecr_pre": ("ec_rns", [_i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
                               _vp, _vp, _vp, _i, _vp, _vp, _vp]),
     "gl_ecr_post": ("ec_rns", [_i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp,

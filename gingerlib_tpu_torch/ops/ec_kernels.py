@@ -149,10 +149,13 @@ def _point_shape(x, n: int, nd: int):
 
 
 # The curve kernels' launches by batch width, beside ``launch_counts``:
-# {kernel: {width: launches}}; ``launches_by_class`` groups them.
+# {kernel: {width: launches}}; ``launches_by_class`` groups them.  The RNS
+# kernels (ops/rns_kernels.py, ops/ec_rns.py) count here too.
+RNS_KERNELS = ("rns_mont", "ecr_pre", "ecr_post")
 launch_widths = {k: {} for k in ("ec_proj_add", "ec_affine_pre",
                                  "ec_affine_post", "inv_tree_up",
-                                 "inv_tree_tail", "inv_tree_down")}
+                                 "inv_tree_tail", "inv_tree_down")
+                 + RNS_KERNELS}
 
 
 def reset_launch_widths():
@@ -165,16 +168,18 @@ def width_class(key: str, n: int) -> str:
     window fold's additions), 2 to 2^10, 2^10 + 1 to 2^15 (the Fenwick
     steps' 16,376 lanes and the projective tree's upper levels) or wider;
     for K5 and K6 one tile of the inversion ("1-2^9" up to ``INV_TILE``
-    lanes: the tail's widths), then octaves, "2^(e-1)-2^e" above 2^(e-1)
-    and up to 2^e."""
+    lanes: the tail's widths), for the RNS kernels up to 2^6 elements
+    (four tiles of 16: the RNS tree's narrow levels and roots), then
+    octaves, "2^(e-1)-2^e" above 2^(e-1) and up to 2^e."""
     if key == "ec_proj_add":
         if n == 1:
             return "1"
         if n <= 1 << 10:
             return "2-2^10"
         return "2^10-2^15" if n <= 1 << 15 else "over_2^15"
-    if n <= INV_TILE:
-        return f"1-2^{INV_TILE.bit_length() - 1}"
+    first = 1 << 6 if key in RNS_KERNELS else INV_TILE
+    if n <= first:
+        return f"1-2^{first.bit_length() - 1}"
     e = (n - 1).bit_length()
     return f"2^{e - 1}-2^{e}"
 

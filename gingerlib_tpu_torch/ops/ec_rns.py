@@ -14,7 +14,9 @@ on where its tensors live -- no fallback and no switch:
   product tree (up-sweep, root, down-sweep) whose multiplies are K7
   (``rns_kernels.mont_mul_rns``, the TPU's ``_ecr_tree_kernel``); dead
   lanes enter as ``one_tree``; the root is CRT'd to digits, inverted by
-  ``fp.inv_mod`` (K2) and re-entered times ``c_root``.
+  ``fp.inv_mod`` (K2) and re-entered times ``c_root``; each down-sweep
+  level is one K7 launch (``rns_kernels.mont_mul_rns_down``: each parent
+  times the sibling of each of its children).
 * ``ecr_post`` -> ``csrc/ec_rns.cu``; replaces ``_ecr_post_kernel``.  lambda,
   x3, y3 in RNS, exit by ``k_out``, CRT to canonical digits, the
   completeness selects.
@@ -91,26 +93,31 @@ class _Consts:
         return hit
 
     def kernel_block(self) -> np.ndarray:
-        """The curve's block of ``csrc/ec_rns.cu`` (uint32): rows
-        [5, 128], digits of p [64], digits of M_A [64], |2^16j|_m
-        [nd, 128], digits of M_A/m_i [k, 64]."""
+        """The curve's block of ``csrc/ec_rns.cu`` (uint32): rows [5, 128],
+        the digits of p, 2p and 3p [3, 64], the digits of M_A [64], then
+        the digits of M_A/m_i [64, 64] and |2^16j|_m [64, 128] (digit j
+        against the packed channel columns), both zero-padded and in
+        fragment order (``rns_kernels.mma_fragments``)."""
         ctx, nd, k = self.ctx, self.nd, self.ctx.k
-        if self.wdt > 64:
-            raise ValueError(f"CRT width {self.wdt} exceeds 64 digits")
-        pd = np.zeros(64, np.int64)
-        pd[:nd] = to_digits(self.p, nd)
+        if self.wdt > RK.KMAX:
+            raise ValueError(f"CRT width {self.wdt} exceeds {RK.KMAX} "
+                             f"digits")
+        kp = np.zeros((3, 64), np.int64)
+        for i in range(3):
+            kp[i, :nd + 1] = to_digits((i + 1) * self.p, nd + 1)
         D, MD = rns.crt_digit_matrices(ctx)
         md = np.zeros(64, np.int64)
         md[:self.wdt] = MD
         P2 = rns.pos_rns_matrix(ctx, nd)
-        p2 = np.zeros((nd, RK.LANES), np.int64)
-        p2[:, :k] = P2[:, :k]
-        p2[:, RK.B_ROW:RK.B_ROW + k] = P2[:, k:]
-        d = np.zeros((k, 64), np.int64)
-        d[:, :self.wdt] = D
+        p2 = np.zeros((RK.KMAX, RK.LANES), np.int64)
+        p2[:nd, :k] = P2[:, :k]
+        p2[:nd, RK.B_ROW:RK.B_ROW + k] = P2[:, k:]
         parts = [self.rows[name].astype(np.int64) for name in _EC_ROWS]
-        parts += [pd, md, p2.reshape(-1), d.reshape(-1)]
-        return np.concatenate(parts).astype(np.uint32)
+        parts += [kp.reshape(-1), md]
+        head = np.concatenate(parts).astype(np.uint32)
+        return np.concatenate([
+            head, RK.mma_fragments(RK.pad_matrix(D, RK.KMAX, 64)).reshape(-1),
+            RK.mma_fragments(p2).reshape(-1)])
 
     def device_block(self, device) -> torch.Tensor:
         key = ("block", str(device))
@@ -216,7 +223,7 @@ def ecr_pre_cuda(curve, x1, y1, x2, y2, inf1, inf2):
         *(o.data_ptr() for o in outs), inf3.data_ptr(), dead.data_ptr(), n,
         RK.device_consts(C.p, dev).data_ptr(),
         C.device_block(dev).data_ptr(), fpmod._raw_stream(outs[0]))
-    EK._launched(rc, "ecr_pre", "ecr_pre")
+    EK._launched(rc, "ecr_pre", "ecr_pre", n)
     return (*outs, inf3, dead)
 
 
@@ -299,7 +306,7 @@ def ecr_post_cuda(curve, num, dinv, x1r, y1r, x2r, x1, y1, x2, y2, inf1,
         x3.data_ptr(), y3.data_ptr(), n,
         RK.device_consts(C.p, dev).data_ptr(),
         C.device_block(dev).data_ptr(), fpmod._raw_stream(x3))
-    EK._launched(rc, "ecr_post", "ecr_post")
+    EK._launched(rc, "ecr_post", "ecr_post", n)
     return x3, y3
 
 
@@ -340,10 +347,9 @@ def tree_inverse_rns(curve, den, dead, plain: bool = False):
     inv_root = fpmod.inv_mod(params, root)                      # rho^-1 R^2
     inv = mul(p, RK.pack_rns(ctx, *rns.to_rns_digits(ctx, inv_root)),
               C.row("c_root", den.device))                      # rho^-1 M_A
-    for child in reversed(levels[:-1]):
-        left, right = child[0::2], child[1::2]
-        inv = torch.stack([mul(p, inv, right), mul(p, inv, left)],
-                          dim=1).reshape(child.shape)
+    down = RK.mont_mul_rns_down_plain if plain else RK.mont_mul_rns_down
+    for child in reversed(levels[:-1]):     # node i: parent i/2, sibling i^1
+        inv = down(p, inv, child)
     return inv[:n].masked_fill(dead[:, None], 0)
 
 

@@ -371,9 +371,11 @@ def from_rns_digits(ctx: RNSContext, ra, p_digits, nd: int):
     sub_n = L.normalize(alpha[:, None] * MD[None], nd_w + 1)
     diff, _borrow = L.sub_with_borrow(cols_n, sub_n)
     out = diff[:, :nd + 1]
-    pdw = torch.zeros(nd + 1, dtype=L.DTYPE, device=dev)
-    pdw[:nd] = torch.as_tensor(np.asarray(p_digits, np.int64), device=dev)
-    pd = pdw.expand(out.shape)
+    # p's digits, kept on the device: no copy from the host a call
+    pdn = np.zeros(nd + 1, np.int64)
+    pdn[:nd] = np.asarray(p_digits, np.int64)
+    pd = _table(ctx, "pd_" + pdn.tobytes().hex(), dev, lambda: pdn).expand(
+        out.shape)
     for _ in range(3):
         d, b = L.sub_with_borrow(out, pd)
         out = torch.where((b == 0)[:, None], d, out)

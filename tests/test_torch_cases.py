@@ -373,3 +373,27 @@ def inv_inputs(modulus: int, name: str, seed: int = 11) -> dict:
         "longest": [a for a, _, _ in INV_LONGEST[name]],
         "negative_rows": [a for a, _, _ in INV_NEGATIVE_ROWS[name]],
     }
+
+
+# ---------------------------------------------------------------------------
+# the RNS kernels' constant blocks
+# ---------------------------------------------------------------------------
+
+def from_fragments(frag, K, N):
+    """[K, N] from the B operand of mma.m16n8k32 with u8 elements in
+    fragment order [K/32, N/8, plane, lane, register]: lane 4 g + t holds
+    in register r the elements of rows 4 t + 16 r .. + 3 (of its k-step),
+    column g (of its n-tile), the first in the low byte."""
+    f = np.asarray(frag, np.int64).reshape(K // 32, N // 8, 2, 32, 2)
+    out = np.zeros((K, N), np.int64)
+    for s in range(K // 32):
+        for j in range(N // 8):
+            for lane in range(32):
+                g, t = divmod(lane, 4)
+                for r in range(2):
+                    for i in range(4):
+                        lo = f[s, j, 0, lane, r] >> (8 * i) & 0xFF
+                        hi = f[s, j, 1, lane, r] >> (8 * i) & 0xFF
+                        out[32 * s + 16 * r + 4 * t + i, 8 * j + g] = \
+                            lo | hi << 8
+    return out

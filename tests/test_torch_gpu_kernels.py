@@ -256,6 +256,91 @@ def test_rns_mont_matches_plain(cuda, name):
 
 
 # ---------------------------------------------------------------------------
+# K7 and K8 on tiles of 16 elements, inner products on the tensor cores
+# ---------------------------------------------------------------------------
+
+RNS_EDGES = [1, 15, 16, 17, 127, 128, 129, 1 << 15]
+
+
+@pytest.mark.parametrize("name", ["MNT4753_FQ", "BLS12_377_FQ"])
+def test_rns_mont_at_tile_edges(cuda, name):
+    """K7 against its plain version on 1 .. 2^15 elements around the tile
+    of 16: dense, strided, one row against all, the tree's paired
+    down-sweep, and rows with every residue at m_i - 1."""
+    import numpy as np
+    from gingerlib_tpu_torch import params as TP
+    from gingerlib_tpu_torch.ops import rns, rns_kernels as RK
+    p = getattr(TP, name).modulus
+    ctx = rns.make_context(p)
+    vals = [0, 1, p - 1] + [pow(7, k, p) for k in range(1, 126)]
+    base = RK.pack_rns(ctx, *rns.to_rns(ctx, vals, cuda))
+    m = torch.from_numpy(RK.kernel_consts(p)[:RK.LANES].astype(np.int64))
+    base[5] = torch.where(m > 1, m - 1, 0).to(torch.int32).to(cuda)
+    base[6] = base[5]
+    for n in RNS_EDGES:
+        x = base.repeat(-(-n // base.shape[0]), 1)[:n]
+        y = x.roll(3, 0)
+        wide = torch.zeros((n, 2 * RK.LANES), dtype=torch.int32,
+                           device=cuda)
+        wide[:, RK.LANES:] = y
+        for a, b in ((x, y), (x, y[:1]), (x, wide[:, RK.LANES:])):
+            assert torch.equal(RK.mont_mul_rns(p, a, b),
+                               RK.mont_mul_rns_plain(p, a, b)), n
+        if n % 2 == 0:
+            par = y[:n // 2]
+            assert torch.equal(RK.mont_mul_rns_down(p, par, x),
+                               RK.mont_mul_rns_down_plain(p, par, x)), n
+
+
+def test_rns_mont_chained_squarings_equal_pow(cuda):
+    """Six squarings through K7 from x M_A: each equals the plain version
+    and x^(2^i) M_A mod p below 3p."""
+    from gingerlib_tpu_torch import params as TP
+    from gingerlib_tpu_torch.ops import rns, rns_kernels as RK
+    p = TP.MNT4753_FQ.modulus
+    ctx = rns.make_context(p)
+    vals = [1, p - 1] + [pow(3, k, p) for k in range(1, 40)]
+    r2 = RK.pack_rns(ctx, *rns.to_rns(ctx, [ctx.MA * ctx.MA % p], cuda))
+    cur = RK.mont_mul_rns(p, RK.pack_rns(ctx, *rns.to_rns(ctx, vals, cuda)),
+                          r2)
+    want = list(vals)
+    for _ in range(6):
+        nxt = RK.mont_mul_rns(p, cur, cur)
+        assert torch.equal(nxt, RK.mont_mul_rns_plain(p, cur, cur))
+        cur, want = nxt, [w * w % p for w in want]
+        got = rns.from_rns(ctx, RK.unpack_rns(ctx, cur)[0])
+        assert all(g < 3 * p for g in got)
+        assert [g % p for g in got] == [w * ctx.MA % p for w in want]
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 127, 128, 129])
+def test_rns_affine_kernels_at_tile_edges(curve, points, n):
+    """K8's pre and post against their plain versions on n lanes around
+    the tile of 16, special lanes first (one lane: a doubling, then an
+    ordinary pair), with the tree's inverses between them."""
+    rns_curve = getattr(CI, curve.name)(ec_rns=True)
+    aff = tuple(torch.cat([c] * -(-max(n, 9) // N))[:max(n, 9)]
+                for c in points[1])
+    a_pt, b_pt = affine_pairs(curve, aff)
+    starts = [0, 8] if n == 1 else [0]
+    for s in starts:
+        (x1, y1), inf1 = ((c[s:s + n] for c in a_pt[0]), a_pt[1][s:s + n])
+        (x2, y2), inf2 = ((c[s:s + n] for c in b_pt[0]), b_pt[1][s:s + n])
+        pre = ER.ecr_pre(rns_curve, x1, y1, x2, y2, inf1, inf2)
+        for got, want in zip(pre, ER.ecr_pre_plain(rns_curve, x1, y1, x2,
+                                                   y2, inf1, inf2)):
+            assert torch.equal(got, want)
+        num, den, x1r, y1r, x2r, inf3, dead = pre
+        dinv = ER.tree_inverse_rns(rns_curve, den, dead)
+        assert torch.equal(dinv, ER.tree_inverse_rns(rns_curve, den, dead,
+                                                     plain=True))
+        args = (num, dinv, x1r, y1r, x2r, x1, y1, x2, y2, inf1, inf2, inf3)
+        for got, want in zip(ER.ecr_post(rns_curve, *args),
+                             ER.ecr_post_plain(rns_curve, *args)):
+            assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
 # K1 (tiles staged through shared memory) and K4 (a group of threads a lane)
 # ---------------------------------------------------------------------------
 

@@ -31,6 +31,7 @@ from gingerlib_tpu_torch.ops import limbs as tlimbs
 from gingerlib_tpu_torch.ops import rns as trns
 from gingerlib_tpu_torch.ops import rns_kernels as RK
 from gingerlib_tpu_torch.utils.convert import rns_from_numpy, rns_to_numpy
+from test_torch_cases import from_fragments
 
 torch.set_num_threads(1)
 PRIMES = {"p64": 0xFFFFFFFFFFFFFFC5, "mnt4_753": TP.MNT4753_FQ.modulus}
@@ -142,21 +143,47 @@ def test_k7_chained_squarings_equal_pow(field):
 
 def test_kernel_consts_hold_the_context():
     """The constant block of csrc/rns_core.cuh: rows (m = 1 outside the
-    channels) and the two extension matrices, exact integers."""
+    channels), the folded products and negated corrections, and the two
+    extension matrices, exact integers, read back out of the tensor cores'
+    fragment order."""
     p = TP.MNT4753_FQ.modulus
     ctx = trns.make_context(p)
+    k, B = ctx.k, RK.B_ROW
     block = RK.kernel_consts(p)
-    rows = block[:10 * RK.LANES].reshape(10, RK.LANES).astype(np.int64)
+    assert RK.N_ROWS == 11
+    rows = block[:RK.N_ROWS * RK.LANES].reshape(RK.N_ROWS, RK.LANES).astype(
+        np.int64)
     m = rows[0]
-    assert list(m[:ctx.k]) == list(ctx.mA) and \
-        list(m[RK.B_ROW:RK.B_ROW + ctx.k]) == list(ctx.mB)
-    assert (m[ctx.k:RK.B_ROW] == 1).all() and (m[RK.B_ROW + ctx.k:] == 1).all()
+    assert list(m[:k]) == list(ctx.mA) and list(m[B:B + k]) == list(ctx.mB)
+    assert (m[k:B] == 1).all() and (m[B + k:] == 1).all()
     assert all(int(mu) == (1 << 32) // int(v) for mu, v in
-               zip(rows[1, :ctx.k], m[:ctx.k]))
-    ext = block[10 * RK.LANES:].reshape(2, ctx.k, RK.B_ROW)
-    assert np.array_equal(ext[0, :, :ctx.k], ctx.extAB)
-    assert np.array_equal(ext[1, :, :ctx.k], ctx.extBA)
-    assert not ext[:, :, ctx.k:].any()
+               zip(rows[1, :k], m[:k]))
+    mA, mB = np.asarray(ctx.mA), np.asarray(ctx.mB)
+    named = dict(zip(("sig", "w", "qsig", "pB", "mainv", "tsig", "ncorrAB",
+                      "ncorrBA"), rows[2:10]))
+    want = {
+        "qsig": (np.asarray(ctx.negpinv_A) * np.asarray(ctx.sigA) % mA,
+                 None),
+        "pB": (None, np.asarray(ctx.p_B)),
+        "mainv": (None, np.asarray(ctx.MAinv_B)),
+        "tsig": (None, np.asarray(ctx.MAinv_B) * np.asarray(ctx.sigB) % mB),
+        "ncorrAB": (None, (mB - ctx.MA_modB.astype(np.int64)) % mB),
+        "ncorrBA": ((mA - ctx.MB_modA.astype(np.int64)) % mA, None),
+        "sig": (np.asarray(ctx.sigA), np.asarray(ctx.sigB)),
+        "w": (np.asarray(ctx.wA), np.asarray(ctx.wB)),
+    }
+    for name, (wa, wb) in want.items():
+        row = named[name]
+        assert np.array_equal(row[:k], wa if wa is not None else 0 * mA), name
+        assert np.array_equal(row[B:B + k], wb if wb is not None else 0 * mB)
+        assert not row[k:B].any() and not row[B + k:].any(), name
+    assert list(rows[10, :k]) == [(1 << 32) % v for v in ctx.mA]
+    ext = block[RK.N_ROWS * RK.LANES:].reshape(2, -1)
+    assert ext.shape[1] == RK.KMAX * RK.B_ROW // 2
+    for frag, want_mat in zip(ext, (ctx.extAB, ctx.extBA)):
+        mat = from_fragments(frag, RK.KMAX, RK.B_ROW)
+        assert np.array_equal(mat[:k, :k], want_mat)
+        assert not mat[k:].any() and not mat[:, k:].any()
 
 
 def test_k7_wrapper_refuses_cpu_tensors():

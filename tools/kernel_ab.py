@@ -3,7 +3,7 @@
 another checkout's, on one NVIDIA GPU, in turns.
 
     python3 tools/kernel_ab.py --other DIR \
-        [--sections k1,k4,k2,k5k6,end_to_end]
+        [--sections k1,k4,k2,k5k6,k7k8,end_to_end]
 
 DIR is a checkout of another commit (e.g. ``git archive <commit> | tar -x -C
 DIR``); only its ``gingerlib_tpu_torch/csrc`` is read.  Its ``mont_mul.cu``,
@@ -39,6 +39,18 @@ is dropped for it) and the inversion kernels from before the tiled tree
   lanes, every 97th element zero and every 61st lane at infinity; the
   other tree's affine kernels and inversion kernels (in a tree from before
   the tiled inversion, its runs of 8 driven as its wrapper drove them);
+* ``k7k8``: device time of the RNS multiply (K7) at 1, 64, 2^10, 2^16 and
+  2^20 elements and of the RNS addition's pre and post kernels (K8) on
+  MNT4-753 G1 at 2^10 .. 2^19 lanes (every 61st lane at infinity), the
+  other tree's kernels and constant blocks swapped into this tree's
+  wrappers (a tree from before the tensor-core core: its own C interface
+  and block layout, through adapters); then, for this tree, the RNS
+  addition against the positional one (``ec_kernels.batch_affine_add``) at
+  2^10 .. 2^18 lanes, host-paced (back-to-back calls between CUDA events)
+  and from a CUDA graph, with equal digits; and host-clock seconds of a
+  2^16-point RNS ``msm_affine`` over MNT4-753 G1 in each tree, each tree
+  in a process of its own (median of three after a warm-up; both points
+  must be equal);
 * ``end_to_end``: host-clock seconds of a 2^10-
   constraint MNT4-753 Groth16 setup and prove (checked against the
   python-int oracle), of the 2^16 rung's G1 fixed-base loop (768 steps over
@@ -73,8 +85,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True,
                     help="checkout of the commit to compare with")
-    ap.add_argument("--sections", default="k1,k4,k2,k5k6,end_to_end",
-                    help="comma-separated subset of k1, k4, k2, k5k6, "
+    ap.add_argument("--sections", default="k1,k4,k2,k5k6,k7k8,end_to_end",
+                    help="comma-separated subset of k1, k4, k2, k5k6, k7k8, "
                          "end_to_end")
     args = ap.parse_args()
     sections = set(args.sections.split(","))
@@ -379,11 +391,15 @@ def main():
             del x, ax, ay, a_pt, b_pt, x1, y1, x2, y2, num, den, dinv, \
                 post_args
         fp.use_kernels(k56["this"])
+    k7k8 = {}
+    if "k7k8" in sections:
+        k7k8 = rns_section(args.other, other_csrc, dev, checked, in_turns)
     print("exact " + json.dumps(checked), flush=True)
     print("k1 " + json.dumps(k1), flush=True)
     print("k4 " + json.dumps(k4), flush=True)
     print("k2 " + json.dumps(k2), flush=True)
     print("k5k6 " + json.dumps(k5k6), flush=True)
+    print("k7k8 " + json.dumps(k7k8), flush=True)
 
     if "end_to_end" in sections:
         from gingerlib_tpu_torch.circuits import benchmark_circuit
@@ -439,6 +455,233 @@ def main():
         print("end_to_end " + json.dumps(e2e), flush=True)
     print(card)
     return 0
+
+
+# A 2^16-point RNS msm_affine over MNT4-753 G1, timed in the tree of the
+# working directory: the JSON of (median seconds of three, the point's x).
+RNS_MSM = r"""
+import json, sys, time, torch
+sys.path.insert(0, ".")
+from gingerlib_tpu_torch.curves import instances as CI
+from gingerlib_tpu_torch.ops import limbs, msm
+g1, g1r = CI.mnt4753_g1(), CI.mnt4753_g1(ec_rns=True)
+n, fr = 1 << 16, g1.scalar_field
+ks = torch.randint(1, 1 << 32, (n,), dtype=torch.int64,
+                   generator=torch.Generator().manual_seed(13))
+sd = torch.stack([ks & 0xFFFF, ks >> 16], 1).cuda()
+ax, ay = g1.to_affine(msm.fixed_base_msm(g1, g1.generator_affine, sd))
+sc = torch.randint(0, 1 << 16, (n, fr.n_digits), dtype=torch.int64,
+                   generator=torch.Generator().manual_seed(11))
+sc[:, -1] = 0
+sc = sc.cuda()
+
+def run():
+    r = msm.msm_affine(g1r, ax, ay, sc)
+    torch.cuda.synchronize()
+    return r
+
+run()
+ts = []
+for _ in range(3):
+    t = time.perf_counter()
+    r = run()
+    ts.append(time.perf_counter() - t)
+x, _ = g1.to_affine(tuple(c[None] for c in r))
+print(json.dumps({"seconds": sorted(ts)[1], "runs": ts,
+                  "x": hex(limbs.from_digits_batch(x.reshape(1, -1).cpu())[0])}))
+"""
+
+
+def rns_section(other_root, other_csrc, dev, checked, in_turns):
+    """The ``k7k8`` section: returns its dict."""
+    import numpy as np
+    from gingerlib_tpu_torch.curves import instances as CI
+    from gingerlib_tpu_torch.fields import fp
+    from gingerlib_tpu_torch.ops import cuda_lib, ec_kernels, limbs, rns
+    from gingerlib_tpu_torch.ops import ec_rns as ER
+    from gingerlib_tpu_torch.ops import msm as msm_mod
+    from gingerlib_tpu_torch.ops import rns_kernels as RK
+    from gingerlib_tpu_torch.utils.timing import graph_ms
+
+    g1, g1r = CI.mnt4753_g1(), CI.mnt4753_g1(ec_rns=True)
+    C = ER.consts(g1r)
+    ctx, p, nd, k = C.ctx, C.p, C.nd, C.ctx.k
+    names = ("gl_rns_mont", "gl_ecr_pre", "gl_ecr_post")
+    libs = cuda_lib.build(other_csrc, os.path.join(cuda_lib.BUILD, "other"),
+                          ["rns_mont", "ec_rns"])
+    fns = {"this": {n: cuda_lib.function(n) for n in names}}
+    with open(os.path.join(other_csrc, "rns_core.cuh")) as f:
+        tiled = "mma" in f.read()
+    if tiled:
+        fns["other"] = {**cuda_lib.load(libs["rns_mont"], names[:1]),
+                        **cuda_lib.load(libs["ec_rns"], names[1:])}
+    else:
+        # the warp-an-element kernels: their constant blocks (ten rows,
+        # with -p^-1 and the corrections |M_A|, |M_B| where this tree folds
+        # and negates them; the extension matrices [k, 64]; the curve's
+        # rows, the digits of p and M_A, |2^16j|_m [nd, 128], the digits of
+        # M_A/m_i [k, 64]) and their multiply's C interface, without the
+        # row selection
+        new = RK.kernel_consts(p)[:RK.N_ROWS * RK.LANES].astype(
+            np.int64).reshape(RK.N_ROWS, RK.LANES)
+        rows = np.zeros((10, RK.LANES), np.int64)
+        rows[[0, 1, 2, 3, 5, 6, 9]] = new[[0, 1, 2, 3, 5, 6, 10]]
+        rows[4, :k] = ctx.negpinv_A                 # -p^-1, A words
+        rows[7, RK.B_ROW:RK.B_ROW + k] = ctx.MA_modB  # |M_A|, B words
+        rows[8, :k] = ctx.MB_modA                   # |M_B|, A words
+        ext = np.zeros((2, k, 64), np.int64)
+        ext[0, :, :k], ext[1, :, :k] = ctx.extAB, ctx.extBA
+        rc = np.concatenate([rows.reshape(-1), ext.reshape(-1)])
+        D, MD = rns.crt_digit_matrices(ctx)
+        pd, md = np.zeros(64, np.int64), np.zeros(64, np.int64)
+        pd[:nd], md[:C.wdt] = limbs.to_digits(p, nd), MD
+        P2 = rns.pos_rns_matrix(ctx, nd)
+        p2 = np.zeros((nd, RK.LANES), np.int64)
+        p2[:, :k], p2[:, RK.B_ROW:RK.B_ROW + k] = P2[:, :k], P2[:, k:]
+        d = np.zeros((k, 64), np.int64)
+        d[:, :C.wdt] = D
+        ec = np.concatenate([C.rows[r].astype(np.int64) for r in ER._EC_ROWS]
+                            + [pd, md, p2.reshape(-1), d.reshape(-1)])
+        old_rc, old_ec = (torch.from_numpy(b.astype(np.uint32).view(
+            np.int32)).to(dev) for b in (rc, ec))
+        lib = ctypes.CDLL(libs["rns_mont"])
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        old_mont = lib.gl_rns_mont
+        old_mont.argtypes = [i, vp, ll, vp, ll, vp, i, vp, vp]
+        old_mont.restype = i
+        old = cuda_lib.load(libs["ec_rns"], names[1:])
+
+        def mont(kk, x, xs, x_shift, y, ys, y_xor, out, n, consts, stream):
+            if x_shift or y_xor or kk != k:
+                raise ValueError("the other tree's K7 has no row selection")
+            return old_mont(kk, x, xs, y, ys, out, n, old_rc.data_ptr(),
+                            stream)
+
+        def pre(*a):
+            return old["gl_ecr_pre"](*a[:-3], old_rc.data_ptr(),
+                                     old_ec.data_ptr(), a[-1])
+
+        def post(*a):
+            return old["gl_ecr_post"](*a[:-3], old_rc.data_ptr(),
+                                      old_ec.data_ptr(), a[-1])
+
+        fns["other"] = {"gl_rns_mont": mont, "gl_ecr_pre": pre,
+                        "gl_ecr_post": post}
+
+    def both(fn):
+        res = {}
+        for tree in ("other", "this"):
+            fp.use_kernels(fns[tree])
+            res[tree] = fn()
+        fp.use_kernels(fns["this"])
+        torch.cuda.synchronize()
+        return res
+
+    def same(name, res):
+        a, b = res["other"], res["this"]
+        a = a if isinstance(a, tuple) else (a,)
+        b = b if isinstance(b, tuple) else (b,)
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{name}: the two trees differ")
+        checked.append(name)
+
+    def turns(fn, reps):
+        def one(tree):
+            fp.use_kernels(fns[tree])
+            return graph_ms(fn, reps)
+        out = in_turns(one)
+        fp.use_kernels(fns["this"])
+        return out
+
+    out = {"k7": {}, "k8": {}, "rns_against_positional": {}}
+    raw = torch.randint(0, 1 << 16, (1 << 16, nd), dtype=torch.int64,
+                        generator=torch.Generator().manual_seed(5))
+    raw[:, -1] = 0
+    x16 = RK.pack_rns(ctx, *rns.to_rns_digits(ctx, raw.to(dev)))
+    for n in (1, 64, 1 << 10, 1 << 16, 1 << 20):
+        x = x16.repeat(-(-n // x16.shape[0]), 1)[:n]
+        y = x.roll(1, 0)
+        same(f"rns_mont [{n}]", both(lambda: RK.mont_mul_rns(p, x, y)))
+        out["k7"][n] = turns(lambda: RK.mont_mul_rns(p, x, y),
+                             200 if n <= 1 << 10 else 20 if n <= 1 << 16
+                             else 5)
+        del x, y
+    ks = torch.randint(1, 1 << 32, (1 << 18,), dtype=torch.int64,
+                       generator=torch.Generator().manual_seed(7))
+    sd = torch.stack([ks & 0xFFFF, ks >> 16], 1).to(dev)
+    pts = g1.to_affine(msm_mod.fixed_base_msm(g1, g1.generator_affine, sd))
+    for e in range(10, 20):
+        n = 1 << e
+        copies = -(-n // (1 << 18))
+        ax, ay = (torch.cat([c] * copies)[:n] for c in pts)
+        inf = torch.zeros(n, dtype=torch.bool, device=dev)
+        inf[1::61] = True
+        a_pt = ((ax, ay), inf)
+        b_pt = ((ax.roll(1, 0), ay.roll(1, 0)), inf.roll(3, 0))
+        (x1, y1), inf1 = a_pt
+        (x2, y2), inf2 = b_pt
+        pre = both(lambda: ER.ecr_pre(g1r, x1, y1, x2, y2, inf1, inf2))
+        same(f"ecr_pre [{n}]", pre)
+        num, den, x1r, y1r, x2r, inf3, dead = pre["this"]
+        dinv = ER.tree_inverse_rns(g1r, den, dead)
+        args = (num, dinv, x1r, y1r, x2r, x1, y1, x2, y2, inf1, inf2, inf3)
+        same(f"ecr_post [{n}]", both(lambda: ER.ecr_post(g1r, *args)))
+        reps = 20 if n <= 1 << 16 else 5
+        out["k8"][n] = {
+            "pre": turns(lambda: ER.ecr_pre(g1r, x1, y1, x2, y2, inf1,
+                                            inf2), reps),
+            "post": turns(lambda: ER.ecr_post(g1r, *args), reps)}
+        if n <= 1 << 18:
+            got = g1r.batch_affine_add(a_pt, b_pt)
+            want = ec_kernels.batch_affine_add(g1, a_pt, b_pt)
+            if not (torch.equal(got[0][0], want[0][0])
+                    and torch.equal(got[0][1], want[0][1])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(f"RNS and positional additions differ "
+                                     f"at {n} lanes")
+            checked.append(f"batch_affine_add rns = positional [{n}]")
+            rns_add = lambda: g1r.batch_affine_add(a_pt, b_pt)
+            pos_add = lambda: ec_kernels.batch_affine_add(g1, a_pt, b_pt)
+            reps = 10 if n <= 1 << 16 else 3
+            row = {}
+            for label, fn in (("rns", rns_add), ("positional", pos_add),
+                              ("rns_again", rns_add),
+                              ("positional_again", pos_add)):
+                row[label + "_ms"] = event_ms(fn, reps)
+                row[label + "_device_ms"] = graph_ms(fn, reps)
+            out["rns_against_positional"][n] = row
+        del ax, ay, a_pt, b_pt, x1, y1, x2, y2, pre, num, den, dinv, args
+    runs = {}
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for tree in ("other", "this", "this", "other"):
+        res = subprocess.run([sys.executable, "-c", RNS_MSM],
+                             cwd=other_root if tree == "other" else here,
+                             capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError(f"RNS msm_affine in {tree}: {res.stderr}")
+        runs.setdefault(tree, []).append(json.loads(
+            res.stdout.strip().splitlines()[-1]))
+    if len({r["x"] for v in runs.values() for r in v}) != 1:
+        raise AssertionError("the trees' RNS msm_affine points differ")
+    checked.append("msm_affine rns 2^16 point")
+    out["msm_affine_rns_2p16_s"] = {
+        tree: [r["seconds"] for r in v] for tree, v in runs.items()}
+    return out
+
+
+def event_ms(fn, reps):
+    """Milliseconds a call of back-to-back calls between CUDA events, after
+    a warm-up: the host's pace included."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
 
 
 if __name__ == "__main__":
