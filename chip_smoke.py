@@ -40,8 +40,12 @@ What it does, in order (any failure raises, so the exit code is non-zero):
    post at the widths it launched them (``ec_rns_by_width`` line: time,
    bound and loss by class of widths); then the pow
    chain at [1, 48] and [4096, 48] (Legendre and square-root exponents of
-   MNT4-753 Fq and Fr, a short one) and the Poseidon permutation on the zero
-   state and on 2^15 seeded sponges with special lanes, both parameter sets;
+   MNT4-753 Fq and Fr, a short one; the launcher's window must be
+   ``fp.pow_window``'s, and the bound counts that window's chain, the
+   binary ladder's beside it as ``bound_ms_before``) and the Poseidon
+   permutation on the zero state and on 2^15 seeded sponges with special
+   lanes, both parameter sets, with the sponges a block (S) its launcher
+   took, which must be ``poseidon_kernels.block_sponges``'s;
 4. drives the port's paths through their public entry points: Groth16 over
    MNT4-753 on the chained-multiplication benchmark circuit at 2^6, 2^10 and
    2^16 constraints (4 inputs): ``compile_r1cs`` -> ``generate_parameters``
@@ -49,7 +53,10 @@ What it does, in order (any failure raises, so the exit code is non-zero):
    points an MSM is a double-and-add loop; the 2^16 rung goes through the
    Pippenger paths and the curve kernels); ``legendre`` and ``sqrt_mod`` on
    2^12 elements of MNT4-753 Fr and Fq; and a 2^16-leaf MNT4-753 Poseidon
-   Merkle tree of height 17 (``merkle`` line); after the 2^16 rung, the
+   Merkle tree of height 17 (``merkle`` line: one K9 launch a level, 16,
+   and 32 additions, asserted), then K9 at each of the tree's level widths
+   (``poseidon_by_width`` line: S, device time, bound and loss a width);
+   after the 2^16 rung, the
    inversion tree's three kernels and the affine addition's two at the
    widths that rung launched them (``inv_tree_by_width`` and
    ``ec_affine_by_width`` lines: time and loss by class of widths);
@@ -59,7 +66,8 @@ What it does, in order (any failure raises, so the exit code is non-zero):
    with python ints; the tree equals the one the plain permutation builds on
    the device, sixteen sampled paths verify and hash to its root in python
    ints, a wrong leaf is refused, a 2^10-leaf tree equals the python-int tree
-   node for node, and the phantom root holds; and the launch counters, set to
+   node for node, and the phantom root holds; the field API launches K3
+   once a call (4); and the launch counters, set to
    zero before each path, show that every kernel was launched on the path
    that reaches it (K7 and K8 on the RNS path);
 6. prints the kernel table as one JSON line, and as the last line
@@ -74,12 +82,14 @@ with the kernels, and a check that both give the same proof.
 """
 
 import argparse
+import ctypes
 import json
 import os
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 TOXIC = dict(alpha=123, beta=456, gamma=789, delta=1011, t=314159)
@@ -1556,10 +1566,15 @@ def main():
 
     POW_N = 1 << 12          # the field-API phase's batch
 
+    pow_window = cuda_lib.function("gl_pow_const_window")
+
     def pow_section():
         """K3 against ``pow_const_plain`` at [1, 48] and [4096, 48] for the
         Legendre and square-root exponents of MNT4-753 Fq and Fr and one
-        short exponent; returns (max error, the rows)."""
+        short exponent; returns (max error, the rows).  Each row's bound
+        counts the chain the kernel runs (its window's multiplies, the
+        launcher's own count, which must be ``fp.pow_window``'s), and
+        ``bound_ms_before`` the binary ladder's bits + popcount."""
         cases = []
         for F in (fq, fr):
             cases += [(F, "legendre", F.legendre_exp_bits),
@@ -1572,6 +1587,14 @@ def main():
             a[:3] = torch.from_numpy(limbs.to_digits_batch(
                 [0, F.r, F.modulus - 1], F.n_digits)).to(dev)
             nbits, ones = len(bits), int(bits.sum())
+            w, _ = fp.pow_window(bits)
+            muls = fp.pow_window_muls(bits, w)
+            b = np.ascontiguousarray(bits, dtype=np.uint8)
+            kmuls = ctypes.c_int()
+            if (pow_window(b.ctypes.data, b.size, ctypes.byref(kmuls)),
+                    kmuls.value) != (w, muls):
+                raise AssertionError(f"pow_const {label}: the launcher's "
+                                     f"window is not fp.pow_window's")
             for n in (1, POW_N):
                 x = a[5:6] if n == 1 else a
                 got = fp.pow_const(F, x, bits)
@@ -1580,16 +1603,22 @@ def main():
                 case_err = compare(f"pow_const {F.name} {label} [{n},48]",
                                    got, want)
                 err = max(err, case_err)
-                # bits squarings and popcount multiplies an element
-                b_ms, b_by = bound(2 * n * elem_bytes,
-                                   n * (nbits + ones) * MUL_OPS)
+                # the window chain's multiplies an element; the ladder's
+                # bits squarings and popcount multiplies before it
+                b_ms, b_by = bound(2 * n * elem_bytes, n * muls * MUL_OPS)
+                old_ms, _ = bound(2 * n * elem_bytes,
+                                  n * (nbits + ones) * MUL_OPS)
                 rows.append({"field": F.name, "exponent": label,
-                             "bits": nbits, "rows": n,
+                             "bits": nbits, "rows": n, "window": w,
+                             "multiplies": muls,
+                             "ladder_multiplies": nbits + ones,
                              "max_abs_err": case_err,
                              "ms": time_ms(lambda: fp.pow_const(F, x, bits),
                                            5),
+                             "device_ms": graph_ms(
+                                 lambda: fp.pow_const(F, x, bits), 5),
                              "plain_ms": plain_s * 1e3, "bound_ms": b_ms,
-                             "bound_by": b_by})
+                             "bound_by": b_by, "bound_ms_before": old_ms})
         for small in (PP.BLS12_377_FQ, PP.BLS12_377_FR):
             _, x = field_elems(small, 64, seed=22)
             bits = small.legendre_exp_bits
@@ -1636,6 +1665,18 @@ def main():
         inv = sum(inv_ops(v, P.field.modulus) for v in roots)
         return (2 * n * 3 * elem_bytes, muls * MUL_OPS + adds * 2 * L + inv)
 
+    SMS = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def block_s(n):
+        """The sponges a block K9's launcher takes for a batch of n (its
+        own answer, which must be ``block_sponges``'s)."""
+        s_ = PK.block_sponges_cuda(n)
+        if s_ != PK.block_sponges(n, SMS):
+            raise AssertionError(f"poseidon: the launcher takes S = {s_} "
+                                 f"at {n} sponges, block_sponges says "
+                                 f"{PK.block_sponges(n, SMS)}")
+        return s_
+
     def poseidon_section():
         """K9 against ``permute_plain``: the zero state of both parameter
         sets, then 2^15 seeded sponges with special lanes, some lanes also
@@ -1678,7 +1719,8 @@ def main():
                     raise AssertionError(f"poseidon {name} lane {i}: not the "
                                          f"python-int permutation")
             b_ms, b_by = bound(*permute_work(P, POS_B, roots))
-            row = {"params": name, "sponges": POS_B, "max_abs_err": err,
+            row = {"params": name, "sponges": POS_B,
+                   "S": block_s(POS_B), "max_abs_err": err,
                    "ms": time_ms(lambda: PK.permute(P, state), 5),
                    "device_ms": graph_ms(lambda: PK.permute(P, state), 3),
                    "plain_ms": plain_s * 1e3, "bound_ms": b_ms,
@@ -1692,6 +1734,7 @@ def main():
             _, roots1 = plain_permute_roots(P, state[6:7])
             b1_ms, b1_by = bound(*permute_work(P, 1, roots1))
             row["one_sponge"] = {
+                "S": block_s(1),
                 "ms": time_ms(lambda: PK.permute(P, state[6:7]), 10),
                 "device_ms": graph_ms(lambda: PK.permute(P, state[6:7]), 10),
                 "plain_ms": plain1_s * 1e3, "bound_ms": b1_ms,
@@ -1721,8 +1764,18 @@ def main():
             # no PyTorch call computes a modular power or a permutation
             "library_ms": None,
         })
+        kernels[-1]["device_ms"] = row["device_ms"]
         if name == "poseidon_permute":
-            kernels[-1]["device_ms"] = row["device_ms"]
+            kernels[-1]["S"] = row["S"]
+        else:
+            kernels[-1]["window"] = row["window"]
+            kernels[-1]["bound_ms_before"] = row["bound_ms_before"]
+            kernels[-1]["by_rows"] = [
+                {key: r[key] for key in (
+                    "rows", "window", "ms", "device_ms", "plain_ms",
+                    "bound_ms", "bound_ms_before", "max_abs_err")}
+                for r in pow_rows if r["field"] == fq.name
+                and r["exponent"] == "legendre"]
 
     # ------------------------------------------------------------------
     # 4./5. the main path
@@ -1911,6 +1964,9 @@ def main():
         out["seconds"] = time.perf_counter() - t
         out["path_launches"] = {k: v for k, v in fp.launch_counts.items()
                                 if v}
+        if out["path_launches"].get("pow_const") != 4:
+            raise AssertionError(f"field API: {out['path_launches']} K3 "
+                                 f"launches, not one a call (4)")
         for name, (F, vals, _) in inputs.items():
             leg, root, ok = results[name]
             p_ = F.modulus
@@ -1965,6 +2021,7 @@ def main():
         leaves = torch.from_numpy(fp.fp_from_ints(F, leaf_ints)).to(dev)
         out = {"leaves": n, "height": height}
         fp.reset_launch_counts()
+        PK.launch_widths.clear()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1973,6 +2030,14 @@ def main():
         out["build_first_s"] = time.perf_counter() - t
         out["path_launches"] = {k: v for k, v in fp.launch_counts.items()
                                 if v}
+        out["poseidon_launches_by_width"] = dict(sorted(
+            PK.launch_widths.items()))
+        # one K9 launch a level (a permutation a launch), two additions a
+        # level's sponge
+        if out["path_launches"] != {"fp_add": 2 * log2,
+                                    "poseidon_permute": log2}:
+            raise AssertionError(f"merkle: launches {out['path_launches']}, "
+                                 f"not {log2} K9 and {2 * log2} add")
         out["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
         hashes = n - 1 + len(tree.padding)
         t = time.perf_counter()
@@ -2038,6 +2103,36 @@ def main():
     merkle = merkle_rung()
     print("merkle " + json.dumps(merkle), flush=True)
 
+    def poseidon_by_width(widths):
+        """K9 at each width the Merkle rung launched it (its levels, 2^15
+        sponges down to one), on seeded states: held to the plain version,
+        the launcher's S, device time, the bound (the function's own work
+        at that width: one shared inversion a round) and the loss, the
+        launches x (device time - bound)."""
+        F = P4.field
+        _, flat = field_elems(F, 3 * max(widths), seed=24)
+        states = fp.to_mont(F, flat).reshape(-1, 3, nd)
+        rows = []
+        for n, launches in sorted(widths.items()):
+            x = states[:n]
+            want, roots = plain_permute_roots(P4, x)
+            compare(f"poseidon by width [{n},3,48]", PK.permute(P4, x),
+                    want)
+            b_ms, b_by = bound(*permute_work(P4, n, roots))
+            row = {"kernel": "poseidon_permute", "width": n,
+                   "launches": launches, "S": block_s(n),
+                   "device_ms": graph_ms(lambda: PK.permute(P4, x),
+                                         2 if n > 1 << 12 else 3),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            row["loss_ms"] = launches * (row["device_ms"] - b_ms)
+            rows.append(row)
+        return {"rows": rows, "loss_ms": sum(r["loss_ms"] for r in rows),
+                "device_ms": sum(r["launches"] * r["device_ms"]
+                                 for r in rows)}
+
+    k9_by_width = poseidon_by_width(merkle["poseidon_launches_by_width"])
+    print("poseidon_by_width " + json.dumps(k9_by_width), flush=True)
+
     if args.time_plain_addsub:
         def setup_and_prove():
             torch.cuda.synchronize()
@@ -2090,6 +2185,8 @@ def main():
                                          "ms", "device_ms", "bound_ms",
                                          "loss_ms")}
                 for r in k6_by_width + k5_by_width if r["kernel"] == name]
+        if name == "poseidon_permute":
+            k["by_width"] = k9_by_width["rows"]
         if k["launches"] <= 0:
             raise AssertionError(f"the main path never launched {name}")
 

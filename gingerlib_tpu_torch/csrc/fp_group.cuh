@@ -17,11 +17,13 @@
 //
 // The results equal those of the one-thread forms in fp_limbs.cuh digit for
 // digit on every input (the same integer steps; only their placement
-// differs).
+// differs).  The inverse over a group is fp_inv.cuh's inv_divsteps_grp,
+// with GrpComm below as its communicator.
 #pragma once
 
 #include <stdint.h>
 
+#include "fp_inv.cuh"
 #include "fp_limbs.cuh"
 
 namespace gl {
@@ -243,6 +245,85 @@ __device__ __forceinline__ void grp_mont_mul(
   grp_cond_sub_p<L, G>(g, r, top, p);
 }
 
+// r = (a0 b0 + a1 b1 + a2 b2) R^-1 mod p: three products and ONE
+// Montgomery reduction, by the same CIOS rows as grp_mont_mul with the
+// three products' limbs added in each row (a dot product of three, as the
+// Poseidon mix takes it).  Every operand below p and 3p < R, so the sum of
+// the products is below 3 p^2 < R p and the result, below 2p before the
+// last subtraction, is canonical: the residue the three multiplies and two
+// additions give.  The deferred carry C stays below 6.
+template <int L, int G>
+__device__ __forceinline__ void grp_mont_sum3(
+    const Grp<L, G>& g, const uint32_t (&a0)[Grp<L, G>::M],
+    const uint32_t (&b0)[Grp<L, G>::M], const uint32_t (&a1)[Grp<L, G>::M],
+    const uint32_t (&b1)[Grp<L, G>::M], const uint32_t (&a2)[Grp<L, G>::M],
+    const uint32_t (&b2)[Grp<L, G>::M], const uint32_t (&p)[Grp<L, G>::M],
+    uint32_t inv, uint32_t (&r)[Grp<L, G>::M]) {
+  constexpr int M = Grp<L, G>::M;
+  uint32_t t[M];
+#pragma unroll
+  for (int j = 0; j < M; j++) t[j] = 0;
+  uint32_t C = 0;
+
+#pragma unroll
+  for (int i = 0; i < L; i++) {
+    const uint32_t x0 = g.shfl(b0[i % M], i / M);
+    const uint32_t x1 = g.shfl(b1[i % M], i / M);
+    const uint32_t x2 = g.shfl(b2[i % M], i / M);
+    uint64_t top = C;
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < M; j++) {
+      uint64_t s = (uint64_t)a0[j] * x0 + t[j] + c;
+      t[j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    top += c;
+    c = 0;
+#pragma unroll
+    for (int j = 0; j < M; j++) {
+      uint64_t s = (uint64_t)a1[j] * x1 + t[j] + c;
+      t[j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    top += c;
+    c = 0;
+#pragma unroll
+    for (int j = 0; j < M; j++) {
+      uint64_t s = (uint64_t)a2[j] * x2 + t[j] + c;
+      t[j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    top += c;
+    const uint32_t m = g.shfl(t[0] * inv, 0);
+    c = 0;
+#pragma unroll
+    for (int j = 0; j < M; j++) {
+      uint64_t s = (uint64_t)m * p[j] + t[j] + c;
+      t[j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    top += c;
+    const uint32_t below = g.from_above(t[0]);
+#pragma unroll
+    for (int j = 0; j < M - 1; j++) t[j] = t[j + 1];
+    top += below;
+    t[M - 1] = (uint32_t)top;
+    C = (uint32_t)(top >> 32);
+  }
+
+  // the deferred carries, as grp_mont_mul resolves them (a part that
+  // carries after adding C of the rank below holds less than 6)
+  const uint32_t top_c = g.shfl(C, G - 1);
+  const uint32_t e = part_add_word<M>(t, g.from_below(C));
+  uint32_t out;
+  part_add_word<M>(t, g.lookahead(e != 0, part_ones<M>(t), out));
+  const uint32_t top = top_c + out;
+#pragma unroll
+  for (int j = 0; j < M; j++) r[j] = t[j];
+  grp_cond_sub_p<L, G>(g, r, top, p);
+}
+
 // Rows of the boundary layout: the thread of rank g reads and writes the
 // digits of its own limbs, a contiguous 16*M bytes; the group covers the row.
 template <int L, int G>
@@ -257,6 +338,97 @@ __device__ __forceinline__ void grp_store(const Grp<L, G>& g,
                                           long long* __restrict__ row,
                                           const uint32_t (&x)[Grp<L, G>::M]) {
   store_digits<Grp<L, G>::M>(row + 2 * Grp<L, G>::M * g.rank, x);
+}
+
+// Parts in shared memory: value e of an array of L-limb values at word
+// offset `base` of `sh`, the thread's own limbs only (so a group needs no
+// barrier between its own store and load of a value).
+template <int L, int G>
+__device__ __forceinline__ void grp_ld_sh(const Grp<L, G>& g,
+                                          const uint32_t* sh, int e,
+                                          uint32_t (&x)[Grp<L, G>::M]) {
+  constexpr int M = Grp<L, G>::M;
+  const uint32_t* s = sh + e * L + g.rank * M;
+#pragma unroll
+  for (int j = 0; j < M; j++) x[j] = s[j];
+}
+
+template <int L, int G>
+__device__ __forceinline__ void grp_st_sh(const Grp<L, G>& g, uint32_t* sh,
+                                          int e,
+                                          const uint32_t (&x)[Grp<L, G>::M]) {
+  constexpr int M = Grp<L, G>::M;
+  uint32_t* s = sh + e * L + g.rank * M;
+#pragma unroll
+  for (int j = 0; j < M; j++) s[j] = x[j];
+}
+
+template <int M>
+__device__ __forceinline__ void part_copy(const uint32_t (&a)[M],
+                                          uint32_t (&r)[M]) {
+#pragma unroll
+  for (int j = 0; j < M; j++) r[j] = a[j];
+}
+
+// r = c ? a : b, limb by limb
+template <int M>
+__device__ __forceinline__ void part_select(bool c, const uint32_t (&a)[M],
+                                            const uint32_t (&b)[M],
+                                            uint32_t (&r)[M]) {
+#pragma unroll
+  for (int j = 0; j < M; j++) r[j] = c ? a[j] : b[j];
+}
+
+// The communicator of fp_inv.cuh's inv_divsteps_grp on the card: each
+// thread is its own rank (one slot), over the group's shuffles and ballots.
+template <int L, int G>
+struct GrpComm {
+  static constexpr int N = 1;
+  Grp<L, G> g;
+
+  template <class F>
+  __device__ __forceinline__ void each(F f) const {
+    f(g.rank);
+  }
+  __device__ __forceinline__ Lanes<uint32_t, 1> shfl(
+      const Lanes<uint32_t, 1>& v, int src) const {
+    Lanes<uint32_t, 1> o;
+    o.v[0] = g.shfl(v.v[0], src);
+    return o;
+  }
+  __device__ __forceinline__ Lanes<uint32_t, 1> from_above(
+      const Lanes<uint32_t, 1>& v) const {
+    Lanes<uint32_t, 1> o;
+    o.v[0] = g.from_above(v.v[0]);
+    return o;
+  }
+  __device__ __forceinline__ Lanes<uint32_t, 1> from_below(
+      const Lanes<uint32_t, 1>& v) const {
+    Lanes<uint32_t, 1> o;
+    o.v[0] = g.from_below(v.v[0]);
+    return o;
+  }
+  __device__ __forceinline__ uint32_t bits(const Lanes<bool, 1>& p) const {
+    return g.bits(p.v[0]);
+  }
+};
+
+// r = a^-1 mod p (0 -> 0) for a plain a < p, over the group: parts in
+// registers, pinv = -p^-1 mod 2^32.  Returns the passes run.
+template <int L, int G>
+__device__ __forceinline__ int grp_inv(const Grp<L, G>& g,
+                                       const uint32_t (&a)[Grp<L, G>::M],
+                                       const uint32_t (&p)[Grp<L, G>::M],
+                                       uint32_t pinv,
+                                       uint32_t (&r)[Grp<L, G>::M]) {
+  constexpr int M = Grp<L, G>::M;
+  GrpComm<L, G> c{g};
+  Lanes<Part<M>, 1> la, lp, lr;
+  part_copy<M>(a, la.v[0].w);
+  part_copy<M>(p, lp.v[0].w);
+  const int passes = inv_divsteps_grp<L, G>(c, la, lp, pinv, lr);
+  part_copy<M>(lr.v[0].w, r);
+  return passes;
 }
 
 }  // namespace gl

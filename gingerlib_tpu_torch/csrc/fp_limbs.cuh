@@ -1,10 +1,10 @@
 // Prime-field arithmetic on 32-bit limbs held in registers, one field element
 // per CUDA thread.  Shared by every kernel of the library: Montgomery
 // multiply, modular add/sub/neg (register forms and the tile loop, first
-// part), affine curve additions, inversion trees, pow chains and Poseidon
-// (memory-resident forms, second part).  The projective addition spreads
-// each element over a group of threads (fp_group.cuh); the inverse of one
-// element is fp_inv.cuh.
+// part), affine curve additions and inversion trees (the multiply's
+// memory-resident form, second part).  The projective addition, the pow
+// chain and Poseidon spread each element over a group of threads
+// (fp_group.cuh); the inverse of one element is fp_inv.cuh.
 //
 // Boundary layout (see gingerlib_tpu_torch/fields/fp.py): an element is ND
 // little-endian 16-bit digits, each stored in an int64, so R = 2^(16*ND).
@@ -378,11 +378,11 @@ __device__ __forceinline__ void mont_mul(const uint32_t (&a)[L],
 }
 
 // ---------------------------------------------------------------------------
-// Memory-resident forms, for kernels that chain many field operations (curve
-// additions, inversion trees).  Such a kernel keeps its field elements as
-// L-limb arrays in thread-local memory and calls these functions, which are
-// NOT inlined: each loads its operands into registers, runs the register
-// form above and stores the result.  A curve addition then costs the
+// The memory-resident multiply, for kernels that chain many field
+// operations (the inversion tree).  Such a kernel keeps its field elements
+// as L-limb arrays in thread-local or shared memory and calls this
+// function, which is NOT inlined: it loads its operands into registers,
+// runs the register form above and stores the result.  A curve addition then costs the
 // registers of ONE multiply (not of a dozen inlined ones with all their
 // operands alive), its code stays small, and the extra traffic -- 3L words
 // of cached local memory per multiply against 2*L*L + L multiply-adds -- is
@@ -441,42 +441,6 @@ __device__ __noinline__ void mont_mul_mem(const uint32_t* a, const uint32_t* b,
   mont_mul<L>(x, y, m, inv, o);
 #pragma unroll
   for (int i = 0; i < L; i++) r[i] = o[i];
-}
-
-template <int L>
-__device__ __noinline__ void add_mod_mem(const uint32_t* a, const uint32_t* b,
-                                         const uint32_t* p, uint32_t* r) {
-  uint32_t x[L], y[L], m[L], o[L];
-#pragma unroll
-  for (int i = 0; i < L; i++) {
-    x[i] = a[i];
-    y[i] = b[i];
-    m[i] = p[i];
-  }
-  add_mod<L>(x, y, m, o);
-#pragma unroll
-  for (int i = 0; i < L; i++) r[i] = o[i];
-}
-
-template <int L>
-__device__ __noinline__ void sub_mod_mem(const uint32_t* a, const uint32_t* b,
-                                         const uint32_t* p, uint32_t* r) {
-  uint32_t x[L], y[L], m[L], o[L];
-#pragma unroll
-  for (int i = 0; i < L; i++) {
-    x[i] = a[i];
-    y[i] = b[i];
-    m[i] = p[i];
-  }
-  sub_mod<L>(x, y, m, o);
-#pragma unroll
-  for (int i = 0; i < L; i++) r[i] = o[i];
-}
-
-template <int L>
-__device__ __forceinline__ void copy_limbs(const uint32_t* src, uint32_t* dst) {
-#pragma unroll
-  for (int i = 0; i < L; i++) dst[i] = src[i];
 }
 
 template <int L>

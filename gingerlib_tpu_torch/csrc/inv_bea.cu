@@ -5,7 +5,7 @@
 // The TPU kernel runs a fixed bound of masked binary-Euclid iterations over
 // a whole tile because its lanes cannot branch.  Here each thread inverts
 // its own element by batched divsteps, gl::inv_divsteps of fp_inv.cuh (the
-// Poseidon kernel, poseidon.cu, runs the same function per sponge): each
+// Poseidon kernel, poseidon.cu, runs its group form on a block's root): each
 // pass runs 31 divsteps on 64-bit approximations of x and y in registers,
 // then applies their 2x2 matrix to the full-width x, y and to the Bezout
 // coefficients u, v mod p (x, y, u, v: 4 L words in registers), until

@@ -44,10 +44,12 @@ Kernels held here (source notes in the ``.cu`` files):
   their own (XLA fused them), added because eager launches of their plain
   form would dominate the prover.  Bound by bytes; streamed as the multiply
   is.
-* ``pow_const`` -> ``csrc/pow_const.cu``; replaces ``pow_const_pallas``.  One
-  thread per element runs the whole square-and-multiply ladder of a fixed
-  exponent in one launch; bound by its multiplies (``bits + popcount`` an
-  element), a dependent chain per thread.  It carries ``legendre`` and
+* ``pow_const`` -> ``csrc/pow_const.cu``; replaces ``pow_const_pallas``.  A
+  group of threads per element runs the whole chain of a fixed exponent in
+  one launch, by a fixed window that the launcher picks from the exponent
+  (``pow_window``: w = 5 and ~927 multiplies an element at 753 bits, where
+  the plain version's binary ladder takes ``bits + popcount``); bound by
+  that chain, a dependent one per element.  It carries ``legendre`` and
   ``sqrt_mod``.
 
 Each wrapper counts its launches in ``launch_counts``.
@@ -584,6 +586,38 @@ def inv_mod(params: FpParams, a):
 # ---------------------------------------------------------------------------
 
 POW_MAX_BITS = 1024   # the longest exponent the kernel takes
+POW_MAX_WINDOW = 5    # the widest window the kernel's table takes
+
+
+def pow_window_muls(exp_bits, w: int) -> int:
+    """Multiplies of the pow kernel's fixed-window chain at window ``w``
+    for an MSB-first bit array: the table a^2 .. a^(2^w - 1) (2^w - 2),
+    then w squarings a digit and one multiply a non-zero digit after the
+    first non-zero one (``pow_window``); 0 for an exponent without a set
+    bit."""
+    digits = _window_digits(exp_bits, w)
+    nz = [k for k, d in enumerate(digits) if d]
+    if not nz:
+        return 0
+    return w * (len(digits) - 1 - nz[0]) + len(nz) - 1 + (1 << w) - 2
+
+
+def _window_digits(exp_bits, w: int):
+    bits = [int(b != 0) for b in np.asarray(exp_bits).reshape(-1).tolist()]
+    bits = [0] * (-len(bits) % w) + bits
+    return [int("".join(map(str, bits[k:k + w])), 2)
+            for k in range(0, len(bits), w)]
+
+
+def pow_window(exp_bits):
+    """(w, digits) of the pow kernel's chain for an MSB-first bit array, as
+    its launcher (``csrc/pow_const.cu``) picks them: the w in 1 ..
+    ``POW_MAX_WINDOW`` with the fewest multiplies (``pow_window_muls``; the
+    smaller w on a tie), and the exponent's w-bit digits, most significant
+    first, the bits padded on the left to a multiple of w."""
+    w = min(range(1, POW_MAX_WINDOW + 1),
+            key=lambda k: (pow_window_muls(exp_bits, k), k))
+    return w, _window_digits(exp_bits, w)
 
 
 def pow_const_plain(params: FpParams, a, exp_bits):
@@ -599,8 +633,9 @@ def pow_const_plain(params: FpParams, a, exp_bits):
 
 
 def pow_const_cuda(params: FpParams, a, exp_bits):
-    """Launch the pow-chain kernel on a CUDA tensor: the whole ladder in one
-    launch."""
+    """Launch the pow-chain kernel on a CUDA tensor: the whole chain in one
+    launch, by a fixed window that its launcher picks from the exponent
+    (``pow_window``)."""
     _check_operand(params, a, "pow_const")
     bits = np.ascontiguousarray(np.asarray(exp_bits) != 0, dtype=np.uint8)
     if bits.ndim != 1 or bits.size > POW_MAX_BITS:

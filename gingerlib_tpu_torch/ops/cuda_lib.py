@@ -23,7 +23,8 @@ BUILD = os.path.join(_PKG, "build")
 SOURCES = ("mont_mul", "inv_bea", "fp_addsub", "ec_add", "ec_affine",
            "inv_tree", "pow_const", "poseidon", "rns_mont", "ec_rns")
 # headers: an edit of one rebuilds every library
-HEADERS = ("fp_limbs.cuh", "fp_group.cuh", "fp_inv.cuh", "rns_core.cuh")
+HEADERS = ("fp_limbs.cuh", "fp_group.cuh", "fp_inv.cuh", "rns_core.cuh",
+           "pow_window.h")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -50,9 +51,14 @@ _SIGNATURES = {
     # the exponent is a host array of bytes, one a bit
     "gl_pow_const": ("pow_const", [_i, _vp, _vp, _i, _vp, _i, _vp, _u32,
                                    _vp]),
+    # the window the pow launcher picks for an exponent (bytes, count, and
+    # a host int for the multiplies)
+    "gl_pow_const_window": ("pow_const", [_vp, _i, _vp]),
     # the constants are a device buffer
     "gl_poseidon_permute": ("poseidon", [_i, _vp, _vp, _i, _vp, _i, _i, _i,
                                          _u32, _vp]),
+    # the sponges a block the Poseidon launcher takes for a batch
+    "gl_poseidon_block_sponges": ("poseidon", [_i]),
     # the constant blocks are device buffers
     "gl_rns_mont": ("rns_mont", [_i, _vp, _ll, _i, _vp, _ll, _i, _vp, _i, _vp,
                                  _vp]),
@@ -130,7 +136,7 @@ def resource_usage() -> dict:
     out = {}
     entry = re.compile(
         r"Compiling entry function '\w*?\d([a-z_]+_kernel)"
-        r"(?:ILi(\d+)(?:ELi(\d+))?E)?\w*'.*?"
+        r"(?:ILi(\d+(?:ELi\d+)*)E)?\w*'.*?"
         r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
         r"(\d+) bytes spill loads.*?Used (\d+) registers", re.S)
     callee = re.compile(
@@ -141,11 +147,11 @@ def resource_usage() -> dict:
         with open(os.path.join(BUILD, n + ".log")) as f:
             text = f.read()
         for m in entry.finditer(text):
-            args = ",".join(g for g in m.group(2, 3) if g)
+            args = ",".join(m.group(2).split("ELi")) if m.group(2) else ""
             out[f"{m.group(1)}<{args}>" if args else m.group(1)] = {
-                "registers": int(m.group(7)), "stack_bytes": int(m.group(4)),
-                "spill_store_bytes": int(m.group(5)),
-                "spill_load_bytes": int(m.group(6))}
+                "registers": int(m.group(6)), "stack_bytes": int(m.group(3)),
+                "spill_store_bytes": int(m.group(4)),
+                "spill_load_bytes": int(m.group(5))}
         for m in callee.finditer(text):
             out[f"{n}: inv_divsteps<{m.group(1)}>"] = {
                 "stack_bytes": int(m.group(2)),

@@ -6,11 +6,16 @@ dispatched on where the state lives, as in ``fields/fp.py`` -- no fallback
 and no switch:
 
 * ``permute_cuda`` -> ``csrc/poseidon.cu``; replaces ``permute_fused`` (its
-  entry, round and exit kernels).  One thread per sponge, all rounds in one
-  launch; the JAX package's RNS form and its ``GINGERLIB_FUSED_POSEIDON`` /
+  entry, round and exit kernels).  A group of threads per sponge, all
+  rounds in one launch; a block of S sponges shares one inversion a round
+  through a product tree in shared memory, S from the batch
+  (``block_sponges``; the source note in the ``.cu`` file says why).  The
+  JAX package's RNS form and its ``GINGERLIB_FUSED_POSEIDON`` /
   ``GINGERLIB_POSEIDON_TILE`` switches are the TPU's and are not carried
-  over.  Its time goes to the inversions (``csrc/fp_inv.cuh``), one a round
-  per sponge (source note in the ``.cu`` file).
+  over.
+* ``permute_block_model``: the kernel's schedule in plain PyTorch -- blocks
+  of S sponges, each block's S-box inputs through its own product tree in
+  the kernel's order of products -- for the tests.
 * ``permute_plain``: the array path of ``PoseidonHash.permute`` in the JAX
   package -- add the round constants, invert the S-box lanes of the whole
   batch with one shared-inversion tree (``fp.batch_inverse_tree``), mix by
@@ -29,6 +34,7 @@ import torch
 
 from ..fields import fp as fpmod
 from ..fields.fp import launch_counts
+from . import limbs
 
 
 # ---------------------------------------------------------------------------
@@ -73,8 +79,95 @@ def permute_plain(params, state):
 
 
 # ---------------------------------------------------------------------------
+# the kernel's block schedule
+# ---------------------------------------------------------------------------
+
+MAX_BLOCK_SPONGES = 64      # S at most (csrc/poseidon.cu kMaxSponges)
+MIN_BLOCKS_PER_SM = 1       # blocks an SM that S must leave
+
+
+def block_sponges(n: int, sms: int) -> int:
+    """Sponges a block (S) that the kernel's launcher takes for a batch of
+    ``n`` on a card of ``sms`` SMs: the largest power of two up to
+    ``MAX_BLOCK_SPONGES`` whose ceil(n / S) blocks leave every SM at least
+    ``MIN_BLOCKS_PER_SM``; 1 where none above 1 does."""
+    s = MAX_BLOCK_SPONGES
+    while s > 1 and -(-n // s) < MIN_BLOCKS_PER_SM * sms:
+        s //= 2
+    return s
+
+
+def block_sponges_cuda(n: int) -> int:
+    """The S the kernel's launcher takes for a batch of ``n`` on the current
+    CUDA device (its own computation, which ``block_sponges`` models)."""
+    s = fpmod._kernel("gl_poseidon_block_sponges")(n)
+    if s < 1:
+        raise RuntimeError(f"poseidon_permute: device query failed (code "
+                           f"{-s})")
+    return s
+
+
+def _tree_inverse(F, leaves):
+    """Inverses of non-zero leaves [blocks, n, nd], one tree a block in the
+    kernel's order: level by level, pairs multiplied and an odd last
+    element passed up; the root inverted; down again, each pair's
+    inverses from its parent's and the sibling's product."""
+    blocks, _, nd = leaves.shape
+    levels = [leaves]
+    while levels[-1].shape[1] > 1:
+        cur = levels[-1]
+        h = cur.shape[1] // 2
+        up = fpmod.mont_mul(F, cur[:, 0:2 * h:2], cur[:, 1:2 * h:2])
+        levels.append(torch.cat([up, cur[:, 2 * h:]], dim=1))
+    inv = fpmod.inv_mod(F, levels[-1].reshape(blocks, nd)).reshape(
+        blocks, 1, nd)
+    for child in reversed(levels[:-1]):
+        h = child.shape[1] // 2
+        ip = inv[:, :h]
+        pairs = torch.stack([fpmod.mont_mul(F, ip, child[:, 1:2 * h:2]),
+                             fpmod.mont_mul(F, ip, child[:, 0:2 * h:2])],
+                            dim=2).reshape(blocks, 2 * h, nd)
+        inv = torch.cat([pairs, inv[:, h:]], dim=1)
+    return inv
+
+
+def permute_block_model(params, state, sponges: int):
+    """The permutation as the kernel schedules it, in plain PyTorch, for
+    blocks of ``sponges`` (S): the batch padded with zero states to whole
+    blocks (a block's last groups run on a zero state, as the kernel's
+    groups past the batch do); each round's S-box inputs of a block (3 S
+    in a full round, S in a partial one; leaf q k + t is element t of
+    sponge q) inverted through the block's own tree (``_tree_inverse``),
+    zeros entering as one and leaving as zero.  The same digits as
+    ``permute_plain``: an inverse is unique."""
+    F = params.field
+    B, t, nd = state.shape
+    blocks = -(-B // sponges)
+    state = torch.cat([state, state.new_zeros(blocks * sponges - B, t, nd)])
+    one = F.tensor("one_mont", state.device)
+    rounds = params.n_rounds
+    for r in range(rounds):
+        state = fpmod.add_mod(F, state, params.rc[r])
+        k = 1 if params.r_f <= r < params.r_f + params.r_p else t
+        x = state[:, :k]
+        zero = limbs.is_zero(x).unsqueeze(-1)
+        inv = _tree_inverse(F, torch.where(zero, one, x).reshape(
+            blocks, sponges * k, nd)).reshape(-1, k, nd)
+        state = torch.cat([torch.where(zero, torch.zeros_like(inv), inv),
+                           state[:, k:]], dim=1)
+        if r < rounds - 1:
+            state = _mix(F, params.mds, state)
+    return state[:B]
+
+
+# ---------------------------------------------------------------------------
 # the kernel
 # ---------------------------------------------------------------------------
+
+# {batch: launches} of the kernel since the last clear (chip_smoke.py times
+# the kernel at the widths a path launched it)
+launch_widths: dict = {}
+
 
 def permute_cuda(params, state):
     """Launch the Poseidon kernel on a CUDA state [B, 3, nd]: the whole
@@ -106,6 +199,7 @@ def permute_cuda(params, state):
                            f"(code {rc})")
     if n:
         launch_counts["poseidon_permute"] += 1
+        launch_widths[n] = launch_widths.get(n, 0) + 1
     return out
 
 

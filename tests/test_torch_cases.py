@@ -157,6 +157,29 @@ def poseidon_states(name: str) -> list:
             [r[2], p - 1, 1]]
 
 
+def pow_edge_exponents() -> dict:
+    """{name: MSB-first bit array} of the pow kernel's edge exponents: no
+    bits, zeros, 1 (also with leading zeros), 2^w - 1 and 2^w at the
+    widest window, all ones (753 bits and the longest exponent the kernel
+    takes), a single set bit at the top and in the middle, a short one."""
+    from gingerlib_tpu_torch.fields import fp
+    from gingerlib_tpu_torch.ops import limbs
+    w, top = fp.POW_MAX_WINDOW, fp.POW_MAX_BITS
+    return {
+        "no_bits": np.zeros(0, np.uint8),
+        "zeros": np.zeros(7, np.uint8),
+        "one": limbs.bits_msb_first(1, 1),
+        "one_padded": limbs.bits_msb_first(1, 9),
+        "2^w-1": limbs.bits_msb_first((1 << w) - 1, w),
+        "2^w": limbs.bits_msb_first(1 << w, w + 1),
+        "all_ones_753": np.ones(753, np.uint8),
+        "all_ones_max": np.ones(top, np.uint8),
+        "single_top_bit": limbs.bits_msb_first(1 << (top - 1), top),
+        "single_mid_bit": limbs.bits_msb_first(1 << 300, 753),
+        "short": limbs.bits_msb_first(0x9E3779B9, 32),
+    }
+
+
 def poseidon_rows(name: str, length: int) -> list:
     """Two seeded hash inputs of ``length`` field elements each."""
     return [rand_below(poseidon_modulus(name), length, seed=70 + 2 * length + i)

@@ -10,6 +10,7 @@ hold the plain versions against the JAX package instead.  Integer
 arithmetic: tolerance 0.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -17,7 +18,8 @@ from gingerlib_tpu_torch.curves import instances as CI
 from gingerlib_tpu_torch.ops import ec_kernels as EK, msm as tmsm
 from gingerlib_tpu_torch.ops import ec_rns as ER
 from test_torch_cases import (affine_pairs, inv_inputs, poseidon_states,
-                              proj_pairs, rand_below, reduced_poseidon)
+                              pow_edge_exponents, proj_pairs, rand_below,
+                              reduced_poseidon)
 
 pytestmark = pytest.mark.gpu
 N = 64
@@ -196,6 +198,72 @@ def test_pow_const_matches_plain(cuda, name):
     for bits in (F.legendre_exp_bits, limbs.bits_msb_first(0xC0FFEE11, 32)):
         assert torch.equal(fp.pow_const(F, x, bits),
                            fp.pow_const_plain(F, x, bits))
+
+
+@pytest.mark.parametrize("name", ["MNT4753_FQ", "BLS12_377_FQ",
+                                  "BLS12_377_FR"])
+def test_pow_const_by_elements_and_edge_exponents(cuda, name):
+    """K3 (a group of threads an element, blocks of 128 threads) at 1 ...
+    129 elements, so that every group position of a block is the last,
+    with the Legendre exponent; on 64 elements with each edge exponent of
+    the window schedule; and the launcher's window is fp.pow_window's."""
+    import ctypes
+    from gingerlib_tpu_torch import params as TP
+    from gingerlib_tpu_torch.fields import fp
+    from gingerlib_tpu_torch.ops import cuda_lib
+    F = getattr(TP, name)
+    vals = [0, 1, F.modulus - 1] + rand_below(F.modulus, 126, seed=83)
+    x = fp.to_mont(F, torch.from_numpy(fp.fp_from_ints(F, vals)).to(cuda))
+    bits = F.legendre_exp_bits
+    want = fp.pow_const_plain(F, x, bits)
+    for n in range(1, 130):
+        assert torch.equal(fp.pow_const(F, x[:n], bits), want[:n]), n
+    window = cuda_lib.function("gl_pow_const_window")
+    for label, e in list(pow_edge_exponents().items()) + [
+            ("legendre", bits), ("sqrt", F.sqrt_exp_bits)]:
+        b = np.ascontiguousarray(e, dtype=np.uint8)
+        muls = ctypes.c_int()
+        w = window(b.ctypes.data, b.size, ctypes.byref(muls))
+        want_w, _ = fp.pow_window(e)
+        assert (w, muls.value) == (want_w, fp.pow_window_muls(e, want_w))
+        assert torch.equal(fp.pow_const(F, x[:64], e),
+                           fp.pow_const_plain(F, x[:64], e)), label
+
+
+@pytest.mark.parametrize("name", ["mnt4753", "mnt6753"])
+def test_poseidon_permute_at_block_edges(cuda, name):
+    """K9 against permute_plain (full round counts) for each S the launcher
+    can pick: batches of whole blocks plus 1, S - 1, S, S + 1 and 3 S + 1
+    sponges past a width where the launcher takes S, and one sponge; zero
+    S-box inputs (after the first round's constants) at every leaf of a
+    block's tree, leaf j in block j, and one block all zero."""
+    from gingerlib_tpu_torch.fields import fp
+    from gingerlib_tpu_torch.ops import poseidon_kernels as PK
+    from gingerlib_tpu_torch.primitives.poseidon import PoseidonParams
+    P = getattr(PoseidonParams, name)(cuda)
+    F, nd = P.field, P.field.n_digits
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    neg = fp.neg_mod(F, P.rc[0])
+    for S in (1, 2, 4, 8, 16, 32, 64):
+        base = next(n for n in range(S, 1 << 20, S)
+                    if PK.block_sponges(n, sms) == S)
+        for n in [1] + [base + d for d in (1, S - 1, S, S + 1, 3 * S + 1)]:
+            if PK.block_sponges(n, sms) != S and n != 1:
+                continue
+            assert PK.block_sponges_cuda(n) == PK.block_sponges(n, sms)
+            vals = rand_below(F.modulus, 3 * n, seed=n)
+            state = fp.to_mont(F, torch.from_numpy(fp.fp_from_ints(
+                F, vals)).to(cuda)).reshape(n, 3, nd)
+            blocks = -(-n // S)
+            for b in range(blocks):
+                leaf = b % (3 * S)
+                q = b * S + leaf // 3
+                if q < n:
+                    state[q, leaf % 3] = neg[leaf % 3]
+            if blocks > 2:
+                state[S:min(2 * S, n)] = neg
+            assert torch.equal(PK.permute(P, state),
+                               PK.permute_plain(P, state)), (S, n)
 
 
 @pytest.mark.parametrize("name", ["MNT4753_FQ", "BLS12_377_FQ",

@@ -1,8 +1,9 @@
 """The per-thread inverse of the port's kernels (``gl::inv_divsteps`` in
 ``gingerlib_tpu_torch/csrc/fp_inv.cuh``, run by the inverse kernel K2 and the
-Poseidon kernel K9), compiled for the host with g++ and held to python's
-``pow(a, -1, p)``, at 8, 12 and 24 limbs (BLS12-377 Fr and Fq, MNT4-753 Fq
-and Fr):
+inversion tree's tail K6; K9 runs its group form, which
+tests/test_torch_inv_divsteps_grp.py holds), compiled for the host with g++
+and held to python's ``pow(a, -1, p)``, at 8, 12 and 24 limbs (BLS12-377 Fr
+and Fq, MNT4-753 Fq and Fr):
 
     python -m pytest tests/test_torch_inv_divsteps.py -q
 

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Hold this tree's field, curve, inverse and Poseidon kernels against
+"""Hold this tree's field, curve, inverse, Poseidon and pow kernels against
 another checkout's, on one NVIDIA GPU, in turns.
 
     python3 tools/kernel_ab.py --other DIR \
-        [--sections k1,k4,k2,k5k6,k7k8,end_to_end]
+        [--sections k1,k4,k2,k5k6,k7k8,k9k3,end_to_end]
 
 DIR is a checkout of another commit (e.g. ``git archive <commit> | tar -x -C
 DIR``); only its ``gingerlib_tpu_torch/csrc`` is read.  Its ``mont_mul.cu``,
-``fp_addsub.cu``, ``ec_add.cu``, ``inv_bea.cu`` and ``poseidon.cu`` (and for
+``fp_addsub.cu``, ``ec_add.cu``, ``inv_bea.cu``, ``poseidon.cu`` and
+``pow_const.cu`` (and for
 ``k5k6`` its ``ec_affine.cu`` and ``inv_tree.cu``) are built with nvcc
 beside this tree's libraries and swapped into this tree's wrappers
 (``fields/fp.py`` looks its C entry points up by name), so both run the
@@ -51,6 +52,13 @@ is dropped for it) and the inversion kernels from before the tiled tree
   2^16-point RNS ``msm_affine`` over MNT4-753 G1 in each tree, each tree
   in a process of its own (median of three after a warm-up; both points
   must be equal);
+* ``k9k3``: device time of the Poseidon kernel (K9) on MNT4-753 sponges
+  at 1, 2^10, 2^13 and 2^15 (with the sponges a block, S, that this tree's
+  launcher takes), and of the pow kernel (K3) on MNT4-753 Fq at 1 and 4096
+  elements with the Legendre and square-root exponents (with this tree's
+  window); host-clock seconds of a 2^16-leaf MNT4-753 Poseidon Merkle tree
+  and of the field API (``legendre`` and ``sqrt_mod`` on 2^12 elements of
+  MNT4-753 Fr and Fq); both trees' outputs must be equal;
 * ``end_to_end``: host-clock seconds of a 2^10-
   constraint MNT4-753 Groth16 setup and prove (checked against the
   python-int oracle), of the 2^16 rung's G1 fixed-base loop (768 steps over
@@ -77,7 +85,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 KERNELS = (("gl_mont_mul", "mont_mul"), ("gl_fp_addsub", "fp_addsub"),
            ("gl_ec_proj_add", "ec_add"), ("gl_inv_bea", "inv_bea"),
-           ("gl_poseidon_permute", "poseidon"))
+           ("gl_poseidon_permute", "poseidon"), ("gl_pow_const", "pow_const"))
 ORDER = ("other", "this", "this", "other")
 
 
@@ -85,9 +93,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True,
                     help="checkout of the commit to compare with")
-    ap.add_argument("--sections", default="k1,k4,k2,k5k6,k7k8,end_to_end",
+    ap.add_argument("--sections",
+                    default="k1,k4,k2,k5k6,k7k8,k9k3,end_to_end",
                     help="comma-separated subset of k1, k4, k2, k5k6, k7k8, "
-                         "end_to_end")
+                         "k9k3, end_to_end")
     args = ap.parse_args()
     sections = set(args.sections.split(","))
     if not torch.cuda.is_available():
@@ -394,12 +403,16 @@ def main():
     k7k8 = {}
     if "k7k8" in sections:
         k7k8 = rns_section(args.other, other_csrc, dev, checked, in_turns)
+    k9k3 = {}
+    if "k9k3" in sections:
+        k9k3 = k9k3_section(dev, checked, in_turns, outputs, same, seconds)
     print("exact " + json.dumps(checked), flush=True)
     print("k1 " + json.dumps(k1), flush=True)
     print("k4 " + json.dumps(k4), flush=True)
     print("k2 " + json.dumps(k2), flush=True)
     print("k5k6 " + json.dumps(k5k6), flush=True)
     print("k7k8 " + json.dumps(k7k8), flush=True)
+    print("k9k3 " + json.dumps(k9k3), flush=True)
 
     if "end_to_end" in sections:
         from gingerlib_tpu_torch.circuits import benchmark_circuit
@@ -490,6 +503,83 @@ x, _ = g1.to_affine(tuple(c[None] for c in r))
 print(json.dumps({"seconds": sorted(ts)[1], "runs": ts,
                   "x": hex(limbs.from_digits_batch(x.reshape(1, -1).cpu())[0])}))
 """
+
+
+def k9k3_section(dev, checked, in_turns, outputs, same, seconds):
+    """The ``k9k3`` section: returns its dict."""
+    from gingerlib_tpu_torch import params as PP
+    from gingerlib_tpu_torch.fields import fp
+    from gingerlib_tpu_torch.ops import limbs
+    from gingerlib_tpu_torch.ops import poseidon_kernels as PK
+    from gingerlib_tpu_torch.primitives.merkle import FieldBasedMerkleTree
+    from gingerlib_tpu_torch.primitives.poseidon import (PoseidonHash,
+                                                         PoseidonParams)
+    from gingerlib_tpu_torch.utils.timing import graph_ms
+
+    gen = torch.Generator().manual_seed(2025)
+
+    def elems(F, n):
+        raw = torch.randint(0, 1 << 16, (n, F.n_digits + 4), generator=gen,
+                            dtype=torch.int64)
+        vals = [v % F.modulus for v in limbs.from_digits_batch(raw)]
+        return torch.from_numpy(limbs.to_digits_batch(
+            vals, F.n_digits)).to(dev)
+
+    out = {"poseidon": {}, "pow_const": {}}
+    P = PoseidonParams.mnt4753()
+    F = P.field
+    for n, reps in ((1, 3), (1 << 10, 3), (1 << 13, 3), (1 << 15, 3)):
+        state = fp.to_mont(F, elems(F, 3 * n)).reshape(n, 3, F.n_digits)
+        same(f"poseidon [{n},3,48]", outputs(lambda: PK.permute(P, state)))
+        checked.append(f"poseidon [{n},3,48]")
+        out["poseidon"][n] = {"S": PK.block_sponges_cuda(n),
+                              "device_ms": in_turns(lambda tree: graph_ms(
+                                  lambda: PK.permute(P, state), reps))}
+        del state
+    fq = PP.MNT4753_FQ
+    x = elems(fq, 4096)
+    for label, bits in (("legendre", fq.legendre_exp_bits),
+                        ("sqrt", fq.sqrt_exp_bits)):
+        for n in (1, 4096):
+            a = x[:n]
+            same(f"pow_const {label} [{n},48]",
+                 outputs(lambda: fp.pow_const(fq, a, bits)))
+            checked.append(f"pow_const {label} [{n},48]")
+            out["pow_const"][f"{label} [{n},48]"] = {
+                "window": fp.pow_window(bits)[0],
+                "device_ms": in_turns(lambda tree: graph_ms(
+                    lambda: fp.pow_const(fq, a, bits), 5))}
+    leaves = fp.to_mont(F, elems(F, 1 << 16))
+    h = PoseidonHash(P)
+    roots = {}
+
+    def merkle(tree):
+        secs, built = seconds(
+            lambda: FieldBasedMerkleTree(h, 17).build(leaves))
+        roots[tree] = built.root()
+        return secs
+
+    out["merkle_2p16_build_s"] = in_turns(merkle)
+    if not torch.equal(roots["this"], roots["other"]):
+        raise AssertionError("the Merkle roots differ")
+    checked.append("merkle 2^16 root")
+    fr = PP.MNT4753_FR
+    api_in = {F_.name: fp.to_mont(F_, elems(F_, 1 << 12)) for F_ in (fr, fq)}
+    api_out = {}
+
+    def field_api(tree):
+        secs, res = seconds(lambda: [
+            (fp.legendre(F_, api_in[F_.name]), *fp.sqrt_mod(
+                F_, api_in[F_.name])) for F_ in (fr, fq)])
+        api_out[tree] = res
+        return secs
+
+    out["field_api_2p12_s"] = in_turns(field_api)
+    for a, b in zip(api_out["this"], api_out["other"]):
+        if not all(torch.equal(u, v) for u, v in zip(a, b)):
+            raise AssertionError("the field API's results differ")
+    checked.append("field API 2^12")
+    return out
 
 
 def rns_section(other_root, other_csrc, dev, checked, in_turns):
