@@ -49,9 +49,15 @@ What it does, in order (any failure raises, so the exit code is non-zero):
 4. drives the port's paths through their public entry points: Groth16 over
    MNT4-753 on the chained-multiplication benchmark circuit at 2^6, 2^10 and
    2^16 constraints (4 inputs): ``compile_r1cs`` -> ``generate_parameters``
-   -> ``create_proof`` with pinned toxic waste and blinding (below 2^12
+   (its verifying key's GT element by one prepared pairing) ->
+   ``create_proof`` with pinned toxic waste and blinding (below 2^12
    points an MSM is a double-and-add loop; the 2^16 rung goes through the
-   Pippenger paths and the curve kernels); ``legendre`` and ``sqrt_mod`` on
+   Pippenger paths and the curve kernels) -> ``verify_proof`` twice a rung
+   (the input accumulation, three host ladders, one prepared Miller loop
+   over the three pairs, one final exponentiation; first and steady
+   seconds, launches by kind, and at 2^10 the seconds by phase: ``verify``
+   line); one pairing of the reference's anchor points; ``legendre`` and
+   ``sqrt_mod`` on
    2^12 elements of MNT4-753 Fr and Fq; and a 2^16-leaf MNT4-753 Poseidon
    Merkle tree of height 17 (``merkle`` line: one K9 launch a level, 16,
    and 32 additions, asserted), then K9 at each of the tree's level widths
@@ -62,15 +68,21 @@ What it does, in order (any failure raises, so the exit code is non-zero):
    ``ec_affine_by_width`` lines: time and loss by class of widths);
 5. checks the results: each device proof equals the closed-form python-int
    oracle coordinate for coordinate, a repeat gives the same proof, a proof
-   with another ``s`` differs; the Legendre symbols, roots and masks agree
-   with python ints; the tree equals the one the plain permutation builds on
-   the device, sixteen sampled paths verify and hash to its root in python
-   ints, a wrong leaf is refused, a 2^10-leaf tree equals the python-int tree
-   node for node, and the phantom root holds; the field API launches K3
-   once a call (4); and the launch counters, set to
-   zero before each path, show that every kernel was launched on the path
-   that reaches it (K7 and K8 on the RNS path);
-6. prints the kernel table as one JSON line, and as the last line
+   with another ``s`` differs; ``verify_proof`` accepts every rung's proof
+   and the one with another ``s``, and refuses the 2^10 proof with its
+   first input plus one and with C + G1's generator; ``alpha_g1_beta_g2``
+   equals the python-int oracle's e(alpha*G1, beta*G2), and the anchor
+   pairing the reference's GT; the Legendre symbols, roots
+   and masks agree with python ints; the tree equals the one the plain
+   permutation builds on the device, sixteen sampled paths verify and hash
+   to its root in python ints, a wrong leaf is refused, a 2^10-leaf tree
+   equals the python-int tree node for node, and the phantom root holds;
+   the field API launches K3 once a call (4); and the launch counters, set
+   to zero before each path, show that every kernel was launched on the path
+   that reaches it (K7 and K8 on the RNS path), and K1 and K2 on the
+   verifier's;
+6. prints the card's name and power limit, the kernel table as one JSON
+   line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Nothing here runs on the CPU except the python-int oracles.
@@ -146,7 +158,7 @@ def main():
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path[:0] = [os.path.join(root, "tests"), os.path.join(root, "tools")]
     import divsteps_model
-    from test_torch_cases import inv_inputs
+    from test_torch_cases import host_alpha_beta, inv_inputs, mnt4753_anchor
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1782,38 +1794,51 @@ def main():
     # ------------------------------------------------------------------
 
     def prove(params, compiled, cs, s=S_BLIND):
+        """(the proof as python ints, seconds, the proof on the device)"""
         torch.cuda.synchronize()
         t = time.perf_counter()
         proof = groth16.create_proof(eng, params, compiled, cs.assignment(),
                                      r=R_BLIND, s=s)
         ints = groth16.proof_to_ints(eng, proof)   # fetch: completion barrier
-        return ints, time.perf_counter() - t
+        return ints, time.perf_counter() - t, proof
 
     class phase_clock:
         """While active, times the calls that make up setup and prove --
-        the host's QAP evaluation, each fixed-base loop, each kind of MSM --
-        with a device synchronise on either side of each call (a dozen calls
-        a rung, so the synchronises cost nothing that shows)."""
-        targets = ((groth16_host, "qap_at"), (msm_mod, "fixed_base_msm"),
-                   (msm_mod, "_msm_lanes"), (msm_mod, "msm_hybrid"),
-                   (msm_mod, "msm_affine"), (groth16, "_witness_map_core"))
+        the host's QAP evaluation, each fixed-base loop, each kind of MSM,
+        setup's pairing -- or those of ``targets`` (module or object,
+        attribute name), with a device synchronise on either side of each
+        call (a dozen calls a rung, so the synchronises cost nothing that
+        shows)."""
+        prover = ((groth16_host, "qap_at"), (msm_mod, "fixed_base_msm"),
+                  (msm_mod, "_msm_lanes"), (msm_mod, "msm_hybrid"),
+                  (msm_mod, "msm_affine"), (groth16, "_witness_map_core"),
+                  (eng, "prepare_g2"), (eng, "pairing_prepared"))
 
-        def __init__(self):
+        def __init__(self, targets=prover):
+            self.targets = targets
             self.calls = []
             self.loop_lanes = {}    # lanes of each fixed-base loop
+            self.launches = {}      # kernel launches by phase, summed
 
         def __enter__(self):
-            self.saved = [(m, n, getattr(m, n)) for m, n in self.targets]
-            for mod, name, real in self.saved:
-                setattr(mod, name, self.timed(name, real))
+            # (owner, name, callable, whether the owner itself holds it: a
+            # module's function, not an object's method)
+            self.saved = [(m, n, getattr(m, n), n in vars(m))
+                          for m, n in self.targets]
+            for owner, name, real, _ in self.saved:
+                setattr(owner, name, self.timed(name, real))
             return self
 
         def __exit__(self, *exc):
-            for mod, name, real in self.saved:
-                setattr(mod, name, real)
+            for owner, name, real, own in self.saved:
+                if own:
+                    setattr(owner, name, real)
+                else:
+                    delattr(owner, name)
 
         def timed(self, name, real):
             def call(*a, **k):
+                before = dict(fp.launch_counts)
                 torch.cuda.synchronize()
                 t = time.perf_counter()
                 out = real(*a, **k)
@@ -1822,6 +1847,10 @@ def main():
                 if a and hasattr(a[0], "F"):          # a curve comes first
                     what += ".g1" if a[0].F.K == 1 else ".g2"
                 self.calls.append((what, time.perf_counter() - t))
+                mine = self.launches.setdefault(what, {})
+                for key, v in fp.launch_counts.items():
+                    if v > before[key]:
+                        mine[key] = mine.get(key, 0) + v - before[key]
                 if name == "fixed_base_msm":
                     self.loop_lanes[what] = a[2].shape[0]
                 return out
@@ -1858,7 +1887,9 @@ def main():
         if phases:
             out["setup_phases_s"] = phases.take()
             out["setup_loop_lanes"] = dict(phases.loop_lanes)
-        proof, out["prove_first_s"] = prove(params, compiled, cs)
+            out["setup_pairing_launches"] = phases.launches.get(
+                "pairing_prepared")
+        proof, out["prove_first_s"], proof_dev = prove(params, compiled, cs)
         if phases:
             out["prove_phases_s"] = phases.take()
         out["path_launches"] = dict(fp.launch_counts)
@@ -1880,7 +1911,33 @@ def main():
         if proof != want:
             raise AssertionError(f"2^{log2}: device proof differs from the "
                                  f"closed-form oracle")
-        return out, (cs, compiled, params, proof)
+        return out, (cs, compiled, params, proof, proof_dev)
+
+    verify_line = {"rungs": {}, "checks": {}}
+
+    def verify(params, proof, inputs, label):
+        """One call of ``verify_proof`` (its bool is on the host, so the
+        call is complete), timed by the host's clock."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ok = groth16.verify_proof(eng, params.vk, proof, inputs)
+        secs = time.perf_counter() - t
+        verify_line["checks"][label] = ok
+        return ok, secs
+
+    def verify_rung(log2, cs, params, proof):
+        """Verify the rung's proof twice, launches counted on the first;
+        it must be accepted."""
+        inputs = cs.input_values[1:]
+        fp.reset_launch_counts()
+        ok, first = verify(params, proof, inputs, f"2^{log2}")
+        launches = dict(fp.launch_counts)
+        ok2, steady = verify(params, proof, inputs, f"2^{log2} again")
+        if not (ok and ok2):
+            raise AssertionError(f"2^{log2}: verify_proof refused the proof")
+        verify_line["rungs"][f"2^{log2}"] = {
+            "verify_first_s": first, "verify_steady_s": steady,
+            "launches": launches}
 
     def count_aten_ops(fn):
         """Every ATen operator PyTorch dispatches while ``fn`` runs, by
@@ -1898,8 +1955,15 @@ def main():
             fn()
         return counts
 
-    small, (cs6, compiled6, params6, proof6) = rung(6)
+    small, (cs6, compiled6, params6, proof6, dev6) = rung(6)
     print("rung " + json.dumps(small), flush=True)
+    verify_rung(6, cs6, params6, dev6)
+    # setup's GT element against the python-int oracle e(alpha*G1, beta*G2)
+    want_gt = host_alpha_beta(TOXIC["alpha"], TOXIC["beta"])
+    if fp.fp_to_ints(fq, params6.vk.alpha_g1_beta_g2) != want_gt:
+        raise AssertionError("vk.alpha_g1_beta_g2 differs from the "
+                             "python-int oracle")
+    verify_line["checks"]["alpha_g1_beta_g2 equals the oracle"] = True
     aten = count_aten_ops(lambda: prove(params6, compiled6, cs6))
     no_launch = {"expand", "view", "_unsafe_view", "slice", "select",
                  "unbind", "unsqueeze", "split", "split_with_sizes", "alias",
@@ -1909,21 +1973,66 @@ def main():
     print("aten_ops_per_proof " + json.dumps(
         dict(sorted(device_ops.items(), key=lambda kv: -kv[1]))), flush=True)
 
-    big, (cs10, compiled10, params10, proof10) = rung(10)
-    again, big["prove_steady_s"] = prove(params10, compiled10, cs10)
+    big, (cs10, compiled10, params10, proof10, dev10) = rung(10)
+    again, big["prove_steady_s"], _ = prove(params10, compiled10, cs10)
     if again != proof10:
         raise AssertionError("the same inputs gave two different proofs")
-    other, _ = prove(params10, compiled10, cs10, s=S_BLIND + 1)
+    other, _, other_dev = prove(params10, compiled10, cs10, s=S_BLIND + 1)
     if other == proof10 or other["a"] != proof10["a"]:
         raise AssertionError("a proof with another s must differ in B and C "
                              "and keep A")
     print("rung " + json.dumps(big), flush=True)
+    if params10.vk.alpha_g1_beta_g2.tolist() != \
+            params6.vk.alpha_g1_beta_g2.tolist():
+        raise AssertionError("two setups with the same alpha and beta gave "
+                             "two GT elements")
+    verify_rung(10, cs10, params10, dev10)
+    verify_line["path_launches"] = verify_line["rungs"]["2^10"]["launches"]
+    inputs10 = cs10.input_values[1:]
+    # the proof with another s is a proof too; a wrong input and a C moved
+    # by G1's generator (still a curve point) are refused
+    altered = groth16.Proof(a=dev10.a, b=dev10.b, c=g1.to_affine(
+        g1.add_mixed(g1.from_affine(*dev10.c), g1.generator_affine)))
+    for label, proof_inputs, want in (
+            ("2^10 other s", (other_dev, inputs10), True),
+            ("2^10 wrong input", (dev10, [inputs10[0] + 1] + inputs10[1:]),
+             False),
+            ("2^10 altered C", (altered, inputs10), False)):
+        if verify(params10, *proof_inputs, label)[0] is not want:
+            raise AssertionError(f"verify_proof: {label} must give {want}")
+    # one verify by phase: the input accumulation, the host ladders, the
+    # prepared Miller loop over the three pairs, the final exponentiation
+    with phase_clock(((msm_mod, "msm_naive"), (eng, "prepare_g2"),
+                      (eng, "miller_loop_prepared"),
+                      (eng, "final_exponentiation"))) as clock:
+        ok, total = verify(params10, dev10, inputs10, "2^10 by phase")
+    phases = {k: sum(v) for k, v in clock.take().items()}
+    phases["other"] = total - sum(phases.values())
+    verify_line["phases_2p10_s"] = dict(phases, total=total)
+    verify_line["phases_2p10_launches"] = clock.launches
+    if not ok:
+        raise AssertionError("verify_proof refused the 2^10 proof")
+    # GT against the reference: one pairing of its anchor points
+    pa, qb, anchor_gt = mnt4753_anchor()
+    pa, qb = g1.affine_from_ints(*pa), g2.affine_from_ints(*qb)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = fp.fp_to_ints(fq, eng.pairing_prepared(pa, eng.prepare_g2(qb)))
+    prepared_s = time.perf_counter() - t            # to_ints: the barrier
+    if got != anchor_gt:
+        raise AssertionError("the anchor pairing differs from the "
+                             "reference's GT")
+    verify_line["anchor"] = {"equals_reference_gt": True,
+                             "prepared_s": prepared_s}
 
     # 2^16 constraints: every MSM of the prover is above the 2^12-point
     # threshold, so G1 goes through msm_hybrid and the curve kernels and G2
     # through msm_affine
-    full, _ = rung(16, phases=True)
+    full, (cs16, _, params16, _, dev16) = rung(16, phases=True)
     print("rung " + json.dumps(full), flush=True)
+    verify_rung(16, cs16, params16, dev16)
+    del params16, dev16
+    print("verify " + json.dumps(verify_line), flush=True)
     if full["setup_loop_lanes"] != {"fixed_base_msm.g1": G1_LOOP_LANES,
                                     "fixed_base_msm.g2": G2_LOOP_LANES}:
         raise AssertionError("the field kernels were not held at the lane "
@@ -2140,7 +2249,7 @@ def main():
             params = groth16.generate_parameters(eng, cs6, **TOXIC)
             torch.cuda.synchronize()
             setup_s = time.perf_counter() - t
-            ints, prove_s = prove(params, compiled6, cs6)
+            ints, prove_s, _ = prove(params, compiled6, cs6)
             if ints != proof6:
                 raise AssertionError("2^6: proof differs from the first one")
             return {"setup_s": setup_s, "prove_s": prove_s}
@@ -2163,6 +2272,11 @@ def main():
     paths = {"groth16_2p10": big, "groth16_2p16": full,
              "field_api": field_api, "merkle_2p16": merkle,
              "ec_rns_2p16": ec_path}
+    # the verifier's own path: K1, K2 and add/sub/neg, counted on one
+    # verify of the 2^10 proof
+    for name in ("mont_mul", "inv_bea"):
+        if verify_line["path_launches"][name] <= 0:
+            raise AssertionError(f"verify_proof never launched {name}")
     path_of = dict.fromkeys(curve_meta, "groth16_2p16")
     path_of.update(pow_const="field_api", poseidon_permute="merkle_2p16",
                    rns_mont="ec_rns_2p16", ecr_pre="ec_rns_2p16",
@@ -2172,6 +2286,8 @@ def main():
         k["path"] = path_of.get(name, "groth16_2p10")
         k["launches"] = paths[k["path"]]["path_launches"].get(name, 0)
         if k["path"].startswith("groth16"):
+            k["launches_verify_2p10"] = \
+                verify_line["path_launches"][name]
             k["launches_2p16_path"] = full["path_launches"][name]
             if k["launches_2p16_path"] <= 0:
                 raise AssertionError(f"the 2^16 path never launched {name}")

@@ -1,10 +1,16 @@
-"""Concrete curve instantiations of the port: MNT4-753 (the proving path)
-and BLS12-377 (the narrow width the CPU tests use).
+"""Concrete curve instantiations of the port: MNT4-753 (the main path:
+setup, prove and verify) and BLS12-377 (the narrow width the CPU tests use;
+its pairing is not ported yet).
 
 Each constructor takes ``device`` under the package's device rule and caches
-one curve object per device (and, for G1, per choice of ``ec_rns``: the RNS
-multiplies in ``batch_affine_add``, see ``SWCurveOps``).  Constants come from ``params/_gen`` (standard
-form); Frobenius tables are derived on the fly.
+one object per device (and, for G1, per choice of ``ec_rns``: the RNS
+multiplies in ``batch_affine_add``, see ``SWCurveOps``).  Constants come
+from ``params/_gen`` (standard form); Frobenius tables are derived on the
+fly.
+
+An engine is what Groth16 takes: the pairing where there is one (an
+``MNTPairing``, which carries ``g1`` and ``g2``), else an ``Engine`` of the
+two groups, which can set up and prove but not verify.
 """
 
 from __future__ import annotations
@@ -16,21 +22,22 @@ from .. import params as PP
 from ..device import resolve_device
 from ..params._gen import curves_gen as CG, towers_gen as TG
 from ..fields import towers as T
+from .pairing_mnt import MNTPairing
 from .sw import SWCurveOps
 
 
 @dataclass(frozen=True)
 class Engine:
-    """The two source groups of a pairing.  The prover needs nothing else;
-    the pairing itself arrives with the verifier."""
+    """The two source groups of a curve whose pairing is not ported: the
+    prover needs nothing else."""
     g1: SWCurveOps
     g2: SWCurveOps
 
 
 @functools.lru_cache()
 def mnt4753_towers():
-    return T.build_quadratic_tower(PP.MNT4753_FQ,
-                                   TG.MNT4753_FQ2["nonresidue"])
+    """(Fq, Fq2, Fq4) of MNT4-753."""
+    return T.build_mnt4_towers(PP.MNT4753_FQ, TG.MNT4753_FQ2["nonresidue"])
 
 
 @functools.lru_cache()
@@ -75,8 +82,25 @@ def bls12_377_g2(device=None) -> SWCurveOps:
     return _curve("bls12_377", "g2", resolve_device(device))
 
 
-def mnt4753_engine(device=None) -> Engine:
-    return Engine(mnt4753_g1(device), mnt4753_g2(device))
+@functools.lru_cache()
+def _mnt4753_pairing(device) -> MNTPairing:
+    c = CG.MNT4753
+    return MNTPairing(
+        "mnt4753", mnt4753_g1(device), mnt4753_g2(device),
+        mnt4753_towers()[2], wnaf=c["wnaf"],
+        ate_is_neg=c["ate_is_loop_count_neg"],
+        w1=c["final_exponent_last_chunk_1"],
+        w0_abs=c["final_exponent_last_chunk_abs_of_w0"],
+        w0_is_neg=c["final_exponent_last_chunk_w0_is_neg"])
+
+
+def mnt4753_pairing(device=None) -> MNTPairing:
+    return _mnt4753_pairing(resolve_device(device))
+
+
+def mnt4753_engine(device=None) -> MNTPairing:
+    """MNT4-753's engine: its pairing, with ``g1`` and ``g2``."""
+    return mnt4753_pairing(device)
 
 
 def bls12_377_engine(device=None) -> Engine:

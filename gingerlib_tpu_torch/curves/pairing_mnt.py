@@ -1,0 +1,216 @@
+"""The MNT4 ate pairing on tensors.
+
+Counterpart of ``gingerlib_tpu/curves/pairing_mnt.py`` for MNT4 (GT in Fq4 =
+Fq2[Y]/(Y^2 - X)), with the same prepared Miller loop and values digit for
+digit: ``prepare_g2`` runs the reference's affine ladder (mnt4/mod.rs:100-154)
+for one G2 point on the host in python ints, where an inversion a step costs
+nothing, and ``miller_loop_prepared`` multiplies f by sparse affine lines
+(``mul_by_023``) on the device.  Every line depends only on the ladder and
+x_P, so all lines of a loop are formed in three launches before it.  GT is
+unique, so this loop computes every pairing: setup's e(alpha, beta) as well
+as the verifier's product over gamma, delta and the proof's B.
+
+The loop digits (WNAF) and the exponents are host constants: a step makes
+its addition only where its digit is non-zero, a branch on the host where
+the JAX package's scan selects.  A batch of pairs runs one loop.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..fields import fp as fpmod
+from ..fields import host_ext
+from ..fields import towers as T
+from .sw import SWCurveOps
+
+
+class MNTPairing:
+    def __init__(self, name: str, g1: SWCurveOps, g2: SWCurveOps, fqk,
+                 wnaf, ate_is_neg: bool, w1: int, w0_abs: int,
+                 w0_is_neg: bool):
+        """fqk: Fq4 as a ``QuadExtOps`` over g2's field.  wnaf: the loop
+        digits LSB first with the top digit trimmed, as the curve constants
+        store them; w1, w0: the hard part's exponent w1*q + w0."""
+        if g1.device != g2.device:
+            raise ValueError(f"G1 on {g1.device}, G2 on {g2.device}")
+        S = fqk.sf
+        if not isinstance(S, T.QuadExtOps) or not isinstance(S.sf,
+                                                             T.FpOps):
+            raise NotImplementedError(
+                "the port's MNT pairing is MNT4's: Fq4 over Fq2 over Fq")
+        self.name = name
+        self.g1 = g1
+        self.g2 = g2
+        self.device = g1.device
+        self.fqk = fqk
+        self.sub = S
+        self.fp = g1.fp
+        self.wnaf = list(reversed(wnaf))       # the loop runs MSB -> LSB
+        self.ate_is_neg = ate_is_neg
+        self.w1 = w1
+        self.w0_abs = w0_abs
+        self.w0_is_neg = w0_is_neg
+        # twist T = X, the subfield's generator; a line's c0 = T^2*y_P is
+        # one base multiply y_P*nr where T^2 = (nr, 0), which holds for
+        # every MNT4 tower: checked here on the device's own arithmetic
+        twist = torch.from_numpy(S.const([0, 1])).to(self.device)
+        nr = S.tensor("nonresidue", self.device)
+        if not torch.equal(S.mul(twist, twist),
+                           torch.cat([nr, torch.zeros_like(nr)])):
+            raise ValueError(f"{name}: T^2 is not sparse")
+        self._nr = fpmod.fp_to_int(self.fp, nr[0])
+        self._twist_a_ints = fpmod.fp_to_ints(self.fp, g2.a)
+
+    # ------------------------------------------------------------------
+    # the Miller loop
+    # ------------------------------------------------------------------
+
+    def _ynr(self, yp):
+        """y_P*nr from G1 y coordinates [..., 1, n] -> [..., n]."""
+        return fpmod.mont_mul(self.fp, yp[..., 0, :],
+                              self.sub.tensor("nonresidue", yp.device)[0])
+
+    def prepare_g2(self, q_affine):
+        """The host affine ladder (mnt4/mod.rs:100-154) for one G2 point.
+
+        q_affine: (x2, y2) Montgomery digits [2, n] (tensors or arrays).
+        Returns tensors on the pairing's device, one row a loop step (the
+        addition rows zero where the step has no addition):
+        ``dbl_ry, dbl_gx, dbl_gt, add_gx, add_gt`` [steps, 2, n] and
+        ``q_y`` [2, n], where gt = gamma*T, so that a line on the device
+        only scales it by x_P."""
+        p = self.fp.modulus
+        nr = self._nr
+
+        hmul = functools.partial(host_ext.quad_mul, p, nr)
+        hinv = functools.partial(host_ext.quad_inv, p, nr)
+
+        def htwist(a):   # a * X
+            return [nr * a[1] % p, a[0]]
+
+        qx = fpmod.fp_to_ints(self.fp, q_affine[0])
+        qy = fpmod.fp_to_ints(self.fp, q_affine[1])
+        a_tw = self._twist_a_ints
+        sx, sy = qx, qy
+        rows = {k: [] for k in ("dbl_ry", "dbl_gx", "dbl_gt", "add_gx",
+                                "add_gt")}
+        for n in self.wnaf:                    # MSB -> LSB
+            sxx = hmul(sx, sx)
+            num = [(3 * u + v) % p for u, v in zip(sxx, a_tw)]
+            gamma = hmul(num, hinv([2 * v % p for v in sy]))
+            rows["dbl_ry"].append(sy)
+            rows["dbl_gx"].append(hmul(gamma, sx))
+            rows["dbl_gt"].append(htwist(gamma))
+            nx = [(u - 2 * v) % p for u, v in zip(hmul(gamma, gamma), sx)]
+            ny = [(u - v) % p for u, v in zip(
+                hmul(gamma, [(i - j) % p for i, j in zip(sx, nx)]), sy)]
+            sx, sy = nx, ny
+            if n != 0:
+                sgn = 1 if n > 0 else -1
+                num = [(u - sgn * v) % p for u, v in zip(sy, qy)]
+                gamma = hmul(num, hinv([(u - v) % p for u, v in zip(sx, qx)]))
+                rows["add_gx"].append(hmul(gamma, qx))
+                rows["add_gt"].append(htwist(gamma))
+                nx = [(u - v - w) % p
+                      for u, v, w in zip(hmul(gamma, gamma), sx, qx)]
+                ny = [(u - v) % p for u, v in zip(
+                    hmul(gamma, [(i - j) % p for i, j in zip(sx, nx)]), sy)]
+                sx, sy = nx, ny
+            else:
+                rows["add_gx"].append([0, 0])
+                rows["add_gt"].append([0, 0])
+        rows["q_y"] = [qy]
+        nd = self.fp.n_digits
+        out = {}
+        for k, r in rows.items():
+            d = fpmod.fp_from_ints(self.fp, [v for row in r for v in row])
+            out[k] = torch.from_numpy(d.reshape(len(r), 2, nd)).to(
+                self.device)
+        out["q_y"] = out["q_y"][0]
+        return out
+
+    def miller_loop_prepared(self, p_affine, prep):
+        """The Miller loop from prepared lines (mnt4/mod.rs:156-224).
+        p_affine: (x, y) [..., 1, n]; prep: ``prepare_g2``'s tensors with
+        a matching batch shape in front ([..., steps, 2, n]; q_y
+        [..., 2, n]).  The f*line products are the sparse ``mul_by_023``:
+        an affine line's c0 = T^2*y_P is one base-field element."""
+        S, F = self.sub, self.fqk
+        xp, yp = p_affine
+        xcol = xp[..., None, :, :]             # broadcast over the steps
+        a_c0 = self._ynr(yp)
+        # every line of the loop at once: doubling c1 = gx - gt*x_P - r_y,
+        # addition c1 = gx - gt*x_P -+ q_y (the sign is the digit's)
+        lines = S.sub(torch.cat([prep["dbl_gx"], prep["add_gx"]], dim=-3),
+                      fpmod.mont_mul(self.fp, torch.cat(
+                          [prep["dbl_gt"], prep["add_gt"]], dim=-3), xcol))
+        steps = len(self.wnaf)
+        c1_dbl = S.sub(lines[..., :steps, :, :], prep["dbl_ry"])
+        q_y = prep["q_y"][..., None, :, :]
+        c1_add = torch.cat([S.sub(lines[..., steps:, :, :], q_y),
+                            S.add(lines[..., steps:, :, :], q_y)], dim=-2)
+        batch = q_y.shape[:-3]
+        f = F.tensor("one", xp.device).expand(
+            batch + (F.K, self.fp.n_digits))
+        for i, n in enumerate(self.wnaf):
+            f = F.mul_by_023(F.sqr(f), a_c0, c1_dbl[..., i, :, :])
+            if n > 0:
+                f = F.mul_by_023(f, a_c0, c1_add[..., i, :2, :])
+            elif n < 0:
+                f = F.mul_by_023(f, a_c0, c1_add[..., i, 2:, :])
+        if self.ate_is_neg:
+            f = F.conjugate(f)
+        return f
+
+    # ------------------------------------------------------------------
+    # product, final exponentiation
+    # ------------------------------------------------------------------
+
+    def product_of_miller(self, f_batch):
+        """Multiply Miller values along axis 0 (a tree of products)."""
+        F = self.fqk
+        cur = f_batch
+        while cur.shape[0] > 1:
+            if cur.shape[0] % 2:
+                cur = torch.cat([cur, F.tensor("one", cur.device).expand(
+                    (1,) + cur.shape[1:])], dim=0)
+            cur = F.mul(cur[0::2], cur[1::2])
+        return cur[0]
+
+    def final_exponentiation(self, f):
+        """f^((q^4 - 1)/r): the easy part elt = f^(q^2 - 1) (one Fq4
+        inversion, one K2 launch) and its inverse, then the hard part
+        elt^(w1*q) * elt^(+-w0) by two cyclotomic power chains."""
+        F = self.fqk
+        f_inv = F.inv(f)
+        both = torch.stack([f, f_inv])
+        easy = F.mul(F.frob(both, 2), both.flip(0))
+        elt, elt_inv = easy[0], easy[1]
+        w1_part = T.ext_cyclotomic_pow_const(F, F.frob(elt, 1), self.w1)
+        base0 = elt_inv if self.w0_is_neg else elt
+        w0_part = T.ext_cyclotomic_pow_const(F, base0, self.w0_abs)
+        return F.mul(w1_part, w0_part)
+
+    # ------------------------------------------------------------------
+    # public API
+    # ------------------------------------------------------------------
+
+    def gt_one(self) -> np.ndarray:
+        """The GT identity (host constant)."""
+        return self.fqk.one()
+
+    def pairing_prepared(self, p_affine, prep):
+        return self.final_exponentiation(self.miller_loop_prepared(
+            p_affine, prep))
+
+    def product_of_pairings_prepared(self, p_affines, preps):
+        """k pairs, each against a prepared G2 point (a list of
+        ``prepare_g2`` results): one prepared loop over the batch of k, the
+        product and one final exponentiation."""
+        stacked = {k: torch.stack([pr[k] for pr in preps]) for k in preps[0]}
+        return self.final_exponentiation(self.product_of_miller(
+            self.miller_loop_prepared(p_affines, stacked)))

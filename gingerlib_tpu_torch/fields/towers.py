@@ -1,14 +1,27 @@
 """Extension-field towers as batched flat component tensors.
 
-Counterpart of ``gingerlib_tpu/fields/towers.py``, as far as the proving path
-needs it: the base field with a unit component axis (``FpOps``) and the
-quadratic extension (``QuadExtOps``) that carries G2 of MNT4-753 and
-BLS12-377.  The higher towers (Fq4, Fq3/Fq6, Fq12) and the cyclotomic and
-sparse-line methods belong to the pairing and are not ported yet.
+Counterpart of ``gingerlib_tpu/fields/towers.py``, as far as the port's paths
+need it: the base field with a unit component axis (``FpOps``) and the
+quadratic extension (``QuadExtOps``) over it or over another quadratic
+extension -- Fq2, which carries G2 of MNT4-753 and BLS12-377, and MNT4's
+Fq4 = Fq2[Y]/(Y^2 - X), which carries its pairing's GT, with the cyclotomic
+square, the sparse line multiply ``mul_by_023`` and the fixed-exponent
+powers.  The cubic towers (Fq3/Fq6 of MNT6) and BLS12's Fq6/Fq12 with their
+line shapes are not ported yet.
 
 An element of a degree-K tower is an int64 tensor [..., K, n_digits] whose K
-components are in Montgomery form.  Constants (``one()``, ``const()``) are
-host numpy arrays; ``tensor(name, device)`` hands out cached device copies.
+components are in Montgomery form, sub-tower low component first.  Constants
+(``one()``, ``const()``) are host numpy arrays; ``tensor(name, device)``
+hands out cached device copies.
+
+Launches: a Karatsuba product needs three products in the subfield, and
+``QuadExtOps`` stacks them on a new axis [..., 3, sK, n_digits] and makes ONE
+subfield product of the stack.  Over the base field that is one Montgomery
+multiply of three rows; over Fq2 it is one Fq2 product of three elements,
+i.e. one multiply of nine rows.  Every Montgomery product is canonical, so
+the values are those of the JAX package's one-after-another calls, digit for
+digit, in a fraction of the launches.  Fixed exponents are host constants,
+so the power chains branch on the host where the JAX package selects.
 """
 
 from __future__ import annotations
@@ -20,16 +33,6 @@ from . import fp as fpmod
 from .fp import FpParams
 from . import host_ext
 from ..ops.limbs import NP_DTYPE
-
-
-def _flatten_host(v):
-    """Nested int tuple/list -> flat list of ints (depth-first)."""
-    if isinstance(v, int):
-        return [v]
-    out = []
-    for c in v:
-        out.extend(_flatten_host(c))
-    return out
 
 
 class _FieldBase:
@@ -47,18 +50,18 @@ class _FieldBase:
 
     def const(self, v) -> np.ndarray:
         """Host constant (nested ints, standard form) -> digits [K, n]."""
-        vs = _flatten_host(v)
+        vs = host_ext.flatten(v)
         if len(vs) != self.K:
             raise ValueError(f"expected {self.K} components, got {len(vs)}")
         return fpmod.fp_from_ints(self.fp, vs)
 
-    def tensor(self, name: str, device) -> torch.Tensor:
-        """The host constant that method ``name`` returns (``zero``,
-        ``one``, ...) as a cached tensor on ``device``."""
-        key = (name, str(device))
+    def tensor(self, name: str, device, *args) -> torch.Tensor:
+        """The host constant that method ``name`` returns for ``args``
+        (``zero``, ``one``, ...) as a cached tensor on ``device``."""
+        key = (name, args, str(device))
         hit = self._tensors.get(key)
         if hit is None:
-            hit = torch.from_numpy(getattr(self, name)()).to(device)
+            hit = torch.from_numpy(getattr(self, name)(*args)).to(device)
             self._tensors[key] = hit
         return hit
 
@@ -84,6 +87,24 @@ class _FieldBase:
         """Multiply every component by the base-field element s [..., n]."""
         return fpmod.mont_mul(self.fp, a, s.unsqueeze(-2))
 
+    def frob_scale_ints(self, i: int) -> list:
+        """Standard-form factors, one a component, by which ``frob(x, i)``
+        multiplies x: every Frobenius map of the ported towers is such a
+        componentwise scaling."""
+        return [1] * self.K
+
+    def frob_scale(self, i: int) -> np.ndarray:
+        return fpmod.fp_from_ints(self.fp, self.frob_scale_ints(i))
+
+    def frob(self, x, i: int):
+        """x^(p^i): one multiply by the per-component factors, none where
+        they are all one."""
+        i %= self.K
+        if all(c == 1 for c in self.frob_scale_ints(i)):
+            return x
+        return fpmod.mont_mul(self.fp, x,
+                              self.tensor("frob_scale", x.device, i))
+
 
 class FpOps(_FieldBase):
     """Degree-1 'tower': the base prime field with a unit component axis."""
@@ -106,84 +127,194 @@ class FpOps(_FieldBase):
     def inv(self, a):
         return fpmod.inv_mod(self.fp, a)
 
-    def frob(self, a, i: int):
-        return a
-
 
 class QuadExtOps(_FieldBase):
-    """Fp2 = Fp[X]/(X^2 - nonresidue): x = a0 + a1*X as [..., 2, n_digits].
+    """sub[Y]/(Y^2 - nonresidue): x = a0 + a1*Y as [..., 2*sub.K, n_digits],
+    over the base field (Fq2) or over a quadratic extension (MNT4's Fq4).
 
-    Only over the base field: the three base multiplies of a Karatsuba
-    product (and of a square) are stacked into ONE Montgomery multiply of
-    [..., 3, n_digits], a third of the launches of three separate calls and
-    the same values.
+    Where the nonresidue is the subfield's own generator X (Fq4 over Fq2:
+    Y^2 = X), multiplying by it is a component rotation and one multiply by
+    the subfield's nonresidue (``sf.mul_by_gen``), not a subfield product.
     """
 
-    def __init__(self, name, sub: FpOps, nonresidue_host, frob_c1_host):
+    def __init__(self, name, sub, nonresidue_host, frob_c1_host):
         super().__init__()
-        if not isinstance(sub, FpOps):
+        if not isinstance(sub, (FpOps, QuadExtOps)):
             raise NotImplementedError(
-                "towers above the quadratic extension of the base field "
-                "come with the pairing")
+                "cubic subfields (MNT6's Fq3) are not ported yet")
         self.name = name
         self.sf = sub
         self.fp = sub.fp
-        self.K = 2
-        self._nr_host = sub.const(nonresidue_host)           # [1, n]
-        self._frob_c1_host = [sub.const(c) for c in frob_c1_host]
+        self.K = 2 * sub.K
+        self._nr_host = sub.const(nonresidue_host)           # [sK, n]
+        gen = [0] * sub.K
+        if isinstance(sub, QuadExtOps):
+            gen[sub.sf.K] = 1
+        self.nr_is_sub_gen = isinstance(sub, QuadExtOps) and \
+            host_ext.flatten(nonresidue_host) == gen
+        self._frob_c1 = [host_ext.flatten(c) for c in frob_c1_host]
+        for c in self._frob_c1:
+            if len(c) != sub.K or any(c[1:]):
+                raise NotImplementedError(
+                    "Frobenius coefficients outside the base field")
 
     def one(self) -> np.ndarray:
         z = self.zero()
-        z[:1] = self.sf.one()
+        z[: self.sf.K] = self.sf.one()
         return z
 
     def nonresidue(self) -> np.ndarray:
         return self._nr_host
 
-    def _karatsuba(self, v, t):
-        """(v0, v1, (a0+a1)(b0+b1)) -> (v0 + nr*v1, t - v0 - v1)."""
-        v0, v1 = v[..., 0:1, :], v[..., 1:2, :]
+    def frob_scale_ints(self, i: int) -> list:
+        sub = self.sf.frob_scale_ints(i)
+        c = self._frob_c1[i % self.K][0]
+        return sub + [s * c % self.fp.modulus for s in sub]
+
+    # -- structure ------------------------------------------------------
+
+    def _halves(self, x):
+        k = self.sf.K
+        return x[..., :k, :], x[..., k:, :]
+
+    def _pair(self, x):
+        """[..., K, n] -> [..., 2, sK, n]: the two subfield components on
+        an axis of their own."""
+        return x.unflatten(-2, (2, self.sf.K))
+
+    def _stack(self, x):
+        """(a0, a1, a0 + a1) as [..., 3, sK, n], the operands of a
+        Karatsuba product's three subfield products."""
+        a0, a1 = self._halves(x)
+        return torch.cat([x, self.sf.add(a0, a1)],
+                         dim=-2).unflatten(-2, (3, self.sf.K))
+
+    def _karatsuba(self, v):
+        """Products (v0, v1, t) [..., 3, sK, n] -> (v0 + nr*v1, t - v0 - v1)."""
         S = self.sf
-        c0 = S.add(v0, S.mul(v1, self.tensor("nonresidue", v.device)))
+        v0, v1, t = v.unbind(-3)
+        c0 = S.add(v0, self.mul_by_nonresidue(v1))
         c1 = S.sub(S.sub(t, v0), v1)
         return torch.cat([c0, c1], dim=-2)
 
+    # -- arithmetic -----------------------------------------------------
+
+    def mul_by_nonresidue(self, a):
+        """A subfield element times Y^2."""
+        if self.nr_is_sub_gen:
+            return self.sf.mul_by_gen(a)
+        return self.sf.mul(a, self.tensor("nonresidue", a.device))
+
+    def mul_by_gen(self, x):
+        """x * Y (the tower generator): (a0, a1) -> (nr*a1, a0)."""
+        a0, a1 = self._halves(x)
+        return torch.cat([self.mul_by_nonresidue(a1), a0], dim=-2)
+
     def mul(self, x, y):
-        S = self.sf
-        x, y = torch.broadcast_tensors(x, y)
-        xs = torch.cat([x, S.add(x[..., 0:1, :], x[..., 1:2, :])], dim=-2)
-        ys = torch.cat([y, S.add(y[..., 0:1, :], y[..., 1:2, :])], dim=-2)
-        v = S.mul(xs, ys)                       # v0, v1, t
-        return self._karatsuba(v, v[..., 2:3, :])
+        return self._karatsuba(self.sf.mul(self._stack(x), self._stack(y)))
 
     def sqr(self, x):
-        S = self.sf
-        xs = torch.cat([x, S.add(x[..., 0:1, :], x[..., 1:2, :])], dim=-2)
-        v = S.mul(xs, xs)
-        return self._karatsuba(v, v[..., 2:3, :])
+        return self._karatsuba(self.sf.sqr(self._stack(x)))
 
     def inv(self, x):
         S = self.sf
-        a0, a1 = x[..., 0:1, :], x[..., 1:2, :]
-        sq = S.mul(x, x)                        # a0^2, a1^2
-        norm = S.sub(sq[..., 0:1, :],
-                     S.mul(sq[..., 1:2, :], self.tensor("nonresidue", x.device)))
-        t = S.inv(norm)
-        xt = S.mul(x, t)                        # a0*t, a1*t
-        return torch.cat([xt[..., 0:1, :], S.neg(xt[..., 1:2, :])], dim=-2)
+        pair = self._pair(x)
+        sq = S.sqr(pair)                        # a0^2, a1^2
+        norm = S.sub(sq[..., 0, :, :], self.mul_by_nonresidue(sq[..., 1, :, :]))
+        xt = S.mul(pair, S.inv(norm).unsqueeze(-3))      # a0*t, a1*t
+        return torch.cat([xt[..., 0, :, :], S.neg(xt[..., 1, :, :])], dim=-2)
 
     def conjugate(self, x):
-        return torch.cat([x[..., 0:1, :], self.sf.neg(x[..., 1:2, :])],
-                         dim=-2)
-
-    def frob(self, x, i: int):
-        c = torch.from_numpy(self._frob_c1_host[i % 2]).to(x.device)
-        return torch.cat([x[..., 0:1, :], self.sf.mul(x[..., 1:2, :], c)],
-                         dim=-2)
+        a0, a1 = self._halves(x)
+        return torch.cat([a0, self.sf.neg(a1)], dim=-2)
 
     def mul_by_sub(self, x, s):
-        """Multiply by a base-field element s [..., 1, n] (sparse)."""
-        return self.sf.mul(x, s)
+        """Multiply by a subfield element s [..., sK, n] (sparse)."""
+        return self.sf.mul(self._pair(x), s.unsqueeze(-3)).flatten(-3, -2)
+
+    # -- the cyclotomic subgroup (GT) -----------------------------------
+
+    def cyclotomic_square(self, x):
+        """Squaring of unitary elements (norm 1): the quartic formula, two
+        subfield squarings (one stacked product) instead of three."""
+        S = self.sf
+        a0, a1 = self._halves(x)
+        sq = S.sqr(torch.stack([a1, S.add(a1, a0)], dim=-3))
+        a = sq[..., 0, :, :]
+        c = S.sub(sq[..., 1, :, :], a)
+        d = self.mul_by_nonresidue(a)
+        e = S.sub(c, d)
+        one = S.tensor("one", x.device)
+        return torch.cat([S.add(S.double(d), one), S.sub(e, one)], dim=-2)
+
+    def mul_by_023(self, x, a, c1):
+        """x * (c0 + c1*Y) with c0 = [a, 0], a in Fp: the MNT4 affine-line
+        shape.  a: base-field digits [..., n]; c1: subfield element
+        [..., sK, n].  v0 is a scaling by a, and v1 and the cross product
+        are one stacked subfield product."""
+        S = self.sf
+        if not isinstance(S, QuadExtOps) or not isinstance(S.sf, FpOps):
+            raise NotImplementedError("mul_by_023 is the Fq4 line shape")
+        x0, x1 = self._halves(x)
+        v0 = S.scale_fp(x0, a)
+        # other.c0 + other.c1 = c1 with a added into its first Fp component
+        oc = torch.cat([fpmod.add_mod(self.fp, c1[..., :1, :],
+                                      a.unsqueeze(-2)), c1[..., 1:, :]],
+                       dim=-2)
+        v = S.mul(torch.stack(torch.broadcast_tensors(x1, S.add(x0, x1)),
+                              dim=-3),
+                  torch.stack(torch.broadcast_tensors(c1, oc), dim=-3))
+        v1, t = v.unbind(-3)
+        nc0 = S.add(v0, self.mul_by_nonresidue(v1))
+        nc1 = S.sub(S.sub(t, v0), v1)
+        return torch.cat([nc0, nc1], dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# generic helpers on any tower
+# ---------------------------------------------------------------------------
+
+def ext_pow_const(ops, x, exp_bits):
+    """x^e for a fixed exponent given as bits, MSB first: square and
+    multiply from the leading one, the multiply only where the bit is set."""
+    bits = [int(b) for b in np.asarray(exp_bits).reshape(-1)]
+    if 1 not in bits:
+        return ops.tensor("one", x.device).expand(x.shape).clone()
+    r = x
+    for b in bits[bits.index(1) + 1:]:
+        r = ops.sqr(r)
+        if b:
+            r = ops.mul(r, x)
+    return r
+
+
+def _wnaf_digits_msb(e: int):
+    """Signed NAF digits of e >= 1, MSB first (find_wnaf, biginteger)."""
+    digs = []
+    while e:
+        if e & 1:
+            d = 2 - (e & 3)
+            e -= d
+        else:
+            d = 0
+        digs.append(d)
+        e >>= 1
+    return list(reversed(digs))
+
+
+def ext_cyclotomic_pow_const(ops, x, e: int):
+    """x^e for unitary x (GT): NAF digits with cyclotomic squarings and the
+    free conjugate inverse, a multiply only at the non-zero digits."""
+    if e == 0:
+        return ops.tensor("one", x.device).expand(x.shape).clone()
+    digs = _wnaf_digits_msb(e)
+    x_inv = ops.conjugate(x) if min(digs) < 0 else None
+    r = x
+    for d in digs[1:]:
+        r = ops.cyclotomic_square(r)
+        if d:
+            r = ops.mul(r, x if d > 0 else x_inv)
+    return r
 
 
 def ext_batch_inverse_tree(ops, a):
@@ -213,6 +344,16 @@ def ext_batch_inverse_tree(ops, a):
     return torch.where(zero_mask, torch.zeros_like(a), inv[:n])
 
 
+def ext_to_ints(ops, x) -> list:
+    """One element [K, n] (tensor or array) -> list of K standard-form
+    ints."""
+    return fpmod.fp_to_ints(ops.fp, x.reshape(ops.K, ops.fp.n_digits))
+
+
+# ---------------------------------------------------------------------------
+# the towers of the concrete parameter sets
+# ---------------------------------------------------------------------------
+
 def build_quadratic_tower(fq_params: FpParams, nr2: int):
     """Fq -> Fq2 (X^2 = nr2): the part of the MNT4 and BLS12 towers that the
     G1/G2 arithmetic uses.  Returns (base, fq2)."""
@@ -222,5 +363,12 @@ def build_quadratic_tower(fq_params: FpParams, nr2: int):
     return base, fq2
 
 
-# The MNT4 tower Fq -> Fq2 -> Fq4 stops at Fq2 until the pairing is ported.
-build_mnt4_towers = build_quadratic_tower
+def build_mnt4_towers(fq_params: FpParams, nr2: int):
+    """MNT4-style tower Fq -> Fq2 (X^2 = nr2) -> Fq4 (Y^2 = X); Fq4's
+    Frobenius coefficients are base-field values embedded as (c, 0).
+    Returns (base, fq2, fq4)."""
+    base, fq2 = build_quadratic_tower(fq_params, nr2)
+    fq4 = QuadExtOps(f"{fq_params.name}4", fq2, [0, 1],
+                     [[c, 0] for c in host_ext.frob_table_fp4(
+                         fq_params.modulus, nr2)])
+    return base, fq2, fq4

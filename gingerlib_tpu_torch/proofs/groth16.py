@@ -1,4 +1,4 @@
-"""Groth16 zk-SNARK: setup and prove on the device.
+"""Groth16 zk-SNARK: setup, prove and verify on the device.
 
 Counterpart of ``gingerlib_tpu/proofs/groth16.py`` and the same dataflow:
 the generator's scalar bookkeeping (Lagrange coefficients at the toxic
@@ -20,8 +20,14 @@ G1 queries (a, b1, l, h), ``msm_affine`` for the G2 query (b2).  A second,
 two-lane loop over G1 gives s*A + r*B1.  The results are those of the JAX
 package's one-after-another calls.
 
-Verification needs the pairing, which is not ported yet: ``verify_proof``
-raises, and ``VerifyingKey.alpha_g1_beta_g2`` stays ``None``.
+Verification follows the JAX package's ``verify_proof``: the input
+accumulation (``msm_naive`` below 64 inputs, ``msm_bucketed`` from 64), one
+host affine ladder for each of B, -gamma and -delta (``prepare_g2``), ONE
+prepared Miller loop over the batch of three pairs, one final
+exponentiation, and the compare in GT with ``vk.alpha_g1_beta_g2``, which
+setup fills in with one prepared pairing.  An engine without a pairing
+(BLS12-377, whose pairing is not ported yet) sets up and proves, leaves
+``alpha_g1_beta_g2`` at ``None`` and cannot verify.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from dataclasses import dataclass
 import torch
 
 from ..curves.instances import Engine
+from ..curves.pairing_mnt import MNTPairing
 from ..device import resolve_device
 from ..fields import fp as fpmod
 from ..ops import limbs
@@ -41,8 +48,8 @@ from . import groth16_host
 
 @dataclass
 class VerifyingKey:
-    alpha_g1_beta_g2: torch.Tensor | None   # GT element; None until the
-    #                                         pairing is ported
+    alpha_g1_beta_g2: torch.Tensor | None   # GT element [K, nd]; None
+    #                                         where the engine has no pairing
     gamma_g2: tuple                         # G2 affine (x, y)
     delta_g2: tuple
     gamma_abc_g1: tuple                     # (xs, ys) [num_inputs, 1, nd]
@@ -135,7 +142,10 @@ def generate_parameters(engine: Engine, cs: ConstraintSystem,
         return (group[0][i], group[1][i])
 
     vk = VerifyingKey(
-        alpha_g1_beta_g2=None,
+        # an engine with a pairing is the pairing (instances.py)
+        alpha_g1_beta_g2=engine.pairing_prepared(
+            pick(single1, 0), engine.prepare_g2(pick(single2, 0)))
+        if isinstance(engine, MNTPairing) else None,
         gamma_g2=pick(single2, 1),
         delta_g2=pick(single2, 2),
         gamma_abc_g1=(abc_q[0], abc_q[1]),
@@ -280,12 +290,37 @@ def _create_proof_device(engine, compiled, params: Parameters, z, rd, sd,
 # verification
 # ---------------------------------------------------------------------------
 
-def verify_proof(engine: Engine, vk: VerifyingKey, proof: Proof,
+def verify_proof(engine: MNTPairing, vk: VerifyingKey, proof: Proof,
                  public_inputs) -> bool:
-    raise NotImplementedError(
-        "verify_proof needs the MNT4 pairing (Fq4 tower, Miller loop, final "
-        "exponentiation), which arrives with the pairing slice of the port; "
-        "until then hold proofs against proofs.groth16_host.expected_proof")
+    """The three-pair product check (verifier.rs:18-44):
+    e(A, B) * e(acc, -gamma) * e(C, -delta) == e(alpha, beta), where acc
+    is the sum of gamma_abc[i] times (1, public_inputs...).  public_inputs:
+    python ints, without the leading one."""
+    if not isinstance(engine, MNTPairing):
+        raise NotImplementedError(
+            f"verify_proof needs the engine's pairing, and this engine "
+            f"({engine.g1.name}, {engine.g2.name}) has none: the BLS12 "
+            f"pairing over Fq12 is not ported yet")
+    g1, g2 = engine.g1, engine.g2
+    fr = g1.scalar_field
+    xs, ys = vk.gamma_abc_g1
+    if xs.shape[0] != len(public_inputs) + 1:
+        raise ValueError("malformed verifying key")
+    if vk.alpha_g1_beta_g2 is None:
+        raise ValueError("verifying key has no alpha_g1_beta_g2")
+    sd = _scalar_digits(fr, [1] + list(public_inputs), g1.device)
+    # input accumulation: one double-and-add loop over all inputs below 64
+    # (its steps cost the same for 2 or 60 lanes), Pippenger from 64
+    msm = msm_mod.msm_bucketed if xs.shape[0] >= 64 else msm_mod.msm_naive
+    acc = g1.to_affine(msm(g1, xs, ys, sd))
+
+    neg_gamma = (vk.gamma_g2[0], g2.F.neg(vk.gamma_g2[1]))
+    neg_delta = (vk.delta_g2[0], g2.F.neg(vk.delta_g2[1]))
+    p_batch = tuple(torch.stack([a, b, c])
+                    for a, b, c in zip(proof.a, acc, proof.c))
+    preps = [engine.prepare_g2(q) for q in (proof.b, neg_gamma, neg_delta)]
+    gt = engine.product_of_pairings_prepared(p_batch, preps)
+    return bool(torch.equal(gt, vk.alpha_g1_beta_g2))
 
 
 # ---------------------------------------------------------------------------

@@ -93,7 +93,10 @@ def points_to_numpy(pt, dtype=np.uint32):
 
 def params_from_numpy(engine, src, device=None) -> Parameters:
     """Proving key ``src`` (array form or host form, see the module
-    docstring) -> the port's ``Parameters`` on ``device``."""
+    docstring) -> the port's ``Parameters`` on ``device``.  The verifying
+    key's GT element ``alpha_g1_beta_g2`` comes across where the source has
+    one: in the array form Montgomery digits ``[K, nd]``, in the host form
+    K standard-form ints."""
     device = resolve_device(device)
 
     def curve_of(name):
@@ -113,7 +116,9 @@ def params_from_numpy(engine, src, device=None) -> Parameters:
         gx, gy, _ = _host_points(engine.g2, [vk_src["gamma_g2"],
                                              vk_src["delta_g2"]], device)
         abc = _host_points(engine.g1, vk_src["gamma_abc"], device)
-        vk = VerifyingKey(alpha_g1_beta_g2=None,
+        gt = vk_src.get("alpha_g1_beta_g2")
+        vk = VerifyingKey(alpha_g1_beta_g2=None if gt is None else _upload(
+                              fpmod.fp_from_ints(engine.g1.fp, gt), device),
                           gamma_g2=(gx[0], gy[0]), delta_g2=(gx[1], gy[1]),
                           gamma_abc_g1=(abc[0], abc[1]))
     else:
@@ -125,8 +130,10 @@ def params_from_numpy(engine, src, device=None) -> Parameters:
             out[name] = (_upload(xs, device), _upload(ys, device),
                          _upload(inf, device, np.bool_))
         v = src.vk
+        gt = getattr(v, "alpha_g1_beta_g2", None)
         vk = VerifyingKey(
-            alpha_g1_beta_g2=None,
+            alpha_g1_beta_g2=None if gt is None else _upload(
+                np.asarray(gt).reshape(-1, engine.g1.fp.n_digits), device),
             gamma_g2=tuple(_upload(c, device) for c in v.gamma_g2),
             delta_g2=tuple(_upload(c, device) for c in v.delta_g2),
             gamma_abc_g1=tuple(_upload(c, device) for c in v.gamma_abc_g1))

@@ -20,6 +20,13 @@ jax) and holds no test of its own.
   of it runs (``inv_inputs``).  Used by
   tests/test_torch_inv_divsteps.py (the header compiled for the host),
   tests/test_torch_gpu_kernels.py and chip_smoke.py (the kernel).
+* The MNT4-753 pairing's cases: the reference's pinned anchor as affine
+  python ints (``mnt4753_anchor``), a short loop (``SHORT_LOOP``: the top
+  WNAF digits, with +1 and -1 among them, and a 16-bit hard part) and the
+  1-constraint circuit a verifier is tried on (``one_constraint_circuit``),
+  and the GT element its verifying key must hold (``host_alpha_beta``).
+  Used by tests/test_torch_pairing.py, tests/test_torch_groth16.py and
+  tests/test_torch_gpu_kernels.py.
 """
 
 import random
@@ -420,3 +427,72 @@ def from_fragments(frag, K, N):
                         out[32 * s + 16 * r + 4 * t + i, 8 * j + g] = \
                             lo | hi << 8
     return out
+
+
+# ---------------------------------------------------------------------------
+# the MNT4-753 pairing
+# ---------------------------------------------------------------------------
+
+def mnt4753_anchor():
+    """The reference's pinned pairing (mnt4753/tests.rs:265-490): G1 point
+    ([x], [y]) and G2 point ([x0, x1], [y0, y1]) in affine python ints, and
+    their GT value (4 ints)."""
+    from gingerlib_tpu_torch import params as TP
+    from gingerlib_tpu_torch.fields import host_ext as HE
+    from gingerlib_tpu_torch.params._gen.anchors_gen import \
+        MNT4753_PAIRING_ANCHOR as A
+    p = TP.MNT4753_FQ.modulus
+    _, fq2, _ = HE.build_mnt4_host_towers(p, 13)
+    aX, aY, aZ = A["a"]
+    zi = pow(aZ, -1, p)
+    bX, bY, bZ = A["b"]
+    zinv = HE.host_ext_inv(fq2, list(bZ))
+    return (([aX * zi % p], [aY * zi % p]),
+            (HE.host_ext_mul(fq2, list(bX), zinv),
+             HE.host_ext_mul(fq2, list(bY), zinv)),
+            [v % p for v in A["gt"]])
+
+
+def _short_loop():
+    from gingerlib_tpu_torch.params._gen import curves_gen as CG
+    wnaf = list(CG.MNT4753["wnaf"][-12:])      # LSB first: the top digits
+    assert 1 in wnaf and -1 in wnaf
+    return {"wnaf": wnaf, "w0_abs": 0xB5A7}
+
+
+SHORT_LOOP = _short_loop()
+
+
+def short_pairings(pairing):
+    """The device pairing and the python-int oracle over SHORT_LOOP, with
+    everything else of MNT4-753."""
+    from gingerlib_tpu_torch.curves.pairing_host import (
+        HostMNTPairing, host_mnt4753_pairing)
+    from gingerlib_tpu_torch.curves.pairing_mnt import MNTPairing
+    wnaf, w0 = SHORT_LOOP["wnaf"], SHORT_LOOP["w0_abs"]
+    short = MNTPairing("mnt4753_short", pairing.g1, pairing.g2, pairing.fqk,
+                       wnaf, pairing.ate_is_neg, pairing.w1, w0,
+                       pairing.w0_is_neg)
+    H = host_mnt4753_pairing()
+    return short, HostMNTPairing(H.p, H.S, H.F, H.g2_a, wnaf, H.ate_is_neg,
+                                 H.w1, w0, H.w0_is_neg)
+
+
+def one_constraint_circuit(fr):
+    """a * b = c with the input c = 77 and a = 7, b = 11."""
+    from gingerlib_tpu_torch.relations import r1cs
+    cs = r1cs.ConstraintSystem(fr)
+    c = cs.alloc_input("c", 77)
+    a, b = cs.alloc("a", 7), cs.alloc("b", 11)
+    cs.enforce(r1cs.lc(a), r1cs.lc(b), r1cs.lc(c), "a*b=c")
+    return cs
+
+
+def host_alpha_beta(alpha: int, beta: int) -> list:
+    """e(alpha*G1, beta*G2) of MNT4-753 by the python-int oracle: what a
+    verifying key's alpha_g1_beta_g2 must be."""
+    from gingerlib_tpu_torch.curves.pairing_host import host_mnt4753_pairing
+    from gingerlib_tpu_torch.proofs.groth16_host import host_curves
+    g1, g2, _ = host_curves("mnt4753")
+    return host_mnt4753_pairing().pairing(g1.mul(g1.gen, alpha),
+                                          g2.mul(g2.gen, beta))

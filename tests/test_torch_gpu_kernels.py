@@ -1,5 +1,6 @@
 """The port's field, curve, pow-chain, Poseidon and RNS kernels against their
-plain PyTorch versions, under pytest, on a machine with an NVIDIA GPU:
+plain PyTorch versions, and the MNT4-753 pairing and Groth16 verification
+that run over them, under pytest, on a machine with an NVIDIA GPU:
 
     python -m pytest --noconftest tests/test_torch_gpu_kernels.py -q
 
@@ -17,9 +18,10 @@ import torch
 from gingerlib_tpu_torch.curves import instances as CI
 from gingerlib_tpu_torch.ops import ec_kernels as EK, msm as tmsm
 from gingerlib_tpu_torch.ops import ec_rns as ER
-from test_torch_cases import (affine_pairs, inv_inputs, poseidon_states,
-                              pow_edge_exponents, proj_pairs, rand_below,
-                              reduced_poseidon)
+from test_torch_cases import (affine_pairs, host_alpha_beta, inv_inputs,
+                              mnt4753_anchor, one_constraint_circuit,
+                              poseidon_states, pow_edge_exponents,
+                              proj_pairs, rand_below, reduced_poseidon)
 
 pytestmark = pytest.mark.gpu
 N = 64
@@ -537,3 +539,92 @@ def test_proj_add_on_carry_runs(curve):
     for got, want in zip(EK.proj_add(curve, P, Q),
                          EK.proj_add_plain(curve, P, Q)):
         assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the MNT4-753 pairing and verify_proof
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mnt4_pairing():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the field kernels have no CPU form")
+    return CI.mnt4753_pairing()
+
+
+def test_fq4_on_the_kernels_matches_plain(mnt4_pairing):
+    """Fq4 multiply, square, inverse, cyclotomic square and sparse line on
+    the field kernels against the same calls on the CPU's plain versions."""
+    F = mnt4_pairing.fqk
+    P = mnt4_pairing.fp.modulus
+    x = torch.from_numpy(np.stack([F.const(rand_below(P, 4, seed=s))
+                                   for s in range(5)]))
+    y = x.roll(1, 0)
+    u = F.mul(F.frob(x, 2), F.inv(x))                 # unitary, on the CPU
+    ops = {"mul": lambda x, y, u: F.mul(x, y),
+           "sqr": lambda x, y, u: F.sqr(x),
+           "inv": lambda x, y, u: F.inv(x),
+           "frob1": lambda x, y, u: F.frob(x, 1),
+           "cyclotomic_square": lambda x, y, u: F.cyclotomic_square(u),
+           "mul_by_023": lambda x, y, u: F.mul_by_023(x, y[..., 0, :],
+                                                      y[..., 2:, :])}
+    for name, op in ops.items():
+        got = op(x.cuda(), y.cuda(), u.cuda())
+        assert torch.equal(got.cpu(), op(x, y, u)), name
+
+
+def test_mnt4753_pairing_matches_anchor(mnt4_pairing):
+    """The full pairing of the reference's anchor points on the card, each
+    field operation a kernel launch, the final exponentiation's inversion
+    one launch of the inverse."""
+    from gingerlib_tpu_torch.fields import fp, towers as T
+    E = mnt4_pairing
+    pa, qb, gt = mnt4753_anchor()
+    p, q = E.g1.affine_from_ints(*pa), E.g2.affine_from_ints(*qb)
+    fp.reset_launch_counts()
+    got = E.pairing_prepared(p, E.prepare_g2(q))
+    assert T.ext_to_ints(E.fqk, got) == gt
+    assert fp.launch_counts["inv_bea"] >= 1
+    assert fp.launch_counts["mont_mul"] > 0
+
+
+@pytest.fixture(scope="module")
+def mnt4_proof(mnt4_pairing):
+    """Setup and prove on the card, the 1-constraint circuit."""
+    from gingerlib_tpu_torch.proofs import groth16
+    from gingerlib_tpu_torch.relations.r1cs import compile_r1cs
+    eng = CI.mnt4753_engine()
+    cs = one_constraint_circuit(eng.g1.scalar_field)
+    toxic = dict(alpha=123, beta=456, gamma=789, delta=1011, t=314159)
+    params = groth16.generate_parameters(eng, cs, **toxic)
+    proof = groth16.create_proof(eng, params, compile_r1cs(cs),
+                                 cs.assignment(), r=31337, s=71717)
+    return eng, params, proof, toxic
+
+
+def test_setup_fills_alpha_g1_beta_g2(mnt4_proof):
+    from gingerlib_tpu_torch.fields import fp
+    eng, params, _, toxic = mnt4_proof
+    assert fp.fp_to_ints(eng.fp, params.vk.alpha_g1_beta_g2) == \
+        host_alpha_beta(toxic["alpha"], toxic["beta"])
+
+
+@pytest.mark.parametrize("case", ["accepts", "wrong_input", "altered_c"])
+def test_verify_proof_on_the_gpu(mnt4_proof, case):
+    """verify_proof accepts the card's proof, and refuses it with another
+    public input or with C + G1's generator (still a curve point)."""
+    from gingerlib_tpu_torch.fields import fp
+    from gingerlib_tpu_torch.proofs import groth16
+    eng, params, proof, _ = mnt4_proof
+    inputs = [77]
+    if case == "wrong_input":
+        inputs = [78]
+    elif case == "altered_c":
+        g1 = eng.g1
+        proof = groth16.Proof(a=proof.a, b=proof.b, c=g1.to_affine(
+            g1.add_mixed(g1.from_affine(*proof.c), g1.generator_affine)))
+    fp.reset_launch_counts()
+    assert groth16.verify_proof(eng, params.vk, proof, inputs) \
+        is (case == "accepts")
+    assert fp.launch_counts["mont_mul"] > 0 \
+        and fp.launch_counts["inv_bea"] > 0

@@ -17,11 +17,13 @@ from gingerlib_tpu.proofs import groth16_host as jhost
 from gingerlib_tpu.relations import r1cs as jr1cs
 from gingerlib_tpu_torch.circuits import benchmark_circuit
 from gingerlib_tpu_torch.curves import instances as TCI
+from gingerlib_tpu_torch.curves.pairing_mnt import MNTPairing
 from gingerlib_tpu_torch.fields import fp as tfp
 from gingerlib_tpu_torch.proofs import groth16 as tgroth16
 from gingerlib_tpu_torch.proofs import groth16_host as thost
 from gingerlib_tpu_torch.relations import r1cs as tr1cs
 from gingerlib_tpu_torch.utils.convert import params_from_numpy
+from test_torch_cases import one_constraint_circuit
 
 torch.set_num_threads(1)
 TOXIC = dict(alpha=123, beta=456, gamma=789, delta=1011, t=314159)
@@ -88,7 +90,11 @@ def check_setup(case):
         == hp.vk["gamma_abc"]
     assert (params.num_inputs, params.domain_size) \
         == (hp.num_inputs, hp.domain_size)
-    assert params.vk.alpha_g1_beta_g2 is None
+    gt = params.vk.alpha_g1_beta_g2
+    if isinstance(eng, MNTPairing):       # the engine has a pairing
+        assert tfp.fp_to_ints(eng.fp, gt) == hp.vk["alpha_g1_beta_g2"]
+    else:
+        assert gt is None
 
 
 def check_carried_params(case):
@@ -103,6 +109,9 @@ def check_carried_params(case):
             assert got.dtype == want.dtype and torch.equal(got, want), name
     for got, want in zip(carried.vk.gamma_abc_g1, params.vk.gamma_abc_g1):
         assert torch.equal(got, want)
+    if params.vk.alpha_g1_beta_g2 is not None:
+        assert torch.equal(carried.vk.alpha_g1_beta_g2,
+                           params.vk.alpha_g1_beta_g2)
     assert (carried.num_inputs, carried.domain_size) \
         == (params.num_inputs, params.domain_size)
 
@@ -172,7 +181,10 @@ def test_assignment_tensor_and_blinding(bls):
 
 
 def test_verify_is_not_ported_yet(bls):
-    with pytest.raises(NotImplementedError, match="pairing"):
+    """BLS12-377's engine has no pairing (its Fq12 pairing is not ported):
+    its verifying key holds no GT element and verify_proof refuses to
+    run."""
+    with pytest.raises(NotImplementedError, match="BLS12 pairing"):
         tgroth16.verify_proof(bls["eng"], bls["params"].vk, bls["proof"], [])
 
 
@@ -180,20 +192,19 @@ def test_verify_is_not_ported_yet(bls):
 def mnt4():
     """The 1-constraint circuit of tests/test_groth16_753_device.py."""
     from gingerlib_tpu_torch import params as TP
-    fr = TP.MNT4753_FR
-    cs = tr1cs.ConstraintSystem(fr)
-    c = cs.alloc_input("c", 77)
-    a, b = cs.alloc("a", 7), cs.alloc("b", 11)
-    cs.enforce(tr1cs.lc(a), tr1cs.lc(b), tr1cs.lc(c), "a*b=c")
     return make_case("mnt4753", JP.MNT4753_FR, jhost.host_groth16_mnt4753,
-                     cs)
+                     one_constraint_circuit(TP.MNT4753_FR))
 
 
 @pytest.mark.slow
 def test_mnt4753_slice_matches_host_oracle(mnt4):
+    """Setup (alpha_g1_beta_g2 included), prove and verify over MNT4-753,
+    all on the port."""
     check_setup(mnt4)
     assert tgroth16.proof_to_ints(mnt4["eng"], mnt4["proof"]) \
         == mnt4["hproof"]
     assert thost.expected_proof("mnt4753", mnt4["cs"], **TOXIC, **RAND) \
         == mnt4["hproof"]
     check_carried_params(mnt4)
+    assert tgroth16.verify_proof(mnt4["eng"], mnt4["params"].vk,
+                                 mnt4["proof"], [77])

@@ -43,7 +43,9 @@ def test_sources_found():
     assert {"fp.py", "sw.py", "groth16.py", "chip_smoke.py", "ec_kernels.py",
             "msm.py", "convert.py", "poseidon.py", "poseidon_kernels.py",
             "poseidon_host.py", "merkle.py", "poseidon_gen.py",
-            "merkle_gen.py", "rns.py", "rns_kernels.py", "ec_rns.py"} <= names
+            "merkle_gen.py", "rns.py", "rns_kernels.py", "ec_rns.py",
+            "towers.py", "host_ext.py", "pairing_mnt.py", "pairing_host.py",
+            "anchors_gen.py"} <= names
 
 
 @pytest.mark.parametrize(
@@ -68,7 +70,8 @@ def _cpu_case():
 
 
 ENTRY_POINTS = ["compile_r1cs", "Domain", "mnt4753_g1", "mnt4753_g2",
-                "bls12_377_g1", "mnt4753_engine", "generate_parameters",
+                "bls12_377_g1", "mnt4753_engine", "mnt4753_pairing",
+                "generate_parameters",
                 "create_proof", "params_from_numpy", "compiled_from_numpy",
                 "points_from_numpy", "PoseidonParams", "PoseidonHash",
                 "FieldBasedMerkleTree", "poseidon_params_from_numpy",
@@ -99,6 +102,7 @@ def test_device_none_raises_without_a_gpu(entry):
         "mnt4753_g2": CI.mnt4753_g2,
         "bls12_377_g1": CI.bls12_377_g1,
         "mnt4753_engine": CI.mnt4753_engine,
+        "mnt4753_pairing": CI.mnt4753_pairing,
         "generate_parameters":
             lambda: groth16.generate_parameters(eng, cs, **toxic),
         # params and compiled are not reached: the device is resolved first
