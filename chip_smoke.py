@@ -11,8 +11,8 @@ What it does, in order (any failure raises, so the exit code is non-zero):
    shapes each path below gives it, with exact equality (integer
    arithmetic: tolerance 0), and times both with CUDA events: the field
    kernels (multiply, add/sub/neg, inverse) at the 2^10 rung's shapes and at
-   the 2^16 rung's (2^17-row FFT passes, the setup loops' 327,697 G1 lanes
-   and 65,544 Fq2 lanes), the inverse also on 2^15 elements and, against
+   the 2^16 rung's (2^17-row FFT passes, batches of setup's 327,697 G1 and
+   65,544 G2 scalars), the inverse also on 2^15 elements and, against
    python's pow too, on the inputs of its host test at 48, 24 and 16 digits
    (2^k for every k, runs of ones, those that take the most passes or
    negate a row), and the curve kernels (projective
@@ -49,14 +49,23 @@ What it does, in order (any failure raises, so the exit code is non-zero):
 4. drives the port's paths through their public entry points: Groth16 over
    MNT4-753 on the chained-multiplication benchmark circuit at 2^6, 2^10 and
    2^16 constraints (4 inputs): ``compile_r1cs`` -> ``generate_parameters``
-   (its verifying key's GT element by one prepared pairing) ->
+   (the QAP at the toxic point on the device, every query and
+   single element through a windowed table of the generator, w = 8, built
+   anew at each rung; its verifying key's GT element by one prepared
+   pairing; seconds and launches by phase: ``setup_phases_s``) ->
    ``create_proof`` with pinned toxic waste and blinding (below 2^12
    points an MSM is a double-and-add loop; the 2^16 rung goes through the
    Pippenger paths and the curve kernels) -> ``verify_proof`` twice a rung
    (the input accumulation, three host ladders, one prepared Miller loop
    over the three pairs, one final exponentiation; first and steady
    seconds, launches by kind, and at 2^10 the seconds by phase: ``verify``
-   line); one pairing of the reference's anchor points; ``legendre`` and
+   line); the proof and the vk through bytes and back at every rung, the
+   2^10 parameters too (``serialization`` line); at 2^10 the windowed
+   queries against the 768-step loop ``fixed_base_msm``; the 2^20 FFT over
+   MNT4-753 Fr and the mixed-radix FFT over MNT6-753 Fr at the size
+   ``best_domain`` takes for 2^17 (``fft``, ``fft_mixed`` lines: the tables
+   built on the device beside python ints, seconds, launches); one pairing
+   of the reference's anchor points; ``legendre`` and
    ``sqrt_mod`` on
    2^12 elements of MNT4-753 Fr and Fq; and a 2^16-leaf MNT4-753 Poseidon
    Merkle tree of height 17 (``merkle`` line: one K9 launch a level, 16,
@@ -65,10 +74,17 @@ What it does, in order (any failure raises, so the exit code is non-zero):
    after the 2^16 rung, the
    inversion tree's three kernels and the affine addition's two at the
    widths that rung launched them (``inv_tree_by_width`` and
-   ``ec_affine_by_width`` lines: time and loss by class of widths);
+   ``ec_affine_by_width`` lines: time and loss by class of widths), and all
+   five at the widest batch it launched, the windowed query's first level
+   (``ec_affine_at_widest``);
 5. checks the results: each device proof equals the closed-form python-int
    oracle coordinate for coordinate, a repeat gives the same proof, a proof
-   with another ``s`` differs; ``verify_proof`` accepts every rung's proof
+   with another ``s`` differs; setup's device QAP equals ``qap_at`` (every
+   a_i, b_i, c_i, Z(t) and m); the windowed queries equal the loop's
+   points; proof bytes equal those written from the oracle's coordinates,
+   the decoded proof verifies under the decoded vk, and the decoded 2^10
+   parameters prove the same proof; ``ifft(fft(x)) == x`` digit for digit
+   and eight outputs equal Horner's rule in python ints; ``verify_proof`` accepts every rung's proof
    and the one with another ``s``, and refuses the 2^10 proof with its
    first input plus one and with C + G1's generator; ``alpha_g1_beta_g2``
    equals the python-int oracle's e(alpha*G1, beta*G2), and the anchor
@@ -97,6 +113,7 @@ import argparse
 import ctypes
 import json
 import os
+import random
 import subprocess
 import sys
 import time
@@ -141,6 +158,7 @@ def main():
     from gingerlib_tpu_torch.curves import instances as CI
     from gingerlib_tpu_torch.fields import fp
     from gingerlib_tpu_torch.ops import cuda_lib, ec_kernels, limbs, rns
+    from gingerlib_tpu_torch.ops import fft as fft_mod
     from gingerlib_tpu_torch.ops import ec_rns as ER
     from gingerlib_tpu_torch.ops import rns_kernels as RK
     from gingerlib_tpu_torch.ops import msm as msm_mod
@@ -154,6 +172,7 @@ def main():
     from gingerlib_tpu_torch.primitives.poseidon_host import PoseidonHost
     from gingerlib_tpu_torch.proofs import groth16, groth16_host
     from gingerlib_tpu_torch.relations.r1cs import compile_r1cs
+    from gingerlib_tpu_torch.utils import serialize
     from gingerlib_tpu_torch.utils.timing import graph_ms
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path[:0] = [os.path.join(root, "tests"), os.path.join(root, "tools")]
@@ -338,11 +357,11 @@ def main():
     elem_bytes = nd * 2
     layout_bytes = nd * 8
 
-    # The same five at the shapes the 2^16-constraint rung gives them: its
-    # setup runs one double-and-add loop over 327,697 G1 lanes and one over
-    # 65,544 Fq2 lanes, its witness map FFT passes over 2^17 rows.  (The
-    # inverse is only ever called on one element, on either path.)
-    G1_LOOP_LANES, G2_LOOP_LANES = 327697, 65544
+    # The same five at the shapes the 2^16-constraint rung gives them: here
+    # its witness map's FFT passes over 2^17 rows; after the rung, the
+    # widest operand layouts its setup launched them at, as the rung
+    # recorded them (``field_kernels_at_setup``).  (The inverse is only
+    # ever called on one element, on either path.)
     field_ops = {
         # name: (kernel, plain version, 32-bit integer operations an element)
         "mont_mul": (lambda a, b: fp.mont_mul(fq, a, b),
@@ -355,33 +374,47 @@ def main():
                    lambda a, b: fp.neg_mod_plain(fq, a), L),
     }
 
+    def elems(rows):
+        """Uniform digits with the top one zero: below 2^752, under both
+        MNT4-753 moduli; the edge values first."""
+        raw = torch.randint(0, 1 << 16, (rows, nd), generator=gen,
+                            dtype=torch.int64)
+        raw[:, -1] = 0
+        out = raw.to(dev)
+        out[:3] = digits(edge)
+        return out
+
+    def plain_by_chunks(plain, a, b, rows=1 << 15):
+        """The plain version over chunks of rows: it is elementwise, and its
+        temporaries are a hundred times its operands."""
+        if b is None:
+            shape, fa = a.shape, a.reshape(-1, nd)
+            fb = fa
+        else:
+            a_e, b_e = torch.broadcast_tensors(a, b)
+            shape = a_e.shape
+            fa, fb = a_e.reshape(-1, nd), b_e.reshape(-1, nd)
+        return torch.cat([plain(fa[i:i + rows], fb[i:i + rows])
+                          for i in range(0, fa.shape[0], rows)]
+                         ).reshape(shape)
+
+    def field_row(name, label, kern, plain, a, b, ops_each):
+        """A timed case: the kernel's times, the plain version's, the
+        bound."""
+        got = kern(a, b)
+        n_in = a.numel() + (0 if b is None else b.numel())
+        n_out = got.numel() // nd
+        b_ms, b_by = bound((n_in // nd + n_out) * elem_bytes,
+                           n_out * ops_each)
+        return {"name": name, "case": label, "rows": n_out,
+                "ms": time_ms(lambda: kern(a, b), 20),
+                "device_ms": graph_ms(lambda: kern(a, b), 20),
+                "plain_ms": time_ms(lambda: plain_by_chunks(plain, a, b), 1),
+                "bound_ms": b_ms, "bound_by": b_by}
+
     def field_kernels_at_2p16_shapes():
         """Returns ({kernel: max error over the cases}, the timed cases as
-        rows, {kernel: its row at the G1 loop's shape}).  A function so that
-        its gigabytes die with it."""
-        def elems(rows):
-            """Uniform digits with the top one zero: below 2^752 < p."""
-            raw = torch.randint(0, 1 << 16, (rows, nd), generator=gen,
-                                dtype=torch.int64)
-            raw[:, -1] = 0
-            out = raw.to(dev)
-            out[:3] = digits(edge)
-            return out
-
-        def plain_by_chunks(plain, a, b, rows=1 << 15):
-            """The plain version over chunks of rows: it is elementwise, and
-            its temporaries are a hundred times its operands."""
-            if b is None:
-                shape, fa = a.shape, a.reshape(-1, nd)
-                fb = fa
-            else:
-                a_e, b_e = torch.broadcast_tensors(a, b)
-                shape = a_e.shape
-                fa, fb = a_e.reshape(-1, nd), b_e.reshape(-1, nd)
-            return torch.cat([plain(fa[i:i + rows], fb[i:i + rows])
-                              for i in range(0, fa.shape[0], rows)]
-                             ).reshape(shape)
-
+        rows).  A function so that its gigabytes die with it."""
         n17 = 1 << 17
         x17, y17 = elems(n17), elems(n17)
         cases = [("[2^17,48] dense", name, x17,
@@ -402,56 +435,19 @@ def main():
                  False),
                 (f"fft pass, half-length {h}: even half - t", "fp_sub", E, t,
                  False)]
-        a1 = elems(G1_LOOP_LANES).reshape(-1, 1, nd)
-        b1 = elems(G1_LOOP_LANES).reshape(-1, 1, nd)
-        cases += [(f"g1 loop [{G1_LOOP_LANES},1,48]", name, a1,
-                   None if name == "fp_neg" else b1, True)
-                  for name in field_ops]
-        cases.append((f"g1 loop [{G1_LOOP_LANES},1,48] x the curve's a",
-                      "mont_mul", a1, g1.a, True))
-        q = elems(G2_LOOP_LANES * 3).reshape(-1, 3, nd)
-        r = elems(G2_LOOP_LANES * 3).reshape(-1, 3, nd)
-        fq2 = f"fq2 loop [{G2_LOOP_LANES},"
-        cases += [
-            (fq2 + "3,48] stacked Karatsuba products", "mont_mul", q, r, True),
-            (fq2 + "1,48] component views a0 + a1", "fp_add", q[:, 0:1],
-             q[:, 1:2], True),
-            (fq2 + "1,48] component views t - v0", "fp_sub", q[:, 2:3],
-             r[:, 0:1], True),
-            (fq2 + "1,48] component view x the non-residue", "mont_mul",
-             q[:, 1:2], g2.F.tensor("nonresidue", dev), False),
-            (fq2 + "2,48] two components of three", "fp_add", q[:, :2],
-             r[:, 1:], False),
-            (fq2 + "2,48] two components of three", "fp_sub", q[:, :2],
-             r[:, 1:], False),
-            (fq2 + "1,48] component view", "fp_neg", q[:, 1:2], None, True)]
-
         errs16 = dict.fromkeys(field_ops, 0)
-        rows, at_g1 = [], {}
+        rows = []
         for label, name, a, b, timed_case in cases:
             kern, plain, ops_each = field_ops[name]
-            got = kern(a, b)
-            err = compare(f"{name} {label}", got,
+            err = compare(f"{name} {label}", kern(a, b),
                           plain_by_chunks(plain, a, b))
             errs16[name] = max(errs16[name], err)
-            if not timed_case:
-                continue
-            n_in = a.numel() + (0 if b is None else b.numel())
-            n_out = got.numel() // nd
-            b_ms, b_by = bound((n_in // nd + n_out) * elem_bytes,
-                               n_out * ops_each)
-            row = {"name": name, "case": label, "rows": n_out,
-                   "max_abs_err": err, "ms": time_ms(lambda: kern(a, b), 20),
-                   "device_ms": graph_ms(lambda: kern(a, b), 20),
-                   "plain_ms": time_ms(
-                       lambda: plain_by_chunks(plain, a, b), 1),
-                   "bound_ms": b_ms, "bound_by": b_by}
-            rows.append(row)
-            if label == f"g1 loop [{G1_LOOP_LANES},1,48]":
-                at_g1[name] = row
-        return errs16, rows, at_g1
+            if timed_case:
+                rows.append(dict(field_row(name, label, kern, plain, a, b,
+                                           ops_each), max_abs_err=err))
+        return errs16, rows
 
-    errs16, field_rows, at_g1 = field_kernels_at_2p16_shapes()
+    errs16, field_rows = field_kernels_at_2p16_shapes()
     print("field_kernel_shapes " + json.dumps(field_rows), flush=True)
 
     work = {
@@ -488,8 +484,9 @@ def main():
                    "gingerlib_tpu/fields/fp.py:181"),
     }
     # ms, plain_ms and bound_ms: at the 2^10 path's shape ([2^11,48], one
-    # element for the inverse); at_2p16_shape: the same three at the 2^16
-    # path's G1-loop shape; max_abs_err: over every shape of both paths
+    # element for the inverse); at_2p16_shape: the same three at the widest
+    # layout the 2^16 setup launched the kernel at (filled after that
+    # rung); max_abs_err: over every shape of both paths
     kernels = []
     for name, (kern, plain, reps, plain_reps) in timed.items():
         b_ms, b_by = bound(*work[name])
@@ -503,11 +500,11 @@ def main():
             # no single PyTorch call computes a 753-bit modular operation
             "library_ms": None,
         }
-        at16 = at_g1.get(name) or dict(row, case="[1,48], as on the 2^10 path",
-                                       rows=1)
-        row["at_2p16_shape"] = {k: at16[k] for k in (
-            "case", "rows", "ms", "device_ms", "plain_ms", "bound_ms",
-            "bound_by")}
+        if name == "inv_bea":
+            row["at_2p16_shape"] = {k: row[k] for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}
+            row["at_2p16_shape"].update(
+                case="[1,48], as on the 2^10 path", rows=1)
         kernels.append(row)
     # K2 on a batch beside the path's one element: 2^15 seeded elements, a
     # thread each (a warp runs as many passes as its longest lane)
@@ -535,8 +532,7 @@ def main():
          "int64_layout_bytes_ms":
              3 * r["rows"] * layout_bytes / PEAK_BYTES_PER_S * 1e3}
         for r in field_rows if r["name"] == "mont_mul" and r["case"] in (
-            "[2^17,48] dense", "[2^20,48] dense",
-            f"g1 loop [{G1_LOOP_LANES},1,48]")]), flush=True)
+            "[2^17,48] dense", "[2^20,48] dense")]), flush=True)
 
     # What the host pays per launch before the kernel is reached: the
     # current-stream lookup, and a whole call of the wrapper with the device
@@ -1027,6 +1023,132 @@ def main():
                 (8 * elem_bytes + 3) * n, live * (3 * MUL_OPS + 4 * 2 * L)))
             del a_pt, b_pt, x1, y1, x2, y2, pre, num, den, dinv, post_args
         return rows
+
+    def k5k6_at_widest(widths):
+        """K5's two kernels and K6's inversion against their plain versions
+        at the widest batch the 2^16 rung launched them (the windowed
+        query's first tree level), on distinct points with the special
+        lanes first."""
+        n = max(widths["ec_affine_pre"])
+        if max(widths["inv_tree_up"]) != n:
+            raise AssertionError("K6 ran wider than K5")
+        _, points, _ = multiples(g1, 1 << 18, seed=9)
+        copies = -(-n // points[0].shape[0])
+        a_pt, b_pt = affine_case(g1, tuple(
+            torch.cat([c] * copies) for c in points), n)
+        del points
+        (x1, y1), inf1 = a_pt
+        (x2, y2), inf2 = b_pt
+        pre = ec_kernels.affine_pre(g1, x1, y1, x2, y2, inf1, inf2)
+        err = compare_all(f"ec_affine_pre [{n}]", pre,
+                          ec_kernels.affine_pre_plain(g1, x1, y1, x2, y2,
+                                                      inf1, inf2))
+        num, den, inf3 = pre
+        den2 = den.reshape(n, nd)
+        tree, roots = ec_kernels.inv_up_cuda(fq, den2)
+        want_tree, want_roots = ec_kernels.inv_up_plain(fq, den2)
+        err = max(err, compare(f"inv_tree_up [{n}] trees",
+                               ec_kernels.unpack_limbs(tree), want_tree),
+                  compare(f"inv_tree_up [{n}] products", roots, want_roots))
+        rinv = ec_kernels.batch_inverse(fq, roots)
+        err = max(err, compare(
+            f"inv_tree_down [{n}]",
+            ec_kernels.inv_down_cuda(fq, tree, rinv, n),
+            ec_kernels.inv_down_plain(fq, want_tree, rinv, n)))
+        del tree, want_tree, want_roots, rinv
+        dinv = ec_kernels.batch_inverse(fq, den2)
+        err = max(err, compare(f"batch_inverse [{n}]", dinv,
+                               ec_kernels.batch_inverse_plain(fq, den2)))
+        post_args = (num, dinv.reshape(den.shape), x1, y1, x2, y2, inf1,
+                     inf2, inf3)
+        err = max(err, compare_all(
+            f"ec_affine_post [{n}]", ec_kernels.affine_post(g1, *post_args),
+            ec_kernels.affine_post_plain(g1, *post_args)))
+        return {"lanes": n, "max_abs_err": err,
+                "kernels": ["ec_affine_pre", "inv_tree_up", "inv_tree_tail",
+                            "inv_tree_down", "ec_affine_post"]}
+
+    class layout_log:
+        """While active, counts the field kernels' launches (K1 and
+        add/sub/neg all go through ``fp._launch_binary``) by kernel, field
+        and operand layout: the shape and strides of each operand."""
+
+        def __enter__(self):
+            self.real, self.seen = fp._launch_binary, {}
+
+            def call(params, a, b, name, op):
+                key = (name, params.name, tuple(a.shape), a.stride(),
+                       tuple(b.shape), b.stride(), b is a)
+                self.seen[key] = self.seen.get(key, 0) + 1
+                return self.real(params, a, b, name, op)
+            fp._launch_binary = call
+            return self
+
+        def __exit__(self, *exc):
+            fp._launch_binary = self.real
+
+    def field_kernels_at_setup(seen):
+        """K1 and add/sub/neg against their plain versions at the widest
+        layout of each operand rank that the 2^16 rung's setup launched
+        them at (``layout_log``: the windowed G2 query's stacked products
+        and component views at its first tree level, the query scalars'
+        one conversion to standard form), on fresh operands of the same
+        shapes and strides; the widest of each kernel also timed.  Returns
+        ({kernel: max error}, rows, {kernel: its timed row})."""
+        fields = {F.name: F for F in (fq, fr)}
+        fns = {"mont_mul": (fp.mont_mul, fp.mont_mul_plain, MUL_OPS),
+               "fp_add": (fp.add_mod, fp.add_mod_plain, 2 * L),
+               "fp_sub": (fp.sub_mod, fp.sub_mod_plain, 2 * L),
+               "fp_neg": (fp.neg_mod, fp.neg_mod_plain, L)}
+
+        def out_rows(key):
+            shape = torch.broadcast_shapes(key[2], key[4])
+            return shape.numel() // shape[-1]
+
+        def operand(shape, stride):
+            """Seeded digits laid out as (shape, stride), every element's
+            top digit zero (below both MNT4-753 moduli)."""
+            span = 1 + sum((n - 1) * st for n, st in zip(shape, stride))
+            buf = torch.randint(0, 1 << 16, (span,), generator=gen,
+                                dtype=torch.int64).to(dev)
+            top = torch.arange(span, device=dev).as_strided(shape, stride)
+            buf[top[..., -1].reshape(-1)] = 0
+            return buf.as_strided(shape, stride)
+
+        def bind(fn, F, unary):
+            return (lambda a, b: fn(F, a)) if unary else \
+                (lambda a, b: fn(F, a, b))
+
+        widest = {}
+        for key, count in seen.items():
+            slot = (key[0], len(key[2]))
+            if slot not in widest or out_rows(key) > out_rows(widest[slot][0]):
+                widest[slot] = (key, count)
+        errs, rows, timed = {}, [], {}
+        for (name, _), (key, count) in sorted(
+                widest.items(), key=lambda e: (e[0][0], -out_rows(e[1][0]))):
+            _, fname, a_shape, a_stride, b_shape, b_stride, same = key
+            F = fields[fname]
+            unary = name == "fp_neg"
+            kern_f, plain_f, ops_each = fns[name]
+            kern, plain = bind(kern_f, F, unary), bind(plain_f, F, unary)
+            a = operand(a_shape, a_stride)
+            b = None if unary else a if same else operand(b_shape, b_stride)
+            label = f"setup {fname} a{list(a_shape)}/{list(a_stride)}" + (
+                "" if unary else " b = a" if same else
+                f" b{list(b_shape)}/{list(b_stride)}")
+            err = compare(f"{name} {label}", kern(a, b),
+                          plain_by_chunks(plain, a, b))
+            errs[name] = max(errs.get(name, 0), err)
+            row = {"name": name, "case": label, "rows": out_rows(key),
+                   "setup_launches": count, "max_abs_err": err}
+            if name not in timed:           # sorted: the widest comes first
+                row.update(field_row(name, label, kern, plain, a, b,
+                                     ops_each))
+                timed[name] = row
+            rows.append(row)
+            del a, b
+        return errs, rows, timed
 
     def loss_line(rows):
         by_kernel = {}
@@ -1804,21 +1926,25 @@ def main():
 
     class phase_clock:
         """While active, times the calls that make up setup and prove --
-        the host's QAP evaluation, each fixed-base loop, each kind of MSM,
-        setup's pairing -- or those of ``targets`` (module or object,
-        attribute name), with a device synchronise on either side of each
-        call (a dozen calls a rung, so the synchronises cost nothing that
-        shows)."""
-        prover = ((groth16_host, "qap_at"), (msm_mod, "fixed_base_msm"),
+        the QAP at the toxic point, the window bases' host ladder, each
+        fixed-base table and windowed query, each kind of MSM, setup's
+        pairing -- or those of ``targets`` (module or object, attribute
+        name), with a device synchronise on either side of each call (a few
+        dozen calls a rung, so the synchronises cost nothing that shows)."""
+        prover = ((groth16, "qap_at_device"), (msm_mod, "_window_bases"),
+                  (msm_mod, "fixed_base_table"),
+                  (msm_mod, "fixed_base_msm_windowed"),
                   (msm_mod, "_msm_lanes"), (msm_mod, "msm_hybrid"),
                   (msm_mod, "msm_affine"), (groth16, "_witness_map_core"),
                   (eng, "prepare_g2"), (eng, "pairing_prepared"))
+        labels = {"qap_at_device": "qap",
+                  "fixed_base_msm_windowed": "fixed_base_windowed"}
 
         def __init__(self, targets=prover):
             self.targets = targets
             self.calls = []
-            self.loop_lanes = {}    # lanes of each fixed-base loop
-            self.launches = {}      # kernel launches by phase, summed
+            self.query_scalars = {}   # scalars of each windowed query
+            self.launches = {}        # kernel launches by phase, summed
 
         def __enter__(self):
             # (owner, name, callable, whether the owner itself holds it: a
@@ -1843,7 +1969,7 @@ def main():
                 t = time.perf_counter()
                 out = real(*a, **k)
                 torch.cuda.synchronize()
-                what = name.lstrip("_")
+                what = self.labels.get(name, name.lstrip("_"))
                 if a and hasattr(a[0], "F"):          # a curve comes first
                     what += ".g1" if a[0].F.K == 1 else ".g2"
                 self.calls.append((what, time.perf_counter() - t))
@@ -1851,8 +1977,9 @@ def main():
                 for key, v in fp.launch_counts.items():
                     if v > before[key]:
                         mine[key] = mine.get(key, 0) + v - before[key]
-                if name == "fixed_base_msm":
-                    self.loop_lanes[what] = a[2].shape[0]
+                if name == "fixed_base_msm_windowed":
+                    self.query_scalars[what] = \
+                        self.query_scalars.get(what, 0) + a[2].shape[0]
                 return out
             return call
 
@@ -1874,21 +2001,28 @@ def main():
         if not cs.is_satisfied():
             raise AssertionError("benchmark circuit is not satisfied")
         out = {"log2_constraints": log2}
+        # every rung builds its fixed-base tables, as a first setup in a
+        # process does (later setups on the same curve reuse them)
+        groth16.setup_table.cache_clear()
         fp.reset_launch_counts()
         ec_kernels.reset_launch_widths()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        compiled = compile_r1cs(cs)
-        params = groth16.generate_parameters(eng, cs, **TOXIC)
-        torch.cuda.synchronize()
+        with layout_log() as layouts:
+            compiled = compile_r1cs(cs)
+            params = groth16.generate_parameters(eng, cs, **TOXIC)
+            torch.cuda.synchronize()
         out["setup_s"] = time.perf_counter() - t
+        setup_layouts[log2] = layouts.seen
         out["setup_launches"] = dict(fp.launch_counts)
         if phases:
             out["setup_phases_s"] = phases.take()
-            out["setup_loop_lanes"] = dict(phases.loop_lanes)
+            out["setup_query_scalars"] = phases.query_scalars
+            out["setup_phase_launches"] = phases.launches
             out["setup_pairing_launches"] = phases.launches.get(
                 "pairing_prepared")
+            phases.query_scalars, phases.launches = {}, {}
         proof, out["prove_first_s"], proof_dev = prove(params, compiled, cs)
         if phases:
             out["prove_phases_s"] = phases.take()
@@ -1911,9 +2045,22 @@ def main():
         if proof != want:
             raise AssertionError(f"2^{log2}: device proof differs from the "
                                  f"closed-form oracle")
-        return out, (cs, compiled, params, proof, proof_dev)
+        # setup's QAP on the device against the python-int oracle, every
+        # value of a, b and c, Z(t) and m
+        t = time.perf_counter()
+        qap = groth16_host.qap_at(cs, TOXIC["t"])
+        out["qap_host_oracle_s"] = time.perf_counter() - t
+        got = groth16.qap_at_device(cs, TOXIC["t"])
+        if [fp.fp_to_ints(fr, v) for v in got[:3]] != list(qap[:3]) \
+                or (got[3], got[4].size) != qap[3:]:
+            raise AssertionError(f"2^{log2}: the device QAP differs from "
+                                 f"qap_at")
+        out["qap_equals_host_oracle"] = True
+        del got
+        return out, (cs, compiled, params, proof, proof_dev, qap)
 
     verify_line = {"rungs": {}, "checks": {}}
+    setup_layouts = {}     # {log2: the field kernels' layouts in setup}
 
     def verify(params, proof, inputs, label):
         """One call of ``verify_proof`` (its bool is on the host, so the
@@ -1939,6 +2086,98 @@ def main():
             "verify_first_s": first, "verify_steady_s": steady,
             "launches": launches}
 
+    serial_line = {"rungs": {}}
+
+    def serialization(log2, cs, params, want, proof_dev):
+        """The proof and the vk through bytes and back: the decoded proof
+        equals the device one and verifies under the decoded vk, and its
+        bytes are those written from the oracle's python-int
+        coordinates."""
+        def le(v):
+            return v.to_bytes(96, "little")
+
+        t = time.perf_counter()
+        raw = serialize.proof_to_bytes(eng, proof_dev)
+        back, used = serialize.proof_from_bytes(eng, raw)
+        vk_raw = serialize.vk_to_bytes(eng, params.vk)
+        vk, vk_used = serialize.vk_from_bytes(eng, vk_raw)
+        secs = time.perf_counter() - t
+        oracle = b"".join(b"".join(le(v) for v in want[k][0] + want[k][1]) +
+                          b"\x00" for k in ("a", "b", "c"))
+        if raw != oracle:
+            raise AssertionError(f"2^{log2}: proof bytes differ from the "
+                                 f"oracle's")
+        if used != len(raw) or not all(torch.equal(u, v) for u, v in zip(
+                (*back.a, *back.b, *back.c),
+                (*proof_dev.a, *proof_dev.b, *proof_dev.c))):
+            raise AssertionError(f"2^{log2}: the proof does not round-trip")
+        if vk_used != len(vk_raw) or \
+                serialize.vk_to_bytes(eng, vk) != vk_raw or not all(
+                    torch.equal(u, v) for u, v in zip(
+                        (vk.alpha_g1_beta_g2, *vk.gamma_g2, *vk.delta_g2,
+                         *vk.gamma_abc_g1),
+                        (params.vk.alpha_g1_beta_g2, *params.vk.gamma_g2,
+                         *params.vk.delta_g2, *params.vk.gamma_abc_g1))):
+            raise AssertionError(f"2^{log2}: the vk does not round-trip")
+        if not groth16.verify_proof(eng, vk, back, cs.input_values[1:]):
+            raise AssertionError(f"2^{log2}: the decoded proof does not "
+                                 f"verify under the decoded vk")
+        serial_line["rungs"][f"2^{log2}"] = {
+            "proof_bytes": len(raw), "vk_bytes": len(vk_raw),
+            "proof_and_vk_to_and_from_bytes_s": secs,
+            "equal_to_oracle_bytes": True, "decoded_proof_verifies": True}
+
+    def queries_against_loop(cs, params, qap):
+        """The windowed setup's queries against the double-and-add loop
+        ``fixed_base_msm`` and ``to_affine``: the first 4,096 scalars of
+        each G1 query and the whole G2 query, and full-width scalars (0,
+        1, 2, r - 1, r - 2, 2^752, (r - 1) / 2, r - 2^700) through the
+        setup's tables."""
+        a, b, c, zt, m = qap
+        r = fr.modulus
+        al, be, de = (TOXIC[k] for k in ("alpha", "beta", "delta"))
+        ni = cs.num_inputs
+        d_inv = pow(de, -1, r)
+        comb = [(be * a[i] + al * b[i] + c[i]) % r for i in range(len(a))]
+        scalars = {
+            "a_query": a, "b_g1_query": b,
+            "h_query": [zt * d_inv * pow(TOXIC["t"], i, r) % r
+                        for i in range(m - 1)],
+            "l_query": [v * d_inv % r for v in comb[ni:]]}
+        special = [0, 1, 2, r - 1, r - 2, 1 << 752, (r - 1) >> 1,
+                   r - (1 << 700)]
+        t = time.perf_counter()
+        checked = {}
+        for curve, jobs in ((g1, [(k, v[:4096]) for k, v in scalars.items()]),
+                            (g2, [("b_g2_query", b)])):
+            ks = [k for _, v in jobs for k in v] + special
+            sd = torch.from_numpy(limbs.to_digits_batch(
+                [k % r for k in ks], fr.n_digits)).to(dev)
+            wx, wy = curve.to_affine(msm_mod.fixed_base_msm(
+                curve, curve.generator_affine, sd))
+            (sx, sy), sinf = msm_mod.fixed_base_msm_windowed(
+                curve, groth16.setup_table(curve), sd[-len(special):],
+                groth16.SETUP_WINDOW, fr.modulus_bits)
+            if not (torch.equal(sx, wx[-len(special):])
+                    and torch.equal(sy, wy[-len(special):])
+                    and sinf.tolist() == [k % r == 0 for k in special]):
+                raise AssertionError(f"{curve.name}: the windowed query "
+                                     f"differs at full-width scalars")
+            start = 0
+            for name, v in jobs:
+                xs, ys, inf = getattr(params, name)
+                n = len(v)
+                if not (torch.equal(xs[:n], wx[start:start + n])
+                        and torch.equal(ys[:n], wy[start:start + n])
+                        and inf[:n].tolist() == [k == 0 for k in v]):
+                    raise AssertionError(f"{name} differs from the "
+                                         f"double-and-add loop")
+                checked[name] = n
+                start += n
+        return {"scalars_checked": checked,
+                "full_width_scalars_checked": len(special),
+                "seconds": time.perf_counter() - t}
+
     def count_aten_ops(fn):
         """Every ATen operator PyTorch dispatches while ``fn`` runs, by
         name: the launches beside the hand-written kernels."""
@@ -1955,9 +2194,10 @@ def main():
             fn()
         return counts
 
-    small, (cs6, compiled6, params6, proof6, dev6) = rung(6)
+    small, (cs6, compiled6, params6, proof6, dev6, _) = rung(6, phases=True)
     print("rung " + json.dumps(small), flush=True)
     verify_rung(6, cs6, params6, dev6)
+    serialization(6, cs6, params6, proof6, dev6)
     # setup's GT element against the python-int oracle e(alpha*G1, beta*G2)
     want_gt = host_alpha_beta(TOXIC["alpha"], TOXIC["beta"])
     if fp.fp_to_ints(fq, params6.vk.alpha_g1_beta_g2) != want_gt:
@@ -1973,7 +2213,8 @@ def main():
     print("aten_ops_per_proof " + json.dumps(
         dict(sorted(device_ops.items(), key=lambda kv: -kv[1]))), flush=True)
 
-    big, (cs10, compiled10, params10, proof10, dev10) = rung(10)
+    big, (cs10, compiled10, params10, proof10, dev10, qap10) = rung(
+        10, phases=True)
     again, big["prove_steady_s"], _ = prove(params10, compiled10, cs10)
     if again != proof10:
         raise AssertionError("the same inputs gave two different proofs")
@@ -1988,6 +2229,24 @@ def main():
                              "two GT elements")
     verify_rung(10, cs10, params10, dev10)
     verify_line["path_launches"] = verify_line["rungs"]["2^10"]["launches"]
+    serialization(10, cs10, params10, proof10, dev10)
+    # the parameters through bytes and back prove the same proof
+    t = time.perf_counter()
+    raw = serialize.params_to_bytes(eng, params10)
+    t1 = time.perf_counter()
+    decoded, used = serialize.params_from_bytes(eng, raw)
+    to_s, from_s = t1 - t, time.perf_counter() - t1
+    if used != len(raw) or serialize.params_to_bytes(eng, decoded) != raw:
+        raise AssertionError("2^10: the parameters do not round-trip")
+    if prove(decoded, compiled10, cs10)[0] != proof10:
+        raise AssertionError("2^10: the decoded parameters prove another "
+                             "proof")
+    serial_line["params_2p10"] = {
+        "bytes": len(raw), "to_bytes_s": to_s, "from_bytes_s": from_s,
+        "proves_the_same_proof": True}
+    del raw, decoded
+    serial_line["queries_against_loop_2p10"] = queries_against_loop(
+        cs10, params10, qap10)
     inputs10 = cs10.input_values[1:]
     # the proof with another s is a proof too; a wrong input and a C moved
     # by G1's generator (still a curve point) are refused
@@ -2028,23 +2287,115 @@ def main():
     # 2^16 constraints: every MSM of the prover is above the 2^12-point
     # threshold, so G1 goes through msm_hybrid and the curve kernels and G2
     # through msm_affine
-    full, (cs16, _, params16, _, dev16) = rung(16, phases=True)
+    full, (cs16, _, params16, proof16, dev16, _) = rung(16, phases=True)
     print("rung " + json.dumps(full), flush=True)
     verify_rung(16, cs16, params16, dev16)
+    serialization(16, cs16, params16, proof16, dev16)
+    nv16, m16 = cs16.num_variables, params16.domain_size
     del params16, dev16
     print("verify " + json.dumps(verify_line), flush=True)
-    if full["setup_loop_lanes"] != {"fixed_base_msm.g1": G1_LOOP_LANES,
-                                    "fixed_base_msm.g2": G2_LOOP_LANES}:
-        raise AssertionError("the field kernels were not held at the lane "
-                             "counts of this rung's setup loops")
+    print("serialization " + json.dumps(serial_line), flush=True)
+    # every query scalar and single element went through the windowed
+    # tables once: G1 a and b_g1 (nv each), l and gamma_abc (nv together),
+    # h (m - 1), alpha, beta, delta; G2 b_g2 (nv), beta, gamma, delta
+    if full["setup_query_scalars"] != {
+            "fixed_base_windowed.g1": 3 * nv16 + m16 - 1 + 3,
+            "fixed_base_windowed.g2": nv16 + 3}:
+        raise AssertionError("the 2^16 setup's windowed queries took other "
+                             "scalar counts than its queries hold")
+    errs_setup, rows_setup, timed_setup = field_kernels_at_setup(
+        setup_layouts[16])
+    print("field_kernels_at_setup " + json.dumps(rows_setup), flush=True)
+    for k in kernels:
+        if k["name"] in timed_setup:
+            row = timed_setup[k["name"]]
+            k["max_abs_err"] = max(k["max_abs_err"], errs_setup[k["name"]])
+            k["at_2p16_shape"] = {key: row[key] for key in (
+                "case", "rows", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by")}
 
     widths16 = full["curve_launches_by_width"]
+    print("ec_affine_at_widest " + json.dumps(k5k6_at_widest(widths16)),
+          flush=True)
     k6_by_width = inv_tree_by_width(widths16)
     print("inv_tree_by_width " + json.dumps(loss_line(k6_by_width)),
           flush=True)
     k5_by_width = ec_affine_by_width(widths16)
     print("ec_affine_by_width " + json.dumps(loss_line(k5_by_width)),
           flush=True)
+
+    # ------------------------------------------------------------------
+    # 4a. FFT: 2^20 radix-2 over MNT4-753 Fr, mixed radix over MNT6-753 Fr
+    # ------------------------------------------------------------------
+
+    def fft_phase(F, dom, seed):
+        """fft and ifft of one seeded input on ``dom``: the tables' build
+        on the device beside the same table in python ints, host-clock and
+        device seconds, launches, the round trip digit for digit, and 8
+        evaluations against Horner's rule in python ints at w^i."""
+        n, q = dom.size, F.modulus
+        out = {"field": F.name, "size": n,
+               "factors": getattr(dom, "factors", None)}
+        table_n = n // 2 if isinstance(dom, fft_mod.Domain) else n
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tables = [dom._powers(b, table_n) for b in (dom.gen, dom.gen_inv)]
+        torch.cuda.synchronize()
+        out["tables_build_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        vals, w = [], 1
+        for _ in range(table_n):
+            vals.append(w)
+            w = w * dom.gen % q
+        host = torch.from_numpy(fp.fp_from_ints(F, vals)).to(dev)
+        torch.cuda.synchronize()
+        out["one_table_in_python_ints_s"] = time.perf_counter() - t
+        if not torch.equal(host, tables[0]):
+            raise AssertionError(f"{F.name}: the device table of powers "
+                                 f"differs from python ints")
+        del host, vals
+        raw = torch.randint(0, 1 << 16, (n, nd), dtype=torch.int64,
+                            generator=torch.Generator().manual_seed(seed))
+        raw[:, -1] = 0                       # below 2^752 < the modulus
+        x = raw.to(dev)
+        for name, fn in (("fft", dom.fft), ("ifft", dom.ifft)):
+            fp.reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            y = fn(x)
+            torch.cuda.synchronize()
+            out[f"{name}_s"] = time.perf_counter() - t
+            out[f"{name}_launches"] = {k: v for k, v in
+                                       fp.launch_counts.items() if v}
+            out[f"{name}_device_s"] = event_seconds(lambda: fn(x))[1]
+        y = dom.fft(x)
+        back = dom.ifft(y)
+        if not torch.equal(back, x):
+            raise AssertionError(f"{F.name} size {n}: ifft(fft(x)) != x")
+        del back
+        coeffs = fp.fp_to_ints(F, x)
+        idx = sorted(random.Random(seed).sample(range(n), 8))
+        got = fp.fp_to_ints(F, y[idx])
+        t = time.perf_counter()
+        for i, g in zip(idx, got):
+            wi, acc = pow(dom.gen, i, q), 0
+            for cf in reversed(coeffs):
+                acc = (acc * wi + cf) % q
+            if acc != g:
+                raise AssertionError(f"{F.name} size {n}: fft(x)[{i}] is "
+                                     f"not x(w^{i})")
+        out["horner_s"] = time.perf_counter() - t
+        out.update(roundtrip_exact=True, evaluations_checked=idx)
+        return out
+
+    print("fft " + json.dumps(fft_phase(fr, fft_mod.Domain(fr, 1 << 20), 20)),
+          flush=True)
+    mixed_dom = fft_mod.best_domain(PP.MNT6753_FR, 1 << 17)
+    if not isinstance(mixed_dom, fft_mod.MixedRadixDomain):
+        raise AssertionError("best_domain took radix 2 beyond 2^15")
+    print("fft_mixed " + json.dumps(fft_phase(PP.MNT6753_FR, mixed_dom, 17)),
+          flush=True)
+    del mixed_dom
 
     # ------------------------------------------------------------------
     # 4b. the field API: Legendre symbol and square root (K3)

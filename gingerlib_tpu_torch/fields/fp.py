@@ -540,7 +540,11 @@ def inv_bea_plain(params: FpParams, a):
 
     u, v = a, pdig.expand(a.shape)
     b, c = one.expand(a.shape), torch.zeros_like(a)
-    for _ in range(4 * DIGIT_BITS * nd + 64):
+    if a.numel() == nd:
+        if bool(limbs.is_zero(a).all()):
+            return torch.zeros_like(a)
+        return _inv_bea_plain_one(params, u, v, b, c, half_mod, is_one)
+    for _ in range(_bea_steps(nd)):
         done = is_one(u) | is_one(v) | limbs.is_zero(u)
         if bool(done.all()):
             break
@@ -561,9 +565,44 @@ def inv_bea_plain(params: FpParams, a):
                 case_s, sub_mod_plain(params, b, c), b)),
             torch.where(case_v, half_mod(c), torch.where(
                 case_t, sub_mod_plain(params, c, b), c)))
+    else:
+        raise ArithmeticError("inv_bea_plain: the loop did not end")
     res = torch.where(is_one(u).unsqueeze(-1), b, c)
     return torch.where(limbs.is_zero(a).unsqueeze(-1),
                        torch.zeros_like(res), res)
+
+
+def _bea_steps(nd: int) -> int:
+    """Steps the binary Euclid loop may take on nd-digit values: each
+    subtraction is followed by a halving, and the halvings take at most
+    the bits of u and v, so 2 (16 nd + 16 nd) steps end it on any input;
+    ``inv_bea_plain`` raises past this many."""
+    return 4 * DIGIT_BITS * nd + 64
+
+
+def _inv_bea_plain_one(params: FpParams, u, v, b, c, half_mod, is_one):
+    """``inv_bea_plain``'s loop on one non-zero element: the same steps, the
+    same exits and the same bound, but only the case the element takes is
+    computed (the batched form evaluates all four a step and selects; for
+    one lane that is four times the work, and a shared inversion's root is
+    always one lane)."""
+    for _ in range(_bea_steps(params.n_digits)):
+        if bool((is_one(u) | is_one(v) | limbs.is_zero(u)).all()):
+            break
+        if not int(u[..., 0].reshape(-1)[0]) & 1:
+            u, b = limbs.shr1(u), half_mod(b)
+        elif not int(v[..., 0].reshape(-1)[0]) & 1:
+            v, c = limbs.shr1(v), half_mod(c)
+        else:
+            duv, ub = limbs.sub_with_borrow(u, v)
+            if not bool(ub.any()):
+                u, b = duv, sub_mod_plain(params, b, c)
+            else:
+                v, c = limbs.sub_with_borrow(v, u)[0], \
+                    sub_mod_plain(params, c, b)
+    else:
+        raise ArithmeticError("inv_bea_plain: the loop did not end")
+    return b if bool(is_one(u).all()) else c
 
 
 def inv_bea(params: FpParams, a):

@@ -11,7 +11,11 @@ Three forms and one dispatch:
 * ``msm_affine``: Pippenger with ``curve.batch_affine_add`` over any tower
   field: the prover's path for G2 (array code), and the RNS path (K7, K8 of
   ``ops/ec_rns.py``) over a G1 curve built with ``ec_rns=True``.
-* ``fixed_base_msm``: [k_i]G for many scalars of one base, used by setup.
+* ``fixed_base_table`` / ``fixed_base_msm_windowed``: [k_i]G for many
+  scalars of one base through a table of the base's windowed multiples:
+  setup's path (ginger-lib's ``fixed_base.rs``); ``fixed_base_msm``, the
+  batched double-and-add over the broadcast base, is the oracle it is held
+  against.
 
 The bucketed forms avoid scatters: per c-bit window the points are sorted by
 their window digit, a dyadic partial-sum tree is built over the sorted
@@ -23,8 +27,8 @@ so adjacent pairs never cross a window), so every tree level and every
 Fenwick step is ONE batched addition over chunk*N lanes, with one shared
 inversion where the addition is affine.
 
-The projective Pippenger ``msm()`` of the JAX package (its CPU path) and the
-windowed fixed-base table are not ported yet.
+The projective Pippenger ``msm()`` of the JAX package (its CPU path) is not
+ported.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ from __future__ import annotations
 import torch
 
 from ..curves.sw import SWCurveOps
+from ..fields import fp as fpmod
+from ..fields import host_ext
 from . import ec_kernels as EK
 
 NAIVE_BELOW = 1 << 12   # points; the JAX package's own threshold
@@ -431,3 +437,139 @@ def fixed_base_msm(curve: SWCurveOps, base_affine, scalar_digits):
     shape = (scalar_digits.shape[0],) + tuple(gx.shape[-2:])
     return curve.mul_scalar_digits(
         curve.from_affine(gx.expand(shape), gy.expand(shape)), scalar_digits)
+
+
+# ---------------------------------------------------------------------------
+# fixed base: the windowed table (setup's path)
+# ---------------------------------------------------------------------------
+
+def _window_bases(curve: SWCurveOps, base_affine, w: int, W: int):
+    """2^k B_i = 2^(w i + k) B for i < W, k < w, as affine (x, y)
+    [W, w, K, nd] on the curve's device: the chain of w W - 1 doublings of
+    one point, walked by a host ladder in python ints (one modular inverse a
+    doubling, milliseconds in all), where the device would pay ~30 launches
+    a doubling over Fq and ten times that over Fq2."""
+    F, fq = curve.F, curve.fp
+    p, K, nd = fq.modulus, F.K, fq.n_digits
+    if K == 1:
+        H = host_ext.HostTower(p)
+    else:
+        nr = fpmod.fp_to_ints(fq, torch.as_tensor(F.nonresidue()))
+        H = host_ext.HostTower.quad(host_ext.HostTower(p), nr, ())
+    a = [v % p for v in host_ext.flatten(curve.a_host)]
+    x = fpmod.fp_to_ints(fq, base_affine[0].reshape(K, nd).cpu())
+    y = fpmod.fp_to_ints(fq, base_affine[1].reshape(K, nd).cpu())
+    xs, ys = [], []
+    for step in range(W * w):
+        if step:
+            if not any(y):
+                raise ValueError("fixed_base_table: the base has even order")
+            xx = host_ext.host_ext_mul(H, x, x)
+            lam = host_ext.host_ext_mul(
+                H, [(3 * u + v) % p for u, v in zip(xx, a)],
+                host_ext.host_ext_inv(H, [2 * v % p for v in y]))
+            x3 = [(u - 2 * v) % p for u, v in zip(
+                host_ext.host_ext_mul(H, lam, lam), x)]
+            y = [(u - v) % p for u, v in zip(host_ext.host_ext_mul(
+                H, lam, [(u - v) % p for u, v in zip(x, x3)]), y)]
+            x = x3
+        xs.extend(x)
+        ys.extend(y)
+    return tuple(torch.from_numpy(fpmod.fp_from_ints(fq, v).reshape(
+        W, w, K, nd)).to(curve.device) for v in (xs, ys))
+
+
+def fixed_base_table(curve: SWCurveOps, base_affine, w: int, nbits: int):
+    """The windowed multiples of one base (``fixed_base.rs:15-43``,
+    ``get_window_table``): ((tx, ty), tinf) [W, 2^w, K, nd] and [W, 2^w] with
+    T[i][j] = j 2^(w i) B, W = ceil(nbits / w), infinity as the flag with
+    (0, 0) as coordinates: the JAX package's table, entry for entry.
+
+    The points 2^k 2^(w i) B come from a host ladder (``_window_bases``);
+    the multiples of all W windows then grow together in w levels, level k
+    adding 2^k 2^(w i) B to entries 0 .. 2^k - 1 to give entries 2^k ..
+    2^(k+1) - 1: ONE batched affine addition a level
+    (``curve.batch_affine_add``: the curve kernels K5/K6 over the base
+    field, the array form over Fq2), where the JAX package doubles and adds
+    (two a level)."""
+    W = -(-nbits // w)
+    bx, by = _window_bases(curve, base_affine, w, W)
+    K, nd = bx.shape[-2:]
+    tx = bx.new_zeros((W, 1 << w, K, nd))
+    ty = bx.new_zeros((W, 1 << w, K, nd))
+    tinf = torch.ones((W, 1 << w), dtype=torch.bool, device=bx.device)
+    for k in range(w):
+        n = 1 << k
+        (x, y), inf = curve.batch_affine_add(
+            ((tx[:, :n].reshape(W * n, K, nd), ty[:, :n].reshape(W * n, K, nd)),
+             tinf[:, :n].reshape(W * n)),
+            ((bx[:, k:k + 1].expand(W, n, K, nd).reshape(W * n, K, nd),
+              by[:, k:k + 1].expand(W, n, K, nd).reshape(W * n, K, nd)),
+             tinf.new_zeros(W * n)))
+        tx[:, n:2 * n] = x.reshape(W, n, K, nd)
+        ty[:, n:2 * n] = y.reshape(W, n, K, nd)
+        tinf[:, n:2 * n] = inf.reshape(W, n)
+    return (tx, ty), tinf
+
+
+# Every lane of the query's first tree level holds about a dozen field
+# elements at once (the gathered points, the addition's numerators,
+# denominators and inverses, its results).  A chunk of scalars is sized so
+# that one of them, over that level's lanes, takes at most this many bytes
+# of int64 digits: 8,192 scalars over MNT4-753 G1 (first level 2^19 lanes,
+# ~2.5 GB in all), 4,096 over its G2.
+_WINDOWED_LEVEL_BYTES = 1 << 28
+
+
+def windowed_chunk(n_windows: int, K: int, nd: int) -> int:
+    """Scalars a chunk of ``fixed_base_msm_windowed``: a power of two."""
+    half = 1 << max(0, (n_windows - 1).bit_length() - 1)   # first level
+    lanes = max(1, _WINDOWED_LEVEL_BYTES // (half * K * nd * 8))
+    return 1 << (lanes.bit_length() - 1)
+
+
+def fixed_base_msm_windowed(curve: SWCurveOps, table, scalar_digits,
+                            w: int, nbits: int):
+    """[k_i]B through a ``fixed_base_table`` of B (``fixed_base.rs:69-79``,
+    ``windowed_mul``, batch-first): per scalar one table entry a window,
+    then a tree of batched affine additions across the windows, padded to
+    a power of two with infinity.  scalar_digits: standard-form digits
+    [N, nd_r].  Returns ((x, y), inf), affine [N, K, nd] and [N], infinity
+    as (0, 0).  The scalars go in chunks of ``windowed_chunk`` (memory)."""
+    (tx, ty), tinf = table
+    K, nd = tx.shape[-2:]
+    digits = _window_digits(scalar_digits, w, nbits)      # [Ws, N]
+    Ws, N = digits.shape
+    if Ws > tx.shape[0]:
+        raise ValueError(f"fixed_base_msm_windowed: {Ws} windows of scalars "
+                         f"against a table of {tx.shape[0]}")
+    W2 = 1 << max(0, (Ws - 1).bit_length())
+    win = torch.arange(Ws, device=digits.device)[:, None]
+    step = windowed_chunk(W2, K, nd)
+    outs = []
+    for s in range(0, N, step):
+        d = digits[:, s:s + step]
+        n = d.shape[1]
+        gx = tx.new_zeros((W2, n, K, nd))
+        gy = tx.new_zeros((W2, n, K, nd))
+        gi = tinf.new_ones((W2, n))
+        gx[:Ws] = tx[win, d]
+        gy[:Ws] = ty[win, d]
+        gi[:Ws] = tinf[win, d]
+        # tree across the windows: window i with window i + h, so that
+        # both operands of a level are contiguous views
+        while gx.shape[0] > 1:
+            h = gx.shape[0] // 2
+            (gx, gy), gi = curve.batch_affine_add(
+                ((gx[:h].reshape(h * n, K, nd), gy[:h].reshape(h * n, K, nd)),
+                 gi[:h].reshape(h * n)),
+                ((gx[h:].reshape(h * n, K, nd), gy[h:].reshape(h * n, K, nd)),
+                 gi[h:].reshape(h * n)))
+            gx, gy, gi = (gx.reshape(h, n, K, nd), gy.reshape(h, n, K, nd),
+                          gi.reshape(h, n))
+        outs.append((gx[0], gy[0], gi[0]))
+    if not outs:
+        empty = tx.new_zeros((0, K, nd))
+        return (empty, empty.clone()), tinf.new_zeros(0)
+    xs, ys, inf = (torch.cat([o[k] for o in outs]) for k in range(3))
+    return (xs, ys), inf

@@ -1,17 +1,22 @@
 """Groth16 zk-SNARK: setup, prove and verify on the device.
 
-Counterpart of ``gingerlib_tpu/proofs/groth16.py`` and the same dataflow:
-the generator's scalar bookkeeping (Lagrange coefficients at the toxic
-point, per-variable QAP accumulation, query scalars) is exact host python-int
-arithmetic; the device does batched fixed-base scalar multiplication, the
-seven-FFT witness map, the variable-base MSMs and the assembly.  Randomness
-(alpha..delta, t, r, s) enters as explicit python ints, so proofs are
-reproducible.
+Counterpart of ``gingerlib_tpu/proofs/groth16.py`` and the same dataflow.
+Randomness (alpha..delta, t, r, s) enters as explicit python ints, so
+proofs are reproducible.
+
+Setup runs on the device: the Lagrange coefficients at the toxic point
+through one shared inversion (``Domain.evaluate_all_lagrange_coefficients``),
+the per-variable QAP values as column sums of the constraint matrices
+(``r1cs.eval_matrix_transposed``), the query scalars by constant
+multiplies, and every query and single element (alpha, beta, gamma, delta)
+through a windowed fixed-base table of the curve's generator (w = 8:
+``msm.fixed_base_table`` / ``fixed_base_msm_windowed``, ginger-lib's
+``fixed_base.rs``), one table a curve, built on first use and kept for that
+curve and device.
 
 Batching: in eager PyTorch a 768-step double-and-add loop takes about the
 same wall time for one lane as for thousands, so independent lanes of one
-group share a loop.  Setup runs one loop over G1 (all five queries and the
-three single elements) and one over G2.  The prover hands its MSMs to
+group share a loop.  The prover hands its MSMs to
 ``ops.msm.msm_batched``: a query below 2^12 points is multiplied out in a
 loop shared with the other small jobs of its group (the three multiples of
 delta are always among them); a query of 2^12 points or more goes to
@@ -32,6 +37,7 @@ setup fills in with one prepared pairing.  An engine without a pairing
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -42,8 +48,10 @@ from ..device import resolve_device
 from ..fields import fp as fpmod
 from ..ops import limbs
 from ..ops import msm as msm_mod
-from ..relations.r1cs import ConstraintSystem, CompiledR1CS, eval_matrix
-from . import groth16_host
+from ..ops.fft import Domain
+from ..relations.r1cs import (ConstraintSystem, CompiledR1CS,
+                              _compile_matrix, domain_size_for, eval_matrix,
+                              eval_matrix_transposed)
 
 
 @dataclass
@@ -97,47 +105,86 @@ def _scalar_digits(fr, ks, device):
 # setup
 # ---------------------------------------------------------------------------
 
+# window width of setup's fixed-base tables, the JAX package's
+SETUP_WINDOW = 8
+
+
+@functools.lru_cache(maxsize=None)
+def setup_table(curve):
+    """The windowed table of ``curve``'s generator, built on first use and
+    kept for the curve (one object a device)."""
+    return msm_mod.fixed_base_table(curve, curve.generator_affine,
+                                    SETUP_WINDOW,
+                                    curve.scalar_field.modulus_bits)
+
+
 def _fixed_base_affine(curve, groups):
-    """[k]G, affine, for every scalar of every list in ``groups``: one
-    double-and-add loop and one shared inversion for all of them.  Returns
-    one (xs, ys, inf) per group, inf marking k == 0."""
-    fr = curve.scalar_field
-    ks = [k % fr.modulus for g in groups for k in g]
-    sd = _scalar_digits(fr, ks, curve.device)
-    pts = msm_mod.fixed_base_msm(curve, curve.generator_affine, sd)
-    xs, ys = curve.to_affine(pts)
-    inf = torch.tensor([k == 0 for k in ks], dtype=torch.bool,
-                       device=curve.device)
-    sizes = [len(g) for g in groups]
+    """[k]G, affine, for every scalar of every group (standard-form digit
+    tensors [n, nd_r]) through the curve's table.  Returns one
+    (xs, ys, inf) a group, inf marking k == 0."""
+    (xs, ys), inf = msm_mod.fixed_base_msm_windowed(
+        curve, setup_table(curve), torch.cat(groups), SETUP_WINDOW,
+        curve.scalar_field.modulus_bits)
+    sizes = [g.shape[0] for g in groups]
     return list(zip(xs.split(sizes), ys.split(sizes), inf.split(sizes)))
+
+
+def qap_at_device(cs: ConstraintSystem, t: int, device=None):
+    """(a, b, c, Z(t), domain): the per-variable QAP values a_i(t),
+    b_i(t), c_i(t) as Montgomery digits [num_variables, nd] on the device,
+    the vanishing value and the evaluation ``Domain`` (its size is
+    ``groth16_host.qap_at``'s m) -- ``qap_at`` on the device: a_i(t) =
+    sum_j A[j][i] l_j(t) (likewise b, c), plus l_(nc+i)(t) for each input i
+    (its consistency row)."""
+    device = resolve_device(device)
+    fr = cs.field
+    m = domain_size_for(cs)
+    if pow(t, m, fr.modulus) == 1:
+        raise ValueError("t lies in the evaluation domain")
+    domain = Domain(fr, m, device=device)
+    u = domain.evaluate_all_lagrange_coefficients(t)           # [m, nd]
+    nv, nc, ni = cs.num_variables, cs.num_constraints, cs.num_inputs
+    a, b, c = (eval_matrix_transposed(
+        fr, _compile_matrix(fr, mat, m, device), u, nv)
+        for mat in (cs.at, cs.bt, cs.ct))
+    a[:ni] = fpmod.add_mod(fr, a[:ni], u[nc:nc + ni])
+    return a, b, c, domain.evaluate_vanishing_polynomial(t), domain
 
 
 def generate_parameters(engine: Engine, cs: ConstraintSystem,
                         alpha: int, beta: int, gamma: int, delta: int,
                         t: int, device=None) -> Parameters:
     """CRS generation with explicit toxic waste."""
-    _engine_device(engine, device)
+    device = _engine_device(engine, device)
     g1, g2 = engine.g1, engine.g2
-    p = g1.scalar_field.modulus
+    fr = g1.scalar_field
+    p = fr.modulus
     ni = cs.num_inputs
 
-    a, b, c, zt, m = groth16_host.qap_at(cs, t)
-    gamma_inv = pow(gamma, -1, p)
-    delta_inv = pow(delta, -1, p)
-    gamma_abc = [(beta * a[i] + alpha * b[i] + c[i]) * gamma_inv % p
-                 for i in range(ni)]
-    l = [(beta * a[i] + alpha * b[i] + c[i]) * delta_inv % p
-         for i in range(ni, cs.num_variables)]
-    h = []
-    ti = zt * delta_inv % p
-    for _ in range(m - 1):
-        h.append(ti)
-        ti = ti * t % p
+    def const(v):
+        return torch.from_numpy(fpmod.fp_from_int(fr, v % p)).to(device)
+
+    a, b, c, zt, domain = qap_at_device(cs, t, device)
+    m = domain.size
+    # (beta a_i + alpha b_i + c_i) / gamma for the inputs, / delta for the
+    # rest; h_i = Z(t) t^i / delta for i < m - 1
+    s = fpmod.add_mod(fr, fpmod.add_mod(
+        fr, fpmod.mont_mul(fr, a, const(beta)),
+        fpmod.mont_mul(fr, b, const(alpha))), c)
+    gamma_abc = fpmod.mont_mul(fr, s[:ni], const(pow(gamma, -1, p)))
+    l = fpmod.mont_mul(fr, s[ni:], const(pow(delta, -1, p)))
+    h = domain.distribute_powers(
+        const(zt * pow(delta, -1, p)).expand(m, fr.n_digits), t)[:m - 1]
+    # standard form for the window digits, one conversion for all
+    nv = cs.num_variables
+    std = fpmod.from_mont(fr, torch.cat([a, b, h, l, gamma_abc]))
+    a_s, b_s, h_s, l_s, abc_s = std.split([nv, nv, m - 1, nv - ni, ni])
 
     a_q, b1_q, h_q, l_q, abc_q, single1 = _fixed_base_affine(
-        g1, [a, b, h, l, gamma_abc, [alpha, beta, delta]])
-    b2_q, single2 = _fixed_base_affine(g2, [b, [beta, gamma, delta]])
-
+        g1, [a_s, b_s, h_s, l_s, abc_s,
+             _scalar_digits(fr, [alpha, beta, delta], device)])
+    b2_q, single2 = _fixed_base_affine(
+        g2, [b_s, _scalar_digits(fr, [beta, gamma, delta], device)])
     def pick(group, i):
         return (group[0][i], group[1][i])
 

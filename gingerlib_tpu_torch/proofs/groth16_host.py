@@ -14,9 +14,10 @@ and A_s, B_s the scalars of A and B.  This is what the device proof is held
 against, coordinate for coordinate, at sizes where a python-int prover with
 its six MSMs would take far too long.
 
-Also here: the host half of setup (Lagrange coefficients and per-variable
-QAP evaluations at the toxic point), shared with ``proofs/groth16.py``, and
-affine curve arithmetic over Fq and Fq2 in python ints.
+Also here: the QAP at the toxic point in python ints (Lagrange
+coefficients and per-variable evaluations, ``qap_at``), the oracle that
+``proofs/groth16.qap_at_device`` is held to, and affine curve arithmetic
+over Fq and Fq2 in python ints.
 """
 
 from __future__ import annotations

@@ -8,8 +8,11 @@ Counterpart of ``gingerlib_tpu/relations/r1cs.py``.
   the QAP depends on that order.
 * Compile time: the constraint matrices become COO tensors (rows, cols,
   Montgomery coefficient digits) on the device; witness evaluation is then
-  gather -> Montgomery multiply -> ``index_add_`` of raw digit columns ->
-  one lazy modular reduction per row.
+  gather -> Montgomery multiply -> ``column_sums`` by row (``index_add_``
+  of raw digit columns in groups small enough for one lazy modular
+  reduction each, so a row may hold any number of terms).  Setup's QAP at
+  the toxic point is the transpose (``eval_matrix_transposed``): sums by
+  column.
 """
 
 from __future__ import annotations
@@ -26,6 +29,11 @@ from ..ops.limbs import DTYPE
 
 class SynthesisError(Exception):
     pass
+
+
+# ``fp.lazy_reduce`` takes digit columns below 2^31: sums of fewer than
+# this many residues (and, by the value, see ``lazy_terms``)
+LAZY_TERMS = 1 << 15
 
 
 ONE = 0  # variable index of the constant one input
@@ -199,8 +207,6 @@ def _compile_matrix(params: FpParams, mat, num_rows: int, device
             rows.append(i)
             cols.append(v)
             coeffs.append(k)
-    if max_nnz >= (1 << 15):
-        raise SynthesisError("row too dense for lazy segment-sum reduction")
     if not rows:
         rows, cols, coeffs = [0], [0], [0]
     return CooMatrix(
@@ -242,12 +248,61 @@ def compile_r1cs(cs: ConstraintSystem, domain_size: int | None = None,
 def eval_matrix(params: FpParams, coo: CooMatrix, z):
     """Batched A_i(z) for all constraints: [num_rows, nd] (Montgomery).
 
-    z: full assignment [num_vars, nd], Montgomery.  The per-row sums are
-    plain digit-column sums (below 2^31 by the max_row_nnz bound), reduced
-    once per row by ``lazy_reduce``, which normalises them first.
-    """
+    z: full assignment [num_vars, nd], Montgomery.  Gather z by column,
+    multiply, add the digit columns by row (``column_sums``: a row of any
+    density)."""
     prods = fpmod.mont_mul(params, z[coo.cols], coo.coeffs)      # [nnz, nd]
-    sums = torch.zeros((coo.num_rows, params.n_digits), dtype=DTYPE,
-                       device=z.device)
-    sums.index_add_(0, coo.rows, prods)
-    return fpmod.lazy_reduce(params, sums)
+    return column_sums(params, prods, coo.rows, coo.num_rows)
+
+
+def eval_matrix_transposed(params: FpParams, coo: CooMatrix, u, num_cols: int):
+    """sum_j M[j][i] u_j for every column i < num_cols: [num_cols, nd]
+    (Montgomery).  u: [>= num_rows, nd], Montgomery.
+
+    The transpose of ``eval_matrix``: gather u by row, multiply, add the
+    digit columns by column (``column_sums``)."""
+    prods = fpmod.mont_mul(params, u[coo.rows], coo.coeffs)      # [nnz, nd]
+    return column_sums(params, prods, coo.cols, num_cols)
+
+
+def lazy_terms(params: FpParams) -> int:
+    """The most residues one ``lazy_reduce`` may take: digit columns stay
+    below 2^31 (fewer than 2^15 terms) and the value below R (terms *
+    (p - 1) < R; 13 for BLS12-377's Fr, whose p is near R / 2^3.7)."""
+    r = 1 << (16 * params.n_digits)
+    return min(LAZY_TERMS - 1, (r - 1) // (params.modulus - 1))
+
+
+def column_sums(params: FpParams, vals, cols, num_cols: int):
+    """sum of the residues vals[k] (< p) with cols[k] == i, for i <
+    num_cols, reduced: [num_cols, nd].
+
+    A column may hold far more terms than one ``lazy_reduce`` takes (the
+    ONE variable can sit in every constraint).  Each column's terms are cut
+    into groups of ``lazy_terms``: the first group sums in the column's
+    own slot, the others in slots of their own, every slot is reduced once,
+    and the slots' residues are summed again the same way until no column
+    has more than one slot."""
+    nd = params.n_digits
+    dev = vals.device
+    limit = lazy_terms(params)
+    nnz = cols.shape[0]
+    order = torch.argsort(cols, stable=True)
+    sc = cols[order]
+    counts = torch.bincount(cols, minlength=num_cols)
+    start = torch.cumsum(counts, 0) - counts
+    group = (torch.arange(nnz, device=dev) - start[sc]) // limit
+    extra = group > 0
+    groups = -(-nnz // limit) + 1       # more than any column's groups
+    keys, slot = torch.unique(sc[extra] * groups + group[extra],
+                              return_inverse=True)
+    slots = sc.clone()
+    slots[extra] = num_cols + slot
+    sums = torch.zeros((num_cols + keys.shape[0], nd), dtype=DTYPE,
+                       device=dev)
+    sums.index_add_(0, slots, vals[order])
+    sums = fpmod.lazy_reduce(params, sums)
+    if keys.shape[0] == 0:
+        return sums
+    return column_sums(params, sums, torch.cat([
+        torch.arange(num_cols, device=dev), keys // groups]), num_cols)

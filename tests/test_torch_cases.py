@@ -488,6 +488,22 @@ def one_constraint_circuit(fr):
     return cs
 
 
+def dense_row_circuit(fr, terms: int):
+    """One constraint whose A row holds ``terms`` variables, each stored as
+    the Montgomery residue p - 1 - i (the largest), times ONE, equal to
+    their sum: past ``r1cs.lazy_terms`` such a row overflows one lazy
+    reduction unless it is cut into groups."""
+    from gingerlib_tpu_torch.relations import r1cs
+    p = fr.modulus
+    rinv = pow(1 << (16 * fr.n_digits), -1, p)
+    vals = [(p - 1 - i) * rinv % p for i in range(terms)]
+    cs = r1cs.ConstraintSystem(fr)
+    vs = [cs.alloc("", v) for v in vals]
+    out = cs.alloc("", sum(vals))
+    cs.enforce(r1cs.lc(*vs), r1cs.lc(r1cs.ONE), r1cs.lc(out), "dense row")
+    return cs
+
+
 def host_alpha_beta(alpha: int, beta: int) -> list:
     """e(alpha*G1, beta*G2) of MNT4-753 by the python-int oracle: what a
     verifying key's alpha_g1_beta_g2 must be."""

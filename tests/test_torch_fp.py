@@ -169,6 +169,36 @@ def test_inv_bea_plain_against_python(name):
         pow(x, -1, q) if x else 0 for x in xs]
 
 
+@pytest.mark.parametrize("name", FIELDS + ["BLS12_377_FQ"])
+@pytest.mark.parametrize("x", ["zero", "one", "two", "p-1", "seeded"])
+def test_inv_bea_plain_of_one_element_against_python(name, x):
+    """One element (the root of every shared inversion) takes the one-lane
+    form, which computes only the case its lane takes a step."""
+    TF = getattr(TP, name)
+    q = TF.modulus
+    v = {"zero": 0, "one": 1, "two": 2, "p-1": q - 1,
+         "seeded": rand_below(q, 1, 13)[0]}[x]
+    got = tfp.inv_bea_plain(TF, torch.from_numpy(
+        tlimbs.to_digits_batch([v], TF.n_digits)).reshape(1, 1, -1))
+    assert got.shape == (1, 1, TF.n_digits)
+    assert tlimbs.from_digits_batch(got) == [pow(v, -1, q) if v else 0]
+
+
+@pytest.mark.parametrize("name", FIELDS)
+@pytest.mark.parametrize("x", ["p", "2p", "all-ones"])
+def test_inv_bea_plain_ends_alike_off_its_contract(name, x):
+    """An input at or above p breaks the inverse's contract; the one-lane
+    form still ends, within the same bound and at the same exit as the
+    batched form, with the same digits."""
+    TF = getattr(TP, name)
+    q = TF.modulus
+    v = {"p": q, "2p": 2 * q,
+         "all-ones": (1 << (tlimbs.DIGIT_BITS * TF.n_digits)) - 1}[x]
+    a = torch.from_numpy(tlimbs.to_digits_batch([v, v], TF.n_digits))
+    one = tfp.inv_bea_plain(TF, a[:1])
+    assert torch.equal(one, tfp.inv_bea_plain(TF, a)[:1])
+
+
 @pytest.mark.parametrize("name", FIELDS + ["SW6_FQ"])
 def test_add_sub_neg_plain_against_python(name):
     TF = getattr(TP, name)

@@ -18,7 +18,8 @@ import torch
 from gingerlib_tpu_torch.curves import instances as CI
 from gingerlib_tpu_torch.ops import ec_kernels as EK, msm as tmsm
 from gingerlib_tpu_torch.ops import ec_rns as ER
-from test_torch_cases import (affine_pairs, host_alpha_beta, inv_inputs,
+from test_torch_cases import (affine_pairs, dense_row_circuit,
+                              host_alpha_beta, inv_inputs,
                               mnt4753_anchor, one_constraint_circuit,
                               poseidon_states, pow_edge_exponents,
                               proj_pairs, rand_below, reduced_poseidon)
@@ -628,3 +629,117 @@ def test_verify_proof_on_the_gpu(mnt4_proof, case):
         is (case == "accepts")
     assert fp.launch_counts["mont_mul"] > 0 \
         and fp.launch_counts["inv_bea"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the windowed fixed-base setup, the device QAP, the 2^20 FFT and the bytes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_windowed_query_matches_double_and_add_at_full_width(group):
+    """Setup's table of MNT4-753's generator (w = 8, 95 windows) and the
+    windowed query against the 768-step loop ``fixed_base_msm`` and
+    ``to_affine``: 0, 1, 2, r - 1, r - 2, 2^752 and seeded full-width
+    scalars; the table's entries against the loop's j 2^(8 i) G."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the curve kernels have no CPU form")
+    from gingerlib_tpu_torch.ops import limbs
+    from gingerlib_tpu_torch.proofs import groth16
+    curve = getattr(CI, "mnt4753_" + group)()
+    r = curve.scalar_field.modulus
+    ks = [0, 1, 2, r - 1, r - 2, 1 << 752] + rand_below(r, 26, seed=5)
+    sd = torch.from_numpy(limbs.to_digits_batch(ks, 48)).to(curve.device)
+    table = groth16.setup_table(curve)
+    (x, y), inf = tmsm.fixed_base_msm_windowed(curve, table, sd, 8, 753)
+    wx, wy = curve.to_affine(tmsm.fixed_base_msm(
+        curve, curve.generator_affine, sd))
+    assert torch.equal(x, wx) and torch.equal(y, wy)
+    assert inf.tolist() == [k == 0 for k in ks]
+    (tx, ty), tinf = table
+    picks = [(0, 0), (0, 1), (0, 255), (1, 3), (47, 128), (94, 255)]
+    tk = torch.from_numpy(limbs.to_digits_batch(
+        [j << (8 * i) for i, j in picks], 48)).to(curve.device)
+    lx, ly = curve.to_affine(tmsm.fixed_base_msm(
+        curve, curve.generator_affine, tk))
+    for n, (i, j) in enumerate(picks):
+        assert bool(tinf[i, j]) is (j == 0)
+        assert torch.equal(tx[i, j], lx[n]) and torch.equal(ty[i, j], ly[n])
+
+
+def test_dense_row_circuit_proves_on_the_gpu():
+    """BLS12-377: a row of 14 largest residues, one more than a lazy
+    reduction takes, through setup and prove on the card: the proof equals
+    the closed-form oracle."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gingerlib_tpu_torch.proofs import groth16, groth16_host
+    from gingerlib_tpu_torch.relations.r1cs import compile_r1cs
+    eng = CI.bls12_377_engine()
+    cs = dense_row_circuit(eng.g1.scalar_field, 14)
+    toxic = dict(alpha=123, beta=456, gamma=789, delta=1011, t=314159)
+    params = groth16.generate_parameters(eng, cs, **toxic)
+    proof = groth16.create_proof(eng, params, compile_r1cs(cs),
+                                 cs.assignment(), r=31337, s=71717)
+    assert groth16.proof_to_ints(eng, proof) == groth16_host.expected_proof(
+        "bls12_377", cs, **toxic, r=31337, s=71717)
+
+
+def test_device_qap_matches_host_oracle_at_2p10():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gingerlib_tpu_torch.circuits import benchmark_circuit
+    from gingerlib_tpu_torch.fields import fp
+    from gingerlib_tpu_torch.proofs import groth16, groth16_host
+    fr = CI.mnt4753_g1().scalar_field
+    cs, _ = benchmark_circuit(fr, 4, 1 << 10)
+    got = groth16.qap_at_device(cs, 314159)
+    want = groth16_host.qap_at(cs, 314159)
+    assert (got[3], got[4].size) == want[3:]
+    for g, w in zip(got[:3], want[:3]):
+        assert g.is_cuda and fp.fp_to_ints(fr, g) == w
+
+
+def test_fft_roundtrip_at_2p18():
+    """The radix-2 domain of MNT4-753's Fr at 2^18 (the 2^20 round trip is
+    chip_smoke.py's ``fft`` line): ifft(fft(x)) == x, and two evaluations
+    equal Horner's rule in python ints."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gingerlib_tpu_torch.fields import fp
+    from gingerlib_tpu_torch.ops.fft import Domain
+    fr = CI.mnt4753_g1().scalar_field
+    n = 1 << 18
+    dom = Domain(fr, n)
+    raw = torch.randint(0, 1 << 16, (n, 48), dtype=torch.int64,
+                        generator=torch.Generator().manual_seed(18))
+    raw[:, -1] = 0
+    x = raw.cuda()
+    y = dom.fft(x)
+    assert torch.equal(dom.ifft(y), x)
+    coeffs = fp.fp_to_ints(fr, x)
+    for i in (0, 12345):
+        w, acc = pow(dom.gen, i, fr.modulus), 0
+        for c in reversed(coeffs):
+            acc = (acc * w + c) % fr.modulus
+        assert fp.fp_to_ints(fr, y[i:i + 1]) == [acc]
+
+
+def test_proof_vk_and_params_bytes_round_trip(mnt4_proof):
+    """The card's 1-constraint setup and proof through bytes: the proof
+    and vk come back tensor for tensor and verify; the parameters prove
+    the same proof."""
+    from gingerlib_tpu_torch.proofs import groth16
+    from gingerlib_tpu_torch.relations.r1cs import compile_r1cs
+    from gingerlib_tpu_torch.utils import serialize as S
+    eng, params, proof, _ = mnt4_proof
+    back, _ = S.proof_from_bytes(eng, S.proof_to_bytes(eng, proof))
+    vk, _ = S.vk_from_bytes(eng, S.vk_to_bytes(eng, params.vk))
+    assert groth16.verify_proof(eng, vk, back, [77])
+    raw = S.params_to_bytes(eng, params)
+    decoded, used = S.params_from_bytes(eng, raw)
+    assert used == len(raw) and S.params_to_bytes(eng, decoded) == raw
+    cs = one_constraint_circuit(eng.g1.scalar_field)
+    again = groth16.create_proof(eng, decoded, compile_r1cs(cs),
+                                 cs.assignment(), r=31337, s=71717)
+    assert groth16.proof_to_ints(eng, again) \
+        == groth16.proof_to_ints(eng, proof)

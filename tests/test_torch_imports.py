@@ -45,7 +45,7 @@ def test_sources_found():
             "poseidon_host.py", "merkle.py", "poseidon_gen.py",
             "merkle_gen.py", "rns.py", "rns_kernels.py", "ec_rns.py",
             "towers.py", "host_ext.py", "pairing_mnt.py", "pairing_host.py",
-            "anchors_gen.py"} <= names
+            "anchors_gen.py", "fft.py", "r1cs.py", "serialize.py"} <= names
 
 
 @pytest.mark.parametrize(
@@ -76,7 +76,10 @@ ENTRY_POINTS = ["compile_r1cs", "Domain", "mnt4753_g1", "mnt4753_g2",
                 "points_from_numpy", "PoseidonParams", "PoseidonHash",
                 "FieldBasedMerkleTree", "poseidon_params_from_numpy",
                 "mnt4753_g1(ec_rns=True)", "bls12_377_g1(ec_rns=True)",
-                "rns.to_rns", "rns_from_numpy"]
+                "rns.to_rns", "rns_from_numpy", "MixedRadixDomain",
+                "best_domain", "qap_at_device", "fp_from_bytes",
+                "ext_from_bytes", "affine_from_bytes", "proof_from_bytes",
+                "vk_from_bytes", "params_from_bytes"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
@@ -85,15 +88,17 @@ def test_device_none_raises_without_a_gpu(entry):
         pytest.skip("a CUDA device is present")
     from gingerlib_tpu_torch import params as TP
     from gingerlib_tpu_torch.curves import instances as CI
-    from gingerlib_tpu_torch.ops.fft import Domain
+    from gingerlib_tpu_torch.ops.fft import (Domain, MixedRadixDomain,
+                                             best_domain)
     from gingerlib_tpu_torch.primitives.merkle import FieldBasedMerkleTree
     from gingerlib_tpu_torch.primitives.poseidon import (PoseidonHash,
                                                          PoseidonParams)
     from gingerlib_tpu_torch.ops import rns
     from gingerlib_tpu_torch.proofs import groth16
     from gingerlib_tpu_torch.relations.r1cs import compile_r1cs
-    from gingerlib_tpu_torch.utils import convert
+    from gingerlib_tpu_torch.utils import convert, serialize
     eng, cs = _cpu_case()
+    mnt = CI.mnt4753_engine("cpu")
     toxic = dict(alpha=2, beta=3, gamma=5, delta=7, t=11)
     calls = {
         "compile_r1cs": lambda: compile_r1cs(cs),
@@ -127,6 +132,18 @@ def test_device_none_raises_without_a_gpu(entry):
             rns.make_context(TP.BLS12_377_FQ.modulus), [1, 2]),
         "rns_from_numpy": lambda: convert.rns_from_numpy(
             np.zeros((128, 2), np.uint32)),
+        "MixedRadixDomain": lambda: MixedRadixDomain(TP.MNT6753_FR, 10),
+        "best_domain": lambda: best_domain(TP.BLS12_377_FR, 8),
+        "qap_at_device": lambda: groth16.qap_at_device(cs, 11),
+        # the bytes are not read: the device is resolved first
+        "fp_from_bytes": lambda: serialize.fp_from_bytes(
+            TP.MNT4753_FQ, b""),
+        "ext_from_bytes": lambda: serialize.ext_from_bytes(mnt.fqk, b""),
+        "affine_from_bytes": lambda: serialize.affine_from_bytes(
+            mnt.g1, b""),
+        "proof_from_bytes": lambda: serialize.proof_from_bytes(mnt, b""),
+        "vk_from_bytes": lambda: serialize.vk_from_bytes(mnt, b""),
+        "params_from_bytes": lambda: serialize.params_from_bytes(mnt, b""),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
