@@ -47,7 +47,7 @@ What it does, in order (any failure raises, so the exit code is non-zero):
    lanes, both parameter sets, with the sponges a block (S) its launcher
    took, which must be ``poseidon_kernels.block_sponges``'s;
 4. drives the port's paths through their public entry points: Groth16 over
-   MNT4-753 on the chained-multiplication benchmark circuit at 2^6, 2^10 and
+   MNT4-753 on the chained-multiplication benchmark circuit at 2^10 and
    2^16 constraints (4 inputs): ``compile_r1cs`` -> ``generate_parameters``
    (the QAP at the toxic point on the device, every query and
    single element through a windowed table of the generator, w = 8, built
@@ -76,7 +76,19 @@ What it does, in order (any failure raises, so the exit code is non-zero):
    widths that rung launched them (``inv_tree_by_width`` and
    ``ec_affine_by_width`` lines: time and loss by class of widths), and all
    five at the widest batch it launched, the windowed query's first level
-   (``ec_affine_at_widest``);
+   (``ec_affine_at_widest``); then MNT6-753 (G1 with a = 11, G2 over Fq3,
+   GT in Fq6): the pairing of the reference's MNT6-753 anchor points with
+   the seconds and launches of its host ladder, Miller loop and final
+   exponentiation, and the launches of one multiply in each tower
+   (``pairing_mnt6``); Groth16 over MNT6-753 at 2^6 and at 32,763
+   constraints (5 inputs: the 2^15 domain, the largest radix-2 one) through
+   the same rung, verify and serialization steps (lines tagged "family":
+   "mnt6753"); GM17 over MNT4-753 at 2^10 (SAP domain 4,096, radix 2) and
+   over MNT6-753 at 2^14 (SAP size 32,777: the mixed domain of 40,960)
+   with setup, prove and verify seconds, phases and launches (``gm17``
+   lines); and K4, K5 and K6 on MNT6-753 G1 against their plain versions
+   at the widest batch the MNT6 paths launched each, then on MNT4-753 and
+   MNT6-753 G1 in turns (``mnt6_curve_kernels``);
 5. checks the results: each device proof equals the closed-form python-int
    oracle coordinate for coordinate, a repeat gives the same proof, a proof
    with another ``s`` differs; setup's device QAP equals ``qap_at`` (every
@@ -84,11 +96,16 @@ What it does, in order (any failure raises, so the exit code is non-zero):
    points; proof bytes equal those written from the oracle's coordinates,
    the decoded proof verifies under the decoded vk, and the decoded 2^10
    parameters prove the same proof; ``ifft(fft(x)) == x`` digit for digit
-   and eight outputs equal Horner's rule in python ints; ``verify_proof`` accepts every rung's proof
+   and 8 sampled outputs equal Horner's rule in python ints (one forked
+   process a sample); ``verify_proof`` accepts every rung's proof
    and the one with another ``s``, and refuses the 2^10 proof with its
    first input plus one and with C + G1's generator; ``alpha_g1_beta_g2``
    equals the python-int oracle's e(alpha*G1, beta*G2), and the anchor
-   pairing the reference's GT; the Legendre symbols, roots
+   pairing the reference's GT (over MNT6-753 too, whose proofs equal the
+   oracle and verify, a wrong input and an altered C refused, a circuit
+   one constraint past the 2^15 domain refused; the GM17 proofs equal the
+   closed-form oracle ``expected_gm17_proof``, verify, and a wrong input is
+   refused); the Legendre symbols, roots
    and masks agree with python ints; the tree equals the one the plain
    permutation builds on the device, sixteen sampled paths verify and hash
    to its root in python ints, a wrong leaf is refused, a 2^10-leaf tree
@@ -96,7 +113,8 @@ What it does, in order (any failure raises, so the exit code is non-zero):
    the field API launches K3 once a call (4); and the launch counters, set
    to zero before each path, show that every kernel was launched on the path
    that reaches it (K7 and K8 on the RNS path), and K1 and K2 on the
-   verifier's;
+   verifier's, and K1, K2, add/sub and K4-K6 on the MNT6-753 2^15 rung and
+   both GM17 rungs;
 6. prints the card's name and power limit, the kernel table as one JSON
    line, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -112,6 +130,7 @@ with the kernels, and a check that both give the same proof.
 import argparse
 import ctypes
 import json
+import multiprocessing
 import os
 import random
 import subprocess
@@ -142,6 +161,20 @@ PEAK_INT32_OPS_PER_S = 67e12 / 2 / 2
 PEAK_INT8_OPS_PER_S = 1.979e15
 
 
+# the polynomial whose samples the forked Horner workers evaluate:
+# (coefficients, modulus), set in the parent before the fork
+_HORNER = {}
+
+
+def _horner_at(point):
+    """x(point) by Horner's rule in python ints, x = _HORNER's."""
+    coeffs, q = _HORNER["coeffs"], _HORNER["modulus"]
+    acc = 0
+    for cf in reversed(coeffs):
+        acc = (acc * point + cf) % q
+    return acc
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--time-plain-addsub", action="store_true",
@@ -157,6 +190,7 @@ def main():
     from gingerlib_tpu_torch.circuits import benchmark_circuit
     from gingerlib_tpu_torch.curves import instances as CI
     from gingerlib_tpu_torch.fields import fp
+    from gingerlib_tpu_torch.fields import host_ext as HE
     from gingerlib_tpu_torch.ops import cuda_lib, ec_kernels, limbs, rns
     from gingerlib_tpu_torch.ops import fft as fft_mod
     from gingerlib_tpu_torch.ops import ec_rns as ER
@@ -164,20 +198,23 @@ def main():
     from gingerlib_tpu_torch.ops import msm as msm_mod
     from gingerlib_tpu_torch.ops import poseidon_kernels as PK
     from gingerlib_tpu_torch.params._gen import poseidon_gen
+    from gingerlib_tpu_torch.params._gen import towers_gen as TG
     from gingerlib_tpu_torch.params._gen.merkle_gen import \
         MNT4753_PHANTOM_MERKLE_ROOT
     from gingerlib_tpu_torch.primitives.merkle import FieldBasedMerkleTree
     from gingerlib_tpu_torch.primitives.poseidon import (PoseidonHash,
                                                          PoseidonParams)
     from gingerlib_tpu_torch.primitives.poseidon_host import PoseidonHost
-    from gingerlib_tpu_torch.proofs import groth16, groth16_host
+    from gingerlib_tpu_torch.proofs import gm17, gm17_host, groth16, \
+        groth16_host
     from gingerlib_tpu_torch.relations.r1cs import compile_r1cs
     from gingerlib_tpu_torch.utils import serialize
     from gingerlib_tpu_torch.utils.timing import graph_ms
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path[:0] = [os.path.join(root, "tests"), os.path.join(root, "tools")]
     import divsteps_model
-    from test_torch_cases import host_alpha_beta, inv_inputs, mnt4753_anchor
+    from test_torch_cases import (host_alpha_beta, inv_inputs,
+                                  mnt4753_anchor, mnt6753_anchor)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -201,6 +238,7 @@ def main():
     p, R = fq.modulus, 1 << (16 * fq.n_digits)
     gen = torch.Generator().manual_seed(2024)
     eng = CI.mnt4753_engine()
+    engines = {"mnt4753": eng, "mnt6753": CI.mnt6753_engine()}
     fr = eng.g1.scalar_field
     g1, g2 = eng.g1, eng.g2
     MUL_OPS = (2 * L * L + L) * 2      # 32-bit integer operations a multiply
@@ -308,11 +346,12 @@ def main():
     errs["inv_bea"] = compare("inv_bea [1,48]", fp.inv_bea(fq, inv_one),
                               fp.inv_bea_plain(fq, inv_one))
     # the inputs of the host test of the inverse at the three widths the
-    # kernels are built for (MNT4-753 Fq, BLS12-377 Fq and Fr): 0, 1, 2,
-    # p - 1, (p - 1)/2, 2^k for every k, runs of ones, seeded values, and
-    # those that take the most passes or make a pass negate a row
+    # kernels are built for (MNT4-753 Fq and MNT6-753 Fq, which is
+    # MNT4-753 Fr, at 48 digits; BLS12-377 Fq and Fr): 0, 1, 2, p - 1,
+    # (p - 1)/2, 2^k for every k, runs of ones, seeded values, and those
+    # that take the most passes or make a pass negate a row
     inv_checked = {}
-    for F in (fq, PP.BLS12_377_FQ, PP.BLS12_377_FR):
+    for F in (fq, PP.MNT6753_FQ, PP.BLS12_377_FQ, PP.BLS12_377_FR):
         vals = [v for kind in inv_inputs(F.modulus, F.name).values()
                 for v in kind]
         xs = torch.from_numpy(limbs.to_digits_batch(vals, F.n_digits)).to(dev)
@@ -1024,24 +1063,26 @@ def main():
             del a_pt, b_pt, x1, y1, x2, y2, pre, num, den, dinv, post_args
         return rows
 
-    def k5k6_at_widest(widths):
+    def k5k6_at_widest(widths, curve=None):
         """K5's two kernels and K6's inversion against their plain versions
-        at the widest batch the 2^16 rung launched them (the windowed
-        query's first tree level), on distinct points with the special
-        lanes first."""
+        at the widest batch a rung launched them (the windowed query's
+        first tree level), on distinct points of ``curve`` (MNT4-753 G1 by
+        default) with the special lanes first."""
+        curve = curve or g1
+        fq = curve.fp
         n = max(widths["ec_affine_pre"])
         if max(widths["inv_tree_up"]) != n:
             raise AssertionError("K6 ran wider than K5")
-        _, points, _ = multiples(g1, 1 << 18, seed=9)
+        _, points, _ = multiples(curve, 1 << 18, seed=9)
         copies = -(-n // points[0].shape[0])
-        a_pt, b_pt = affine_case(g1, tuple(
+        a_pt, b_pt = affine_case(curve, tuple(
             torch.cat([c] * copies) for c in points), n)
         del points
         (x1, y1), inf1 = a_pt
         (x2, y2), inf2 = b_pt
-        pre = ec_kernels.affine_pre(g1, x1, y1, x2, y2, inf1, inf2)
+        pre = ec_kernels.affine_pre(curve, x1, y1, x2, y2, inf1, inf2)
         err = compare_all(f"ec_affine_pre [{n}]", pre,
-                          ec_kernels.affine_pre_plain(g1, x1, y1, x2, y2,
+                          ec_kernels.affine_pre_plain(curve, x1, y1, x2, y2,
                                                       inf1, inf2))
         num, den, inf3 = pre
         den2 = den.reshape(n, nd)
@@ -1062,9 +1103,10 @@ def main():
         post_args = (num, dinv.reshape(den.shape), x1, y1, x2, y2, inf1,
                      inf2, inf3)
         err = max(err, compare_all(
-            f"ec_affine_post [{n}]", ec_kernels.affine_post(g1, *post_args),
-            ec_kernels.affine_post_plain(g1, *post_args)))
-        return {"lanes": n, "max_abs_err": err,
+            f"ec_affine_post [{n}]", ec_kernels.affine_post(curve,
+                                                            *post_args),
+            ec_kernels.affine_post_plain(curve, *post_args)))
+        return {"curve": curve.name, "lanes": n, "max_abs_err": err,
                 "kernels": ["ec_affine_pre", "inv_tree_up", "inv_tree_tail",
                             "inv_tree_down", "ec_affine_post"]}
 
@@ -1088,14 +1130,20 @@ def main():
             fp._launch_binary = self.real
 
     def field_kernels_at_setup(seen):
-        """K1 and add/sub/neg against their plain versions at the widest
-        layout of each operand rank that the 2^16 rung's setup launched
-        them at (``layout_log``: the windowed G2 query's stacked products
-        and component views at its first tree level, the query scalars'
-        one conversion to standard form), on fresh operands of the same
-        shapes and strides; the widest of each kernel also timed.  Returns
-        ({kernel: max error}, rows, {kernel: its timed row})."""
-        fields = {F.name: F for F in (fq, fr)}
+        """K1 and add/sub/neg against their plain versions at the layouts
+        a rung's setup launched them at (``layout_log``), the widest of
+        each class: kernel, field, the output's shape past its first axis
+        (the stack of an extension's products: Fq2's three rows, Fq3's
+        six, Fq6's three Fq3 products of six), and which operands
+        broadcast.  At MNT4-753 2^16 that takes in the windowed G2 query's
+        stacked products and component views at its first tree level and
+        the query scalars' one conversion to standard form; at MNT6-753
+        2^15 the same over Fq3, and the Fq6 products of setup's pairing.
+        Fresh operands of the same shapes and strides; the widest of each
+        kernel also timed.  Returns ({kernel: max error}, rows, {kernel:
+        its timed row})."""
+        # MNT6-753's Fq and Fr are MNT4-753's Fr and Fq (the same objects)
+        fields = {F.name: F for F in (fq, fr, PP.MNT6753_FQ, PP.MNT6753_FR)}
         fns = {"mont_mul": (fp.mont_mul, fp.mont_mul_plain, MUL_OPS),
                "fp_add": (fp.add_mod, fp.add_mod_plain, 2 * L),
                "fp_sub": (fp.sub_mod, fp.sub_mod_plain, 2 * L),
@@ -1105,9 +1153,14 @@ def main():
             shape = torch.broadcast_shapes(key[2], key[4])
             return shape.numel() // shape[-1]
 
+        def layout_class(key):
+            out = tuple(torch.broadcast_shapes(key[2], key[4]))
+            return (key[0], key[1], len(out), out[1:-1], key[2] == out,
+                    key[4] == out, key[6])
+
         def operand(shape, stride):
             """Seeded digits laid out as (shape, stride), every element's
-            top digit zero (below both MNT4-753 moduli)."""
+            top digit zero (below both MNT4-753 moduli, MNT6-753's too)."""
             span = 1 + sum((n - 1) * st for n, st in zip(shape, stride))
             buf = torch.randint(0, 1 << 16, (span,), generator=gen,
                                 dtype=torch.int64).to(dev)
@@ -1121,13 +1174,13 @@ def main():
 
         widest = {}
         for key, count in seen.items():
-            slot = (key[0], len(key[2]))
+            slot = layout_class(key)
             if slot not in widest or out_rows(key) > out_rows(widest[slot][0]):
                 widest[slot] = (key, count)
         errs, rows, timed = {}, [], {}
-        for (name, _), (key, count) in sorted(
-                widest.items(), key=lambda e: (e[0][0], -out_rows(e[1][0]))):
-            _, fname, a_shape, a_stride, b_shape, b_stride, same = key
+        for key, count in sorted(widest.values(),
+                                 key=lambda e: (e[0][0], -out_rows(e[0]))):
+            name, fname, a_shape, a_stride, b_shape, b_stride, same = key
             F = fields[fname]
             unary = name == "fp_neg"
             kern_f, plain_f, ops_each = fns[name]
@@ -1915,13 +1968,14 @@ def main():
     # 4./5. the main path
     # ------------------------------------------------------------------
 
-    def prove(params, compiled, cs, s=S_BLIND):
+    def prove(params, compiled, cs, s=S_BLIND, engine=None):
         """(the proof as python ints, seconds, the proof on the device)"""
+        engine = engine or eng
         torch.cuda.synchronize()
         t = time.perf_counter()
-        proof = groth16.create_proof(eng, params, compiled, cs.assignment(),
-                                     r=R_BLIND, s=s)
-        ints = groth16.proof_to_ints(eng, proof)   # fetch: completion barrier
+        proof = groth16.create_proof(engine, params, compiled,
+                                     cs.assignment(), r=R_BLIND, s=s)
+        ints = groth16.proof_to_ints(engine, proof)   # fetch: a barrier
         return ints, time.perf_counter() - t, proof
 
     class phase_clock:
@@ -1931,17 +1985,25 @@ def main():
         pairing -- or those of ``targets`` (module or object, attribute
         name), with a device synchronise on either side of each call (a few
         dozen calls a rung, so the synchronises cost nothing that shows)."""
-        prover = ((groth16, "qap_at_device"), (msm_mod, "_window_bases"),
-                  (msm_mod, "fixed_base_table"),
-                  (msm_mod, "fixed_base_msm_windowed"),
-                  (msm_mod, "_msm_lanes"), (msm_mod, "msm_hybrid"),
-                  (msm_mod, "msm_affine"), (groth16, "_witness_map_core"),
-                  (eng, "prepare_g2"), (eng, "pairing_prepared"))
-        labels = {"qap_at_device": "qap",
+        labels = {"qap_at_device": "qap", "sap_at_device": "sap",
                   "fixed_base_msm_windowed": "fixed_base_windowed"}
 
-        def __init__(self, targets=prover):
-            self.targets = targets
+        @staticmethod
+        def prover(engine, system=groth16):
+            """The phases of one proof system's setup and prove."""
+            return ((system, "sap_at_device" if system is gm17
+                     else "qap_at_device"),
+                    (msm_mod, "_window_bases"),
+                    (msm_mod, "fixed_base_table"),
+                    (msm_mod, "fixed_base_msm_windowed"),
+                    (msm_mod, "_msm_lanes"), (msm_mod, "msm_hybrid"),
+                    (msm_mod, "msm_affine"),
+                    (system, "_sap_witness_core" if system is gm17
+                     else "_witness_map_core"),
+                    (engine, "prepare_g2"), (engine, "pairing_prepared"))
+
+        def __init__(self, targets=None):
+            self.targets = targets or self.prover(eng)
             self.calls = []
             self.query_scalars = {}   # scalars of each windowed query
             self.launches = {}        # kernel launches by phase, summed
@@ -1991,16 +2053,21 @@ def main():
             self.calls = []
             return out
 
-    def rung(log2, phases=None):
-        """Setup and prove at 2^log2 constraints; ``phases``: True to time
-        the calls inside with a ``phase_clock``."""
+    def rung(log2, phases=None, family="mnt4753", constraints=None):
+        """Setup and prove at 2^log2 constraints (or ``constraints``) over
+        ``family``; ``phases``: True to time the calls inside with a
+        ``phase_clock``."""
+        engine = engines[family]
         if phases is True:
-            with phase_clock() as clock:
-                return rung(log2, clock)
-        cs, _ = benchmark_circuit(fr, NUM_INPUTS, 1 << log2)
+            with phase_clock(phase_clock.prover(engine)) as clock:
+                return rung(log2, clock, family, constraints)
+        fr_ = engine.g1.scalar_field
+        cs, _ = benchmark_circuit(fr_, NUM_INPUTS, constraints or 1 << log2)
         if not cs.is_satisfied():
             raise AssertionError("benchmark circuit is not satisfied")
         out = {"log2_constraints": log2}
+        if family != "mnt4753":
+            out.update(family=family, constraints=cs.num_constraints)
         # every rung builds its fixed-base tables, as a first setup in a
         # process does (later setups on the same curve reuse them)
         groth16.setup_table.cache_clear()
@@ -2011,10 +2078,10 @@ def main():
         t = time.perf_counter()
         with layout_log() as layouts:
             compiled = compile_r1cs(cs)
-            params = groth16.generate_parameters(eng, cs, **TOXIC)
+            params = groth16.generate_parameters(engine, cs, **TOXIC)
             torch.cuda.synchronize()
         out["setup_s"] = time.perf_counter() - t
-        setup_layouts[log2] = layouts.seen
+        setup_layouts[family, log2] = layouts.seen
         out["setup_launches"] = dict(fp.launch_counts)
         if phases:
             out["setup_phases_s"] = phases.take()
@@ -2023,9 +2090,12 @@ def main():
             out["setup_pairing_launches"] = phases.launches.get(
                 "pairing_prepared")
             phases.query_scalars, phases.launches = {}, {}
-        proof, out["prove_first_s"], proof_dev = prove(params, compiled, cs)
+        proof, out["prove_first_s"], proof_dev = prove(params, compiled, cs,
+                                                       engine=engine)
         if phases:
             out["prove_phases_s"] = phases.take()
+            out["prove_phase_launches"] = phases.launches
+            phases.launches = {}
         out["path_launches"] = dict(fp.launch_counts)
         out["prove_launches"] = {
             k: v - out["setup_launches"][k]
@@ -2039,7 +2109,7 @@ def main():
         out["curve_launches_by_lanes"] = {
             k: ec_kernels.launches_by_class(k) for k in curve_keys}
         t = time.perf_counter()
-        want = groth16_host.expected_proof("mnt4753", cs, **TOXIC,
+        want = groth16_host.expected_proof(family, cs, **TOXIC,
                                            r=R_BLIND, s=S_BLIND)
         out["oracle_host_s"] = time.perf_counter() - t
         if proof != want:
@@ -2051,7 +2121,7 @@ def main():
         qap = groth16_host.qap_at(cs, TOXIC["t"])
         out["qap_host_oracle_s"] = time.perf_counter() - t
         got = groth16.qap_at_device(cs, TOXIC["t"])
-        if [fp.fp_to_ints(fr, v) for v in got[:3]] != list(qap[:3]) \
+        if [fp.fp_to_ints(fr_, v) for v in got[:3]] != list(qap[:3]) \
                 or (got[3], got[4].size) != qap[3:]:
             raise AssertionError(f"2^{log2}: the device QAP differs from "
                                  f"qap_at")
@@ -2060,47 +2130,54 @@ def main():
         return out, (cs, compiled, params, proof, proof_dev, qap)
 
     verify_line = {"rungs": {}, "checks": {}}
-    setup_layouts = {}     # {log2: the field kernels' layouts in setup}
+    setup_layouts = {}     # {(family, log2): the field kernels' layouts
+    #                          in setup}
 
-    def verify(params, proof, inputs, label):
+    def verify(params, proof, inputs, label, engine=None):
         """One call of ``verify_proof`` (its bool is on the host, so the
         call is complete), timed by the host's clock."""
         torch.cuda.synchronize()
         t = time.perf_counter()
-        ok = groth16.verify_proof(eng, params.vk, proof, inputs)
+        ok = groth16.verify_proof(engine or eng, params.vk, proof, inputs)
         secs = time.perf_counter() - t
         verify_line["checks"][label] = ok
         return ok, secs
 
-    def verify_rung(log2, cs, params, proof):
+    def verify_rung(log2, cs, params, proof, engine=None, line=None):
         """Verify the rung's proof twice, launches counted on the first;
         it must be accepted."""
+        line = line or verify_line
         inputs = cs.input_values[1:]
         fp.reset_launch_counts()
-        ok, first = verify(params, proof, inputs, f"2^{log2}")
+        ok, first = verify(params, proof, inputs, f"2^{log2}", engine)
         launches = dict(fp.launch_counts)
-        ok2, steady = verify(params, proof, inputs, f"2^{log2} again")
+        ok2, steady = verify(params, proof, inputs, f"2^{log2} again",
+                             engine)
         if not (ok and ok2):
             raise AssertionError(f"2^{log2}: verify_proof refused the proof")
-        verify_line["rungs"][f"2^{log2}"] = {
+        line["rungs"][f"2^{log2}"] = {
             "verify_first_s": first, "verify_steady_s": steady,
             "launches": launches}
 
     serial_line = {"rungs": {}}
 
-    def serialization(log2, cs, params, want, proof_dev):
+    def serialization(log2, cs, params, want, proof_dev, engine=None,
+                      line=None):
         """The proof and the vk through bytes and back: the decoded proof
         equals the device one and verifies under the decoded vk, and its
         bytes are those written from the oracle's python-int
         coordinates."""
+        engine = engine or eng
+        line = line or serial_line
+
         def le(v):
             return v.to_bytes(96, "little")
 
         t = time.perf_counter()
-        raw = serialize.proof_to_bytes(eng, proof_dev)
-        back, used = serialize.proof_from_bytes(eng, raw)
-        vk_raw = serialize.vk_to_bytes(eng, params.vk)
-        vk, vk_used = serialize.vk_from_bytes(eng, vk_raw)
+        raw = serialize.proof_to_bytes(engine, proof_dev)
+        back, used = serialize.proof_from_bytes(engine, raw)
+        vk_raw = serialize.vk_to_bytes(engine, params.vk)
+        vk, vk_used = serialize.vk_from_bytes(engine, vk_raw)
         secs = time.perf_counter() - t
         oracle = b"".join(b"".join(le(v) for v in want[k][0] + want[k][1]) +
                           b"\x00" for k in ("a", "b", "c"))
@@ -2112,17 +2189,17 @@ def main():
                 (*proof_dev.a, *proof_dev.b, *proof_dev.c))):
             raise AssertionError(f"2^{log2}: the proof does not round-trip")
         if vk_used != len(vk_raw) or \
-                serialize.vk_to_bytes(eng, vk) != vk_raw or not all(
+                serialize.vk_to_bytes(engine, vk) != vk_raw or not all(
                     torch.equal(u, v) for u, v in zip(
                         (vk.alpha_g1_beta_g2, *vk.gamma_g2, *vk.delta_g2,
                          *vk.gamma_abc_g1),
                         (params.vk.alpha_g1_beta_g2, *params.vk.gamma_g2,
                          *params.vk.delta_g2, *params.vk.gamma_abc_g1))):
             raise AssertionError(f"2^{log2}: the vk does not round-trip")
-        if not groth16.verify_proof(eng, vk, back, cs.input_values[1:]):
+        if not groth16.verify_proof(engine, vk, back, cs.input_values[1:]):
             raise AssertionError(f"2^{log2}: the decoded proof does not "
                                  f"verify under the decoded vk")
-        serial_line["rungs"][f"2^{log2}"] = {
+        line["rungs"][f"2^{log2}"] = {
             "proof_bytes": len(raw), "vk_bytes": len(vk_raw),
             "proof_and_vk_to_and_from_bytes_s": secs,
             "equal_to_oracle_bytes": True, "decoded_proof_verifies": True}
@@ -2194,25 +2271,9 @@ def main():
             fn()
         return counts
 
-    small, (cs6, compiled6, params6, proof6, dev6, _) = rung(6, phases=True)
-    print("rung " + json.dumps(small), flush=True)
-    verify_rung(6, cs6, params6, dev6)
-    serialization(6, cs6, params6, proof6, dev6)
-    # setup's GT element against the python-int oracle e(alpha*G1, beta*G2)
-    want_gt = host_alpha_beta(TOXIC["alpha"], TOXIC["beta"])
-    if fp.fp_to_ints(fq, params6.vk.alpha_g1_beta_g2) != want_gt:
-        raise AssertionError("vk.alpha_g1_beta_g2 differs from the "
-                             "python-int oracle")
-    verify_line["checks"]["alpha_g1_beta_g2 equals the oracle"] = True
-    aten = count_aten_ops(lambda: prove(params6, compiled6, cs6))
-    no_launch = {"expand", "view", "_unsafe_view", "slice", "select",
-                 "unbind", "unsqueeze", "split", "split_with_sizes", "alias",
-                 "detach", "t", "transpose", "permute", "as_strided",
-                 "reshape", "empty", "empty_like", "empty_strided"}
-    device_ops = {k: v for k, v in aten.items() if k not in no_launch}
-    print("aten_ops_per_proof " + json.dumps(
-        dict(sorted(device_ops.items(), key=lambda kv: -kv[1]))), flush=True)
-
+    # MNT4-753 at 2^10 and 2^16 constraints (a 2^6 rung would run the
+    # 2^10 rung's code at a smaller depth; its time goes to the MNT6-753
+    # and GM17 paths)
     big, (cs10, compiled10, params10, proof10, dev10, qap10) = rung(
         10, phases=True)
     again, big["prove_steady_s"], _ = prove(params10, compiled10, cs10)
@@ -2223,10 +2284,20 @@ def main():
         raise AssertionError("a proof with another s must differ in B and C "
                              "and keep A")
     print("rung " + json.dumps(big), flush=True)
-    if params10.vk.alpha_g1_beta_g2.tolist() != \
-            params6.vk.alpha_g1_beta_g2.tolist():
-        raise AssertionError("two setups with the same alpha and beta gave "
-                             "two GT elements")
+    # setup's GT element against the python-int oracle e(alpha*G1, beta*G2)
+    want_gt = host_alpha_beta(TOXIC["alpha"], TOXIC["beta"])
+    if fp.fp_to_ints(fq, params10.vk.alpha_g1_beta_g2) != want_gt:
+        raise AssertionError("vk.alpha_g1_beta_g2 differs from the "
+                             "python-int oracle")
+    verify_line["checks"]["alpha_g1_beta_g2 equals the oracle"] = True
+    aten = count_aten_ops(lambda: prove(params10, compiled10, cs10))
+    no_launch = {"expand", "view", "_unsafe_view", "slice", "select",
+                 "unbind", "unsqueeze", "split", "split_with_sizes", "alias",
+                 "detach", "t", "transpose", "permute", "as_strided",
+                 "reshape", "empty", "empty_like", "empty_strided"}
+    device_ops = {k: v for k, v in aten.items() if k not in no_launch}
+    print("aten_ops_per_proof " + json.dumps(
+        dict(sorted(device_ops.items(), key=lambda kv: -kv[1]))), flush=True)
     verify_rung(10, cs10, params10, dev10)
     verify_line["path_launches"] = verify_line["rungs"]["2^10"]["launches"]
     serialization(10, cs10, params10, proof10, dev10)
@@ -2289,6 +2360,10 @@ def main():
     # through msm_affine
     full, (cs16, _, params16, proof16, dev16, _) = rung(16, phases=True)
     print("rung " + json.dumps(full), flush=True)
+    if params10.vk.alpha_g1_beta_g2.tolist() != \
+            params16.vk.alpha_g1_beta_g2.tolist():
+        raise AssertionError("two setups with the same alpha and beta gave "
+                             "two GT elements")
     verify_rung(16, cs16, params16, dev16)
     serialization(16, cs16, params16, proof16, dev16)
     nv16, m16 = cs16.num_variables, params16.domain_size
@@ -2304,7 +2379,7 @@ def main():
         raise AssertionError("the 2^16 setup's windowed queries took other "
                              "scalar counts than its queries hold")
     errs_setup, rows_setup, timed_setup = field_kernels_at_setup(
-        setup_layouts[16])
+        setup_layouts["mnt4753", 16])
     print("field_kernels_at_setup " + json.dumps(rows_setup), flush=True)
     for k in kernels:
         if k["name"] in timed_setup:
@@ -2325,14 +2400,271 @@ def main():
           flush=True)
 
     # ------------------------------------------------------------------
+    # 4d. MNT6-753: its pairing, Groth16 over it, GM17 over both curves,
+    #     and K4-K6 at MNT6-753 G1's curve constant (a = 11)
+    # ------------------------------------------------------------------
+    eng6 = engines["mnt6753"]
+    g1_6, g2_6 = eng6.g1, eng6.g2
+    fq_6 = g1_6.fp
+
+    def counted(fn):
+        """(fn(), host-clock seconds, launches by kind), counts from 0."""
+        fp.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t, {
+            k: v for k, v in fp.launch_counts.items() if v}
+
+    def pairing_mnt6():
+        """The reference anchor's pairing on the card, digit for digit
+        against its GT; the seconds and launches of the host ladder, one
+        prepared Miller loop and one final exponentiation; the launches
+        of one multiply in each tower (Fq2, Fq4, Fq3, Fq6), its product
+        against python ints."""
+        pa, qb, gt = mnt6753_anchor()
+        P, Q = g1_6.affine_from_ints(*pa), g2_6.affine_from_ints(*qb)
+        out = {}
+        prep, out["prepare_g2_s"], _ = counted(lambda: eng6.prepare_g2(Q))
+        f, out["miller_loop_s"], out["miller_loop_launches"] = counted(
+            lambda: eng6.miller_loop_prepared(P, prep))
+        got, out["final_exponentiation_s"], \
+            out["final_exponentiation_launches"] = counted(
+                lambda: eng6.final_exponentiation(f))
+        if fp.fp_to_ints(fq_6, got) != gt:
+            raise AssertionError("the MNT6-753 anchor pairing differs from "
+                                 "the reference's GT")
+        out["equals_reference_gt"] = True
+        rng = random.Random(63)
+        out["launches_per_multiply"] = {}
+        for engine in (eng, eng6):
+            for F in (engine.sub, engine.fqk):
+                vals = [[rng.randrange(F.fp.modulus) for _ in range(F.K)]
+                        for _ in range(2)]
+                x, y = (torch.from_numpy(F.const(v)).to(dev) for v in vals)
+                prod, _, launches = counted(lambda: F.mul(x, y))
+                H = HE.build_mnt6_host_towers(
+                    F.fp.modulus, TG.MNT6753_FQ3["nonresidue"]) \
+                    if engine is eng6 else HE.build_mnt4_host_towers(
+                        F.fp.modulus, TG.MNT4753_FQ2["nonresidue"])
+                if fp.fp_to_ints(F.fp, prod) != HE.host_ext_mul(
+                        H[1 if F is engine.sub else 2], *vals):
+                    raise AssertionError(f"{F.name}: product differs from "
+                                         f"python ints")
+                out["launches_per_multiply"][F.name] = launches
+        return out
+
+    t_mnt6 = time.perf_counter()
+    mnt6_pairing = pairing_mnt6()
+    print("pairing_mnt6 " + json.dumps(mnt6_pairing), flush=True)
+
+    # Groth16 over MNT6-753: 2^6 and the largest radix-2 rung, 32,763
+    # constraints + 5 inputs = a 2^15 domain (two-adicity 15)
+    verify6_line = {"family": "mnt6753", "rungs": {}, "checks": {}}
+    serial6_line = {"family": "mnt6753", "rungs": {}}
+    mnt6_widths = {}
+    mnt6_paths = {}       # the new paths whose launches are checked
+
+    def add_widths(widths):
+        for k, by_w in widths.items():
+            for w, n in by_w.items():
+                mnt6_widths.setdefault(k, {})
+                mnt6_widths[k][w] = mnt6_widths[k].get(w, 0) + n
+
+    for log2, n_c in ((6, 1 << 6), (15, (1 << 15) - NUM_INPUTS - 1)):
+        line, (cs_, compiled_, params_, proof_, dev_, _) = rung(
+            log2, phases=True, family="mnt6753", constraints=n_c)
+        if params_.domain_size != 1 << (n_c + NUM_INPUTS).bit_length():
+            raise AssertionError(f"mnt6753 {n_c}: domain "
+                                 f"{params_.domain_size}")
+        again, line["prove_steady_s"], _ = prove(params_, compiled_, cs_,
+                                                 engine=eng6)
+        if again != proof_:
+            raise AssertionError("mnt6753: the same inputs gave two proofs")
+        add_widths(line["curve_launches_by_width"])
+        print("rung " + json.dumps(line), flush=True)
+        verify_rung(log2, cs_, params_, dev_, eng6, verify6_line)
+        serialization(log2, cs_, params_, proof_, dev_, eng6, serial6_line)
+    mnt6_paths["groth16_mnt6_2p15"] = line
+    want_gt = host_alpha_beta(TOXIC["alpha"], TOXIC["beta"], "mnt6753")
+    if fp.fp_to_ints(fq_6, params_.vk.alpha_g1_beta_g2) != want_gt:
+        raise AssertionError("mnt6753: vk.alpha_g1_beta_g2 differs from the "
+                             "python-int oracle")
+    verify6_line["checks"]["alpha_g1_beta_g2 equals the oracle"] = True
+    inputs_ = cs_.input_values[1:]
+    altered = groth16.Proof(a=dev_.a, b=dev_.b, c=g1_6.to_affine(
+        g1_6.add_mixed(g1_6.from_affine(*dev_.c), g1_6.generator_affine)))
+    for label, proof_inputs in (
+            ("2^15 wrong input", (dev_, [inputs_[0] + 1] + inputs_[1:])),
+            ("2^15 altered C", (altered, inputs_))):
+        if verify(params_, *proof_inputs, label, eng6)[0] is not False:
+            raise AssertionError(f"mnt6753 verify_proof: {label} accepted")
+        verify6_line["checks"][label] = False
+    # one constraint more and the radix-2 domain would pass the
+    # two-adicity: refused where the JAX package's Domain refuses it
+    too_big, _ = benchmark_circuit(g1_6.scalar_field, NUM_INPUTS, n_c + 1)
+    try:
+        compile_r1cs(too_big)
+    except ValueError:
+        verify6_line["checks"]["2^15 + 1 rows refused"] = True
+    else:
+        raise AssertionError("mnt6753: a 2^16 radix-2 domain was accepted")
+    del too_big, params_, dev_, altered
+    print("verify " + json.dumps(verify6_line), flush=True)
+    print("serialization " + json.dumps(serial6_line), flush=True)
+    errs6, rows6, _ = field_kernels_at_setup(setup_layouts["mnt6753", 15])
+    print("field_kernels_at_setup_mnt6 " + json.dumps(rows6), flush=True)
+    for k in kernels:
+        if k["name"] in errs6:
+            k["max_abs_err"] = max(k["max_abs_err"], errs6[k["name"]])
+
+    # GM17 over MNT4-753 at 2^10 (SAP domain 4,096, radix 2) and MNT6-753
+    # at 2^14 (SAP size 32,777 > 2^15: the mixed radix, 40,960)
+    GM17_TOXIC = dict(alpha=123, beta=456, t=314159)
+    GM17_RAND = dict(d1=11, d2=22, r=R_BLIND)
+
+    def gm17_rung(family, log2, domain_kind, domain_size):
+        engine = engines[family]
+        cs, _ = benchmark_circuit(engine.g1.scalar_field, NUM_INPUTS,
+                                  1 << log2)
+        out = {"family": family, "log2_constraints": log2}
+        groth16.setup_table.cache_clear()
+        with phase_clock(phase_clock.prover(engine, gm17)) as clock:
+            fp.reset_launch_counts()
+            ec_kernels.reset_launch_widths()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            compiled = compile_r1cs(cs)
+            params = gm17.generate_parameters(engine, cs, **GM17_TOXIC)
+            torch.cuda.synchronize()
+            out["setup_s"] = time.perf_counter() - t
+            out["setup_launches"] = dict(fp.launch_counts)
+            out["setup_phases_s"] = clock.take()
+            out["setup_phase_launches"], clock.launches = clock.launches, {}
+            t = time.perf_counter()
+            proof_dev = gm17.create_proof(engine, params, compiled,
+                                          cs.assignment(), **GM17_RAND)
+            proof = groth16.proof_to_ints(engine, proof_dev)   # a barrier
+            out["prove_s"] = time.perf_counter() - t
+            out["prove_phases_s"] = clock.take()
+            out["prove_phase_launches"] = clock.launches
+        out["path_launches"] = dict(fp.launch_counts)
+        out["prove_launches"] = {
+            k: v - out["setup_launches"][k]
+            for k, v in out["path_launches"].items()}
+        out["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["curve_launches_by_width"] = {
+            k: dict(sorted(v.items()))
+            for k, v in ec_kernels.launch_widths.items()
+            if k not in ec_kernels.RNS_KERNELS}
+        dom = gm17.sap_domain(compiled)
+        out["domain"] = {"kind": type(dom).__name__, "size": dom.size,
+                         "sap_rows": gm17.sap_size(cs.num_constraints,
+                                                   cs.num_inputs)}
+        if (out["domain"]["kind"], dom.size, params.domain_size) != (
+                domain_kind, domain_size, domain_size):
+            raise AssertionError(f"gm17 {family}: domain {out['domain']}, "
+                                 f"not {domain_kind} {domain_size}")
+        t = time.perf_counter()
+        want = gm17_host.expected_gm17_proof(family, cs, **GM17_TOXIC,
+                                             **GM17_RAND)
+        out["oracle_host_s"] = time.perf_counter() - t
+        if proof != want:
+            raise AssertionError(f"gm17 {family} 2^{log2}: device proof "
+                                 f"differs from the closed-form oracle")
+        out["equals_oracle"] = True
+        inputs = cs.input_values[1:]
+        ok, out["verify_s"], out["verify_launches"] = counted(
+            lambda: gm17.verify_proof(engine, params.vk, proof_dev, inputs))
+        wrong = gm17.verify_proof(engine, params.vk, proof_dev,
+                                  [inputs[0] + 1] + inputs[1:])
+        if not ok or wrong:
+            raise AssertionError(f"gm17 {family}: verify gave {ok}, and "
+                                 f"{wrong} on a wrong input")
+        out["verify_checks"] = {"accepts": True, "wrong input": False}
+        return out
+
+    gm17_lines = {}
+    for family, log2, kind, size in (("mnt4753", 10, "Domain", 4096),
+                                     ("mnt6753", 14, "MixedRadixDomain",
+                                      40960)):
+        line = gm17_rung(family, log2, kind, size)
+        gm17_lines[f"gm17_{family[:4]}_2p{log2}"] = line
+        if family == "mnt6753":
+            add_widths(line["curve_launches_by_width"])
+        print("gm17 " + json.dumps(line), flush=True)
+
+    def mnt6_curve_kernels(widths):
+        """K4, K5 (pre, post) and K6 (up, tail, down) on MNT6-753 G1 (a =
+        11) against their plain versions at the widest batch the MNT6
+        paths launched each, the special lanes (a doubling, which reads a,
+        among them) first, K4 also on one lane's doubling; then calls on
+        MNT4-753 G1 (a = 2) and MNT6-753 G1 in turns, each against its
+        plain version, so that a constant kept for the field alone, not
+        for the curve, would show."""
+        out = {"k5k6_at_widest": k5k6_at_widest(widths, g1_6)}
+        n = max(widths["ec_proj_add"])
+        proj, _, _ = multiples(g1_6, max(n, 16), seed=62)
+        P, Q = proj_case(g1_6, proj, n)
+        err = compare_all(f"mnt6753 ec_proj_add [{n}]",
+                          ec_kernels.proj_add(g1_6, P, Q),
+                          ec_kernels.proj_add_plain(g1_6, P, Q))
+        one = tuple(c[8:9] for c in proj)
+        err = max(err, compare_all(
+            "mnt6753 ec_proj_add [1] P+P", ec_kernels.proj_add(
+                g1_6, one, one), g1_6.double(one)))
+        b_ms, b_by = bound(9 * n * elem_bytes,
+                           (2 * 5 + 2 * 17 + (n - N_SPECIAL) * 14) * MUL_OPS)
+        out["ec_proj_add"] = {
+            "lanes": n, "max_abs_err": err,
+            "ms": time_ms(lambda: ec_kernels.proj_add(g1_6, P, Q), 20),
+            "device_ms": graph_ms(lambda: ec_kernels.proj_add(g1_6, P, Q),
+                                  20),
+            "plain_ms": time_ms(
+                lambda: ec_kernels.proj_add_plain(g1_6, P, Q), 3),
+            "bound_ms": b_ms, "bound_by": b_by}
+        del P, Q, proj
+        turns = []
+        for curve in (g1, g1_6, g1, g1_6):
+            proj, aff, _ = multiples(curve, 64, seed=64)
+            P, Q = proj_case(curve, proj, 64)
+            a_pt, b_pt = affine_case(curve, aff, 64)
+            e1 = compare_all(f"{curve.name} ec_proj_add in turns",
+                             ec_kernels.proj_add(curve, P, Q),
+                             ec_kernels.proj_add_plain(curve, P, Q))
+            got, want = (fn(curve, a_pt, b_pt) for fn in (
+                ec_kernels.batch_affine_add,
+                ec_kernels.batch_affine_add_plain))
+            e2 = compare_all(f"{curve.name} batch_affine_add in turns",
+                             (*got[0], got[1]), (*want[0], want[1]))
+            turns.append({"curve": curve.name, "max_abs_err": max(e1, e2)})
+        out["in_turns"] = turns
+        return out
+
+    mnt6_kernels = mnt6_curve_kernels(mnt6_widths)
+    print("mnt6_curve_kernels " + json.dumps(mnt6_kernels), flush=True)
+    mnt6_paths.update(gm17_lines)
+    # every new path launched K1, K2, add/sub and K4-K6
+    for name, line in mnt6_paths.items():
+        for k in ("mont_mul", "inv_bea", "fp_add", "fp_sub", "ec_proj_add",
+                  "ec_affine_pre", "ec_affine_post", "inv_tree_up",
+                  "inv_tree_tail", "inv_tree_down"):
+            if line["path_launches"].get(k, 0) <= 0:
+                raise AssertionError(f"{name} never launched {k}")
+    print(f"mnt6_and_gm17_section_s {time.perf_counter() - t_mnt6:.1f}",
+          flush=True)
+
+    # ------------------------------------------------------------------
     # 4a. FFT: 2^20 radix-2 over MNT4-753 Fr, mixed radix over MNT6-753 Fr
     # ------------------------------------------------------------------
 
     def fft_phase(F, dom, seed):
         """fft and ifft of one seeded input on ``dom``: the tables' build
         on the device beside the same table in python ints, host-clock and
-        device seconds, launches, the round trip digit for digit, and 8
-        evaluations against Horner's rule in python ints at w^i."""
+        device seconds, launches, the round trip digit for digit, and
+        sampled evaluations against Horner's rule in python ints at w^i."""
         n, q = dom.size, F.modulus
         out = {"field": F.name, "size": n,
                "factors": getattr(dom, "factors", None)}
@@ -2374,14 +2706,17 @@ def main():
             raise AssertionError(f"{F.name} size {n}: ifft(fft(x)) != x")
         del back
         coeffs = fp.fp_to_ints(F, x)
+        # a Horner evaluation at 2^20 is ~3 s of python ints: one forked
+        # process a sample, all at once
         idx = sorted(random.Random(seed).sample(range(n), 8))
         got = fp.fp_to_ints(F, y[idx])
         t = time.perf_counter()
-        for i, g in zip(idx, got):
-            wi, acc = pow(dom.gen, i, q), 0
-            for cf in reversed(coeffs):
-                acc = (acc * wi + cf) % q
-            if acc != g:
+        _HORNER.update(coeffs=coeffs, modulus=q)
+        with multiprocessing.get_context("fork").Pool(len(idx)) as pool:
+            want = pool.map(_horner_at, [pow(dom.gen, i, q) for i in idx])
+        _HORNER.clear()
+        for i, g, v in zip(idx, got, want):
+            if v != g:
                 raise AssertionError(f"{F.name} size {n}: fft(x)[{i}] is "
                                      f"not x(w^{i})")
         out["horner_s"] = time.perf_counter() - t
@@ -2594,6 +2929,11 @@ def main():
     print("poseidon_by_width " + json.dumps(k9_by_width), flush=True)
 
     if args.time_plain_addsub:
+        cs6, _ = benchmark_circuit(fr, NUM_INPUTS, 1 << 6)
+        compiled6 = compile_r1cs(cs6)
+        proof6 = groth16_host.expected_proof("mnt4753", cs6, **TOXIC,
+                                             r=R_BLIND, s=S_BLIND)
+
         def setup_and_prove():
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -2602,7 +2942,7 @@ def main():
             setup_s = time.perf_counter() - t
             ints, prove_s, _ = prove(params, compiled6, cs6)
             if ints != proof6:
-                raise AssertionError("2^6: proof differs from the first one")
+                raise AssertionError("2^6: proof differs from the oracle")
             return {"setup_s": setup_s, "prove_s": prove_s}
 
         out = {"log2_constraints": 6, "kernels_before": setup_and_prove()}
@@ -2639,6 +2979,9 @@ def main():
         if k["path"].startswith("groth16"):
             k["launches_verify_2p10"] = \
                 verify_line["path_launches"][name]
+            k["launches_mnt6_and_gm17_paths"] = {
+                path: line["path_launches"].get(name, 0)
+                for path, line in mnt6_paths.items()}
             k["launches_2p16_path"] = full["path_launches"][name]
             if k["launches_2p16_path"] <= 0:
                 raise AssertionError(f"the 2^16 path never launched {name}")

@@ -1,6 +1,6 @@
-"""Concrete curve instantiations of the port: MNT4-753 (the main path:
-setup, prove and verify) and BLS12-377 (the narrow width the CPU tests use;
-its pairing is not ported yet).
+"""Concrete curve instantiations of the port: the MNT4-753/MNT6-753 cycle
+(Groth16 and GM17 setup, prove and verify over either curve) and BLS12-377
+(the narrow width the CPU tests use; its pairing is not ported yet).
 
 Each constructor takes ``device`` under the package's device rule and caches
 one object per device (and, for G1, per choice of ``ec_rns``: the RNS
@@ -41,6 +41,12 @@ def mnt4753_towers():
 
 
 @functools.lru_cache()
+def mnt6753_towers():
+    """(Fq, Fq3, Fq6) of MNT6-753."""
+    return T.build_mnt6_towers(PP.MNT6753_FQ, TG.MNT6753_FQ3["nonresidue"])
+
+
+@functools.lru_cache()
 def bls12_377_towers():
     return T.build_quadratic_tower(PP.BLS12_377_FQ,
                                    TG.BLS12_377_FQ2["nonresidue"])
@@ -51,6 +57,7 @@ def _curve(family: str, group: str, device, ec_rns: bool = False
            ) -> SWCurveOps:
     towers, c, fr = {
         "mnt4753": (mnt4753_towers, CG.MNT4753, PP.MNT4753_FR),
+        "mnt6753": (mnt6753_towers, CG.MNT6753, PP.MNT6753_FR),
         "bls12_377": (bls12_377_towers, CG.BLS12_377, PP.BLS12_377_FR),
     }[family]
     if group == "g1":
@@ -74,6 +81,15 @@ def mnt4753_g2(device=None) -> SWCurveOps:
     return _curve("mnt4753", "g2", resolve_device(device))
 
 
+def mnt6753_g1(device=None, ec_rns: bool = False) -> SWCurveOps:
+    return _curve("mnt6753", "g1", resolve_device(device), ec_rns)
+
+
+def mnt6753_g2(device=None) -> SWCurveOps:
+    """G2 of MNT6-753, over Fq3."""
+    return _curve("mnt6753", "g2", resolve_device(device))
+
+
 def bls12_377_g1(device=None, ec_rns: bool = False) -> SWCurveOps:
     return _curve("bls12_377", "g1", resolve_device(device), ec_rns)
 
@@ -82,25 +98,44 @@ def bls12_377_g2(device=None) -> SWCurveOps:
     return _curve("bls12_377", "g2", resolve_device(device))
 
 
+# (curve constants, G1, G2, GT's tower, easy part: the Frobenius power and
+# whether the (q + 1) factor follows)
+_MNT = {
+    "mnt4753": (CG.MNT4753, mnt4753_g1, mnt4753_g2, mnt4753_towers, 2, False),
+    "mnt6753": (CG.MNT6753, mnt6753_g1, mnt6753_g2, mnt6753_towers, 3, True),
+}
+
+
 @functools.lru_cache()
-def _mnt4753_pairing(device) -> MNTPairing:
-    c = CG.MNT4753
+def _mnt_pairing(family: str, device) -> MNTPairing:
+    c, g1, g2, towers, easy_frob, q_plus_1 = _MNT[family]
     return MNTPairing(
-        "mnt4753", mnt4753_g1(device), mnt4753_g2(device),
-        mnt4753_towers()[2], wnaf=c["wnaf"],
+        family, g1(device), g2(device), towers()[2], wnaf=c["wnaf"],
         ate_is_neg=c["ate_is_loop_count_neg"],
         w1=c["final_exponent_last_chunk_1"],
         w0_abs=c["final_exponent_last_chunk_abs_of_w0"],
-        w0_is_neg=c["final_exponent_last_chunk_w0_is_neg"])
+        w0_is_neg=c["final_exponent_last_chunk_w0_is_neg"],
+        easy_frob=easy_frob, easy_mul_q_plus_1=q_plus_1)
 
 
 def mnt4753_pairing(device=None) -> MNTPairing:
-    return _mnt4753_pairing(resolve_device(device))
+    return _mnt_pairing("mnt4753", resolve_device(device))
+
+
+def mnt6753_pairing(device=None) -> MNTPairing:
+    """MNT6-753's ate pairing: GT in Fq6, the easy part q^3 - 1 then
+    q + 1."""
+    return _mnt_pairing("mnt6753", resolve_device(device))
 
 
 def mnt4753_engine(device=None) -> MNTPairing:
     """MNT4-753's engine: its pairing, with ``g1`` and ``g2``."""
     return mnt4753_pairing(device)
+
+
+def mnt6753_engine(device=None) -> MNTPairing:
+    """MNT6-753's engine: its pairing, with ``g1`` and ``g2``."""
+    return mnt6753_pairing(device)
 
 
 def bls12_377_engine(device=None) -> Engine:

@@ -1,10 +1,11 @@
-"""Host (python-int) MNT4 ate pairing: the exact oracle of the port's
+"""Host (python-int) MNT ate pairings: the exact oracle of the port's
 pairing.
 
 Counterpart of ``gingerlib_tpu/curves/pairing_host.py`` (``HostMNTPairing``,
-``host_mnt4753_pairing``): the reference's affine Miller ladder
-(mnt4/mod.rs:100-224) over the host tower arithmetic of
-``fields/host_ext.py``, and the final exponentiation by pow chains.  Elements
+``host_mnt4753_pairing``, ``host_mnt6753_pairing``): the reference's affine
+Miller ladder (mnt4/mod.rs:100-224, mnt6/mod.rs) over the host tower
+arithmetic of ``fields/host_ext.py``, and the final exponentiation by pow
+chains.  Elements
 are flat lists of standard-form ints.  ``chip_smoke.py`` and the tests hold
 the device pairing (``curves/pairing_mnt.py``) to it.
 """
@@ -18,10 +19,13 @@ from ..params._gen import curves_gen as CG, towers_gen as TG
 
 class HostMNTPairing:
     def __init__(self, p: int, sub: HE.HostTower, fqk: HE.HostTower,
-                 g2_a_host, wnaf, ate_is_neg, w1, w0_abs, w0_is_neg):
-        """sub / fqk: the twist's field (Fq2) and GT's (Fq4) as host
-        towers; wnaf LSB first with the top digit trimmed, as the curve
-        constants store it; the hard part's exponent is w1*q + w0."""
+                 g2_a_host, wnaf, ate_is_neg, w1, w0_abs, w0_is_neg,
+                 easy_frob: int, easy_mul_q_plus_1: bool):
+        """sub / fqk: the twist's field (Fq2, Fq3) and GT's (Fq4, Fq6) as
+        host towers; wnaf LSB first with the top digit trimmed, as the
+        curve constants store it; the easy part is f^(q^easy_frob - 1),
+        times its q-power where ``easy_mul_q_plus_1`` (MNT6); the hard
+        part's exponent is w1*q + w0."""
         self.p = p
         self.S = sub
         self.F = fqk
@@ -31,6 +35,8 @@ class HostMNTPairing:
         self.w1 = w1
         self.w0_abs = w0_abs
         self.w0_is_neg = w0_is_neg
+        self.easy_frob = easy_frob
+        self.easy_mul_q_plus_1 = easy_mul_q_plus_1
         t = [0] * sub.K
         t[1] = 1
         self.twist = t
@@ -110,10 +116,17 @@ class HostMNTPairing:
         return f
 
     def final_exponentiation(self, f):
-        """The easy part elt = f^(q^2 - 1), then elt^(w1*q) * elt^(+-w0)."""
+        """The easy part elt = f^(q^k - 1) (k = ``easy_frob``), raised to
+        q + 1 for MNT6, then elt^(w1*q) * elt^(+-w0)."""
         f_inv = self._finv(f)
-        elt = self._fmul(self._ffrob(f, 2), f_inv)
-        elt_inv = self._fmul(self._ffrob(f_inv, 2), f)
+
+        def first(a, ai):
+            t = self._fmul(self._ffrob(a, self.easy_frob), ai)
+            if self.easy_mul_q_plus_1:
+                t = self._fmul(self._ffrob(t, 1), t)
+            return t
+
+        elt, elt_inv = first(f, f_inv), first(f_inv, f)
         w1p = self._ffrob(elt, 1)
         if self.w1 != 1:
             w1p = self._fpow(w1p, self.w1)
@@ -132,4 +145,15 @@ def host_mnt4753_pairing() -> HostMNTPairing:
         p, fq2, fq4, c["g2_a"], c["wnaf"], c["ate_is_loop_count_neg"],
         c["final_exponent_last_chunk_1"],
         c["final_exponent_last_chunk_abs_of_w0"],
-        c["final_exponent_last_chunk_w0_is_neg"])
+        c["final_exponent_last_chunk_w0_is_neg"], 2, False)
+
+
+def host_mnt6753_pairing() -> HostMNTPairing:
+    c = CG.MNT6753
+    p = PP.MNT6753_FQ.modulus
+    _, fq3, fq6 = HE.build_mnt6_host_towers(p, TG.MNT6753_FQ3["nonresidue"])
+    return HostMNTPairing(
+        p, fq3, fq6, c["g2_a"], c["wnaf"], c["ate_is_loop_count_neg"],
+        c["final_exponent_last_chunk_1"],
+        c["final_exponent_last_chunk_abs_of_w0"],
+        c["final_exponent_last_chunk_w0_is_neg"], 3, True)

@@ -1,13 +1,15 @@
 """Extension-field towers as batched flat component tensors.
 
 Counterpart of ``gingerlib_tpu/fields/towers.py``, as far as the port's paths
-need it: the base field with a unit component axis (``FpOps``) and the
-quadratic extension (``QuadExtOps``) over it or over another quadratic
-extension -- Fq2, which carries G2 of MNT4-753 and BLS12-377, and MNT4's
-Fq4 = Fq2[Y]/(Y^2 - X), which carries its pairing's GT, with the cyclotomic
-square, the sparse line multiply ``mul_by_023`` and the fixed-exponent
-powers.  The cubic towers (Fq3/Fq6 of MNT6) and BLS12's Fq6/Fq12 with their
-line shapes are not ported yet.
+need it: the base field with a unit component axis (``FpOps``), the
+quadratic extension (``QuadExtOps``) and the cubic one (``CubicExtOps``):
+Fq2, which carries G2 of MNT4-753 and BLS12-377, and MNT4's Fq4 =
+Fq2[Y]/(Y^2 - X), which carries its pairing's GT; Fq3, which carries G2 of
+MNT6-753, and MNT6's Fq6 = Fq3[Y]/(Y^2 - X), its GT; with the cyclotomic
+square, the sparse line multiplies ``mul_by_023`` (MNT4) and
+``mul_by_2345`` (MNT6) and the fixed-exponent powers.  BLS12's Fq6/Fq12
+(a cubic tower over Fq2, whose Frobenius coefficients are not base-field
+values) and their line shapes are not ported yet.
 
 An element of a degree-K tower is an int64 tensor [..., K, n_digits] whose K
 components are in Montgomery form, sub-tower low component first.  Constants
@@ -18,7 +20,10 @@ Launches: a Karatsuba product needs three products in the subfield, and
 ``QuadExtOps`` stacks them on a new axis [..., 3, sK, n_digits] and makes ONE
 subfield product of the stack.  Over the base field that is one Montgomery
 multiply of three rows; over Fq2 it is one Fq2 product of three elements,
-i.e. one multiply of nine rows.  Every Montgomery product is canonical, so
+i.e. one multiply of nine rows.  ``CubicExtOps`` does the same with the six
+products of its Toom-style multiply: one multiply of six rows over the base
+field, so that an Fq6 product is one Fq3 product of three elements, one
+multiply of eighteen rows.  Every Montgomery product is canonical, so
 the values are those of the JAX package's one-after-another calls, digit for
 digit, in a fraction of the launches.  Fixed exponents are host constants,
 so the power chains branch on the host where the JAX package selects.
@@ -139,18 +144,17 @@ class QuadExtOps(_FieldBase):
 
     def __init__(self, name, sub, nonresidue_host, frob_c1_host):
         super().__init__()
-        if not isinstance(sub, (FpOps, QuadExtOps)):
-            raise NotImplementedError(
-                "cubic subfields (MNT6's Fq3) are not ported yet")
+        if not isinstance(sub, (FpOps, QuadExtOps, CubicExtOps)):
+            raise TypeError(f"{name}: no tower over {type(sub).__name__}")
         self.name = name
         self.sf = sub
         self.fp = sub.fp
         self.K = 2 * sub.K
         self._nr_host = sub.const(nonresidue_host)           # [sK, n]
         gen = [0] * sub.K
-        if isinstance(sub, QuadExtOps):
+        if not isinstance(sub, FpOps):
             gen[sub.sf.K] = 1
-        self.nr_is_sub_gen = isinstance(sub, QuadExtOps) and \
+        self.nr_is_sub_gen = not isinstance(sub, FpOps) and \
             host_ext.flatten(nonresidue_host) == gen
         self._frob_c1 = [host_ext.flatten(c) for c in frob_c1_host]
         for c in self._frob_c1:
@@ -269,6 +273,165 @@ class QuadExtOps(_FieldBase):
         nc1 = S.sub(S.sub(t, v0), v1)
         return torch.cat([nc0, nc1], dim=-2)
 
+    def mul_by_2345(self, x, a, c1, a_nr=None):
+        """x * (c0 + c1*Y) with c0 = (0, 0, a) = a X^2, a in Fp: the MNT6
+        affine-line shape.  a: base-field digits [..., n]; c1: subfield
+        element [..., 3, n]; ``a_nr``: a*nr where the caller has it (a
+        loop's lines share their a).  v0 = x0 * a X^2 is three base
+        multiplies of one launch, and v1 and the cross product are one
+        stacked Fq3 product."""
+        S = self.sf
+        if not isinstance(S, CubicExtOps) or not isinstance(S.sf, FpOps):
+            raise NotImplementedError("mul_by_2345 is the Fq6 line shape")
+        fp = self.fp
+        x0, x1 = self._halves(x)
+        if a_nr is None:
+            a_nr = fpmod.mont_mul(fp, a, S.tensor("nonresidue", a.device)[0])
+        # (b1 t, b2 t, b0 a) with t = a nr
+        v0 = fpmod.mont_mul(fp, x0[..., [1, 2, 0], :],
+                            torch.stack(torch.broadcast_tensors(
+                                a_nr, a_nr, a), dim=-2))
+        # other.c0 + other.c1 = c1 with a added into its last component
+        oc = torch.cat([c1[..., :2, :], fpmod.add_mod(
+            fp, c1[..., 2:, :], a.unsqueeze(-2))], dim=-2)
+        v = S.mul(torch.stack(torch.broadcast_tensors(x1, S.add(x0, x1)),
+                              dim=-3),
+                  torch.stack(torch.broadcast_tensors(c1, oc), dim=-3))
+        v1, t = v.unbind(-3)
+        nc0 = S.add(v0, self.mul_by_nonresidue(v1))
+        nc1 = S.sub(S.sub(t, v0), v1)
+        return torch.cat([nc0, nc1], dim=-2)
+
+
+class CubicExtOps(_FieldBase):
+    """sub[X]/(X^3 - nonresidue): x = a0 + a1*X + a2*X^2 as
+    [..., 3*sub.K, n_digits], the Toom-style products of the JAX package's
+    ``CubicExtOps``: six subfield products a multiply, stacked into ONE
+    subfield product of six elements.  Its Frobenius maps need
+    coefficients in the base field, as MNT6's Fq3 has them; BLS12's Fq6
+    over Fq2 is not ported."""
+
+    def __init__(self, name, sub, nonresidue_host, frob_c1_host,
+                 frob_c2_host):
+        super().__init__()
+        self.name = name
+        self.sf = sub
+        self.fp = sub.fp
+        self.K = 3 * sub.K
+        self._nr_host = sub.const(nonresidue_host)           # [sK, n]
+        self._frob = []
+        for c1, c2 in zip(frob_c1_host, frob_c2_host):
+            c1, c2 = host_ext.flatten(c1), host_ext.flatten(c2)
+            if any(c1[1:]) or any(c2[1:]) or len(c1) != sub.K:
+                raise NotImplementedError(
+                    "Frobenius coefficients outside the base field")
+            self._frob.append((c1[0], c2[0]))
+
+    def one(self) -> np.ndarray:
+        z = self.zero()
+        z[: self.sf.K] = self.sf.one()
+        return z
+
+    def nonresidue(self) -> np.ndarray:
+        return self._nr_host
+
+    def frob_scale_ints(self, i: int) -> list:
+        sub = self.sf.frob_scale_ints(i)
+        c1, c2 = self._frob[i % 3]
+        p = self.fp.modulus
+        return sub + [s * c1 % p for s in sub] + [s * c2 % p for s in sub]
+
+    # -- structure ------------------------------------------------------
+
+    def _parts(self, x):
+        """[..., K, n] -> [..., 3, sK, n]."""
+        return x.unflatten(-2, (3, self.sf.K))
+
+    def _toom(self, x):
+        """(a0, a1, a2, a1 + a2, a0 + a1, a0 + a2) as [..., 6, sK, n]: the
+        operands of the six subfield products, the sums in one launch."""
+        a = self._parts(x)
+        sums = self.sf.add(a[..., [1, 0, 0], :, :], a[..., [2, 1, 2], :, :])
+        return torch.cat([a, sums], dim=-3)
+
+    def _combine(self, v):
+        """Products (v0, v1, v2, t12, t01, t02) [..., 6, sK, n] ->
+        (v0 + nr (t12 - v1 - v2), t01 - v0 - v1 + nr v2, t02 - v0 - v2 +
+        v1)."""
+        S = self.sf
+        d = S.sub(S.sub(v[..., 3:, :, :], v[..., [1, 0, 0], :, :]),
+                  v[..., [2, 1, 2], :, :])
+        nr = self.mul_by_nonresidue(torch.stack(
+            [d[..., 0, :, :], v[..., 2, :, :]], dim=-3))
+        out = S.add(torch.stack([v[..., 0, :, :], d[..., 1, :, :],
+                                 d[..., 2, :, :]], dim=-3),
+                    torch.cat([nr, v[..., 1:2, :, :]], dim=-3))
+        return out.flatten(-3, -2)
+
+    # -- arithmetic -----------------------------------------------------
+
+    def mul_by_nonresidue(self, a):
+        """A subfield element (or a stack of them) times X^3."""
+        return self.sf.mul(a, self.tensor("nonresidue", a.device))
+
+    def mul_by_gen(self, x):
+        """x * X (the tower generator): (a0, a1, a2) -> (nr*a2, a0, a1)."""
+        a = self._parts(x)
+        return torch.cat([self.mul_by_nonresidue(a[..., 2, :, :]),
+                          a[..., 0, :, :], a[..., 1, :, :]], dim=-2)
+
+    def mul(self, x, y):
+        x, y = torch.broadcast_tensors(x, y)
+        st = self._toom(torch.stack([x, y]))
+        return self._combine(self.sf.mul(st[0], st[1]))
+
+    def sqr(self, x):
+        st = self._toom(x)
+        return self._combine(self.sf.sqr(st))
+
+    def inv(self, x):
+        S = self.sf
+        a = self._parts(x)
+        # a0^2, a1 a2, a2^2, a0 a1, a0 a2, a1^2 in one product
+        pr = S.mul(a[..., [0, 1, 2, 0, 0, 1], :, :],
+                   a[..., [0, 2, 2, 1, 2, 1], :, :])
+        nr = self.mul_by_nonresidue(pr[..., 1:3, :, :])
+        # s0 = a0^2 - nr a1 a2, s1 = nr a2^2 - a0 a1, s2 = a1^2 - a0 a2
+        s_ = S.sub(torch.stack([pr[..., 0, :, :], nr[..., 1, :, :],
+                                pr[..., 5, :, :]], dim=-3),
+                   torch.stack([nr[..., 0, :, :], pr[..., 3, :, :],
+                                pr[..., 4, :, :]], dim=-3))
+        q = S.mul(a[..., [0, 2, 1], :, :], s_)    # a0 s0, a2 s1, a1 s2
+        norm = S.add(q[..., 0, :, :], self.mul_by_nonresidue(
+            S.add(q[..., 1, :, :], q[..., 2, :, :])))
+        return S.mul(s_, S.inv(norm).unsqueeze(-3)).flatten(-3, -2)
+
+    def mul_by_sub(self, x, s):
+        """Multiply by a subfield element s [..., sK, n] (sparse)."""
+        return self.sf.mul(self._parts(x), s.unsqueeze(-3)).flatten(-3, -2)
+
+    def mul_by_01(self, x, b0, b1):
+        """x * (b0 + b1*X), b0, b1 in the subfield: five subfield products,
+        one stacked product."""
+        S = self.sf
+        a0, a1, a2 = self._parts(x).unbind(-3)
+        pr = S.mul(torch.stack([a0, a1, S.add(a1, a2), S.add(a0, a1),
+                                S.add(a0, a2)], dim=-3),
+                   torch.stack(torch.broadcast_tensors(
+                       b0, b1, b1, S.add(b0, b1), b0), dim=-3))
+        aa, bb, t12, t01, t02 = pr.unbind(-3)
+        c0 = S.add(self.mul_by_nonresidue(S.sub(t12, bb)), aa)
+        c1 = S.sub(S.sub(t01, aa), bb)
+        c2 = S.add(S.sub(t02, aa), bb)
+        return torch.cat([c0, c1, c2], dim=-2)
+
+    def mul_by_1(self, x, b1):
+        """x * (b1*X), b1 in the subfield: three subfield products."""
+        pr = self.sf.mul(self._parts(x)[..., [2, 0, 1], :, :],
+                         b1.unsqueeze(-3))
+        return torch.cat([self.mul_by_nonresidue(pr[..., 0, :, :]),
+                          pr[..., 1, :, :], pr[..., 2, :, :]], dim=-2)
+
 
 # ---------------------------------------------------------------------------
 # generic helpers on any tower
@@ -372,3 +535,17 @@ def build_mnt4_towers(fq_params: FpParams, nr2: int):
                      [[c, 0] for c in host_ext.frob_table_fp4(
                          fq_params.modulus, nr2)])
     return base, fq2, fq4
+
+
+def build_mnt6_towers(fq_params: FpParams, nr3: int):
+    """MNT6-style tower Fq -> Fq3 (X^3 = nr3) -> Fq6 (Y^2 = X); Fq6's
+    Frobenius coefficients are base-field values embedded as (c, 0, 0).
+    Returns (base, fq3, fq6)."""
+    p = fq_params.modulus
+    base = FpOps(fq_params)
+    fq3 = CubicExtOps(f"{fq_params.name}3", base, nr3,
+                      *host_ext.frob_table_fp3(p, nr3))
+    fq6 = QuadExtOps(f"{fq_params.name}6", fq3, [0, 1, 0],
+                     [[c, 0, 0] for c in host_ext.frob_table_fp6_2over3(
+                         p, nr3)])
+    return base, fq3, fq6

@@ -448,14 +448,12 @@ def _window_bases(curve: SWCurveOps, base_affine, w: int, W: int):
     [W, w, K, nd] on the curve's device: the chain of w W - 1 doublings of
     one point, walked by a host ladder in python ints (one modular inverse a
     doubling, milliseconds in all), where the device would pay ~30 launches
-    a doubling over Fq and ten times that over Fq2."""
+    a doubling over Fq and ten times that over Fq2 or Fq3."""
     F, fq = curve.F, curve.fp
     p, K, nd = fq.modulus, F.K, fq.n_digits
-    if K == 1:
-        H = host_ext.HostTower(p)
-    else:
-        nr = fpmod.fp_to_ints(fq, torch.as_tensor(F.nonresidue()))
-        H = host_ext.HostTower.quad(host_ext.HostTower(p), nr, ())
+    nr = 0 if K == 1 else fpmod.fp_to_int(fq, torch.as_tensor(
+        F.nonresidue())[0])
+    hmul, hinv = host_ext.ext_ops(p, nr, K)
     a = [v % p for v in host_ext.flatten(curve.a_host)]
     x = fpmod.fp_to_ints(fq, base_affine[0].reshape(K, nd).cpu())
     y = fpmod.fp_to_ints(fq, base_affine[1].reshape(K, nd).cpu())
@@ -464,14 +462,12 @@ def _window_bases(curve: SWCurveOps, base_affine, w: int, W: int):
         if step:
             if not any(y):
                 raise ValueError("fixed_base_table: the base has even order")
-            xx = host_ext.host_ext_mul(H, x, x)
-            lam = host_ext.host_ext_mul(
-                H, [(3 * u + v) % p for u, v in zip(xx, a)],
-                host_ext.host_ext_inv(H, [2 * v % p for v in y]))
-            x3 = [(u - 2 * v) % p for u, v in zip(
-                host_ext.host_ext_mul(H, lam, lam), x)]
-            y = [(u - v) % p for u, v in zip(host_ext.host_ext_mul(
-                H, lam, [(u - v) % p for u, v in zip(x, x3)]), y)]
+            xx = hmul(x, x)
+            lam = hmul([(3 * u + v) % p for u, v in zip(xx, a)],
+                       hinv([2 * v % p for v in y]))
+            x3 = [(u - 2 * v) % p for u, v in zip(hmul(lam, lam), x)]
+            y = [(u - v) % p for u, v in zip(
+                hmul(lam, [(u - v) % p for u, v in zip(x, x3)]), y)]
             x = x3
         xs.extend(x)
         ys.extend(y)

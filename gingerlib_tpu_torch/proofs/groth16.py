@@ -337,6 +337,18 @@ def _create_proof_device(engine, compiled, params: Parameters, z, rd, sd,
 # verification
 # ---------------------------------------------------------------------------
 
+def accumulate_inputs(g1, query, public_inputs):
+    """The sum of the query's points (xs, ys, inf or None) times (1,
+    public_inputs...), affine: one double-and-add loop over all inputs
+    below 64 (its steps cost the same for 2 or 60 lanes), Pippenger from
+    64."""
+    xs, ys, inf = query
+    sd = _scalar_digits(g1.scalar_field, [1] + list(public_inputs),
+                        g1.device)
+    msm = msm_mod.msm_bucketed if xs.shape[0] >= 64 else msm_mod.msm_naive
+    return g1.to_affine(msm(g1, xs, ys, sd, inf_mask=inf))
+
+
 def verify_proof(engine: MNTPairing, vk: VerifyingKey, proof: Proof,
                  public_inputs) -> bool:
     """The three-pair product check (verifier.rs:18-44):
@@ -349,17 +361,12 @@ def verify_proof(engine: MNTPairing, vk: VerifyingKey, proof: Proof,
             f"({engine.g1.name}, {engine.g2.name}) has none: the BLS12 "
             f"pairing over Fq12 is not ported yet")
     g1, g2 = engine.g1, engine.g2
-    fr = g1.scalar_field
     xs, ys = vk.gamma_abc_g1
     if xs.shape[0] != len(public_inputs) + 1:
         raise ValueError("malformed verifying key")
     if vk.alpha_g1_beta_g2 is None:
         raise ValueError("verifying key has no alpha_g1_beta_g2")
-    sd = _scalar_digits(fr, [1] + list(public_inputs), g1.device)
-    # input accumulation: one double-and-add loop over all inputs below 64
-    # (its steps cost the same for 2 or 60 lanes), Pippenger from 64
-    msm = msm_mod.msm_bucketed if xs.shape[0] >= 64 else msm_mod.msm_naive
-    acc = g1.to_affine(msm(g1, xs, ys, sd))
+    acc = accumulate_inputs(g1, (xs, ys, None), public_inputs)
 
     neg_gamma = (vk.gamma_g2[0], g2.F.neg(vk.gamma_g2[1]))
     neg_delta = (vk.delta_g2[0], g2.F.neg(vk.delta_g2[1]))

@@ -17,39 +17,40 @@ its six MSMs would take far too long.
 Also here: the QAP at the toxic point in python ints (Lagrange
 coefficients and per-variable evaluations, ``qap_at``), the oracle that
 ``proofs/groth16.qap_at_device`` is held to, and affine curve arithmetic
-over Fq and Fq2 in python ints.
+over Fq, Fq2 and Fq3 in python ints (``host_curves``: MNT4-753, MNT6-753,
+BLS12-377).
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 from .. import params as PP
+from ..fields import host_ext
 from ..params._gen import curves_gen as CG, towers_gen as TG
 
 
 # ---------------------------------------------------------------------------
-# Fq / Fq2 elements as lists of ints (length 1 or 2), and affine EC on them
+# Fq / Fq2 / Fq3 elements as lists of ints (length K), and affine EC on them
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
 class HostField:
+    """Fq (K = 1) or Fq[X]/(X^K - nr) for K = 2, 3."""
     p: int
-    nr: int | None = None   # X^2 = nr for the quadratic extension; None: Fq
+    nr: int = 0
+    K: int = 1
+
+    @functools.cached_property
+    def _ops(self):
+        return host_ext.ext_ops(self.p, self.nr, self.K)
 
     def mul(self, a, b):
-        p = self.p
-        if self.nr is None:
-            return [a[0] * b[0] % p]
-        return [(a[0] * b[0] + self.nr * a[1] * b[1]) % p,
-                (a[0] * b[1] + a[1] * b[0]) % p]
+        return self._ops[0](a, b)
 
     def inv(self, a):
-        p = self.p
-        if self.nr is None:
-            return [pow(a[0], -1, p)]
-        n = pow((a[0] * a[0] - self.nr * a[1] * a[1]) % p, -1, p)
-        return [a[0] * n % p, -a[1] * n % p]
+        return self._ops[1](a)
 
     def sub(self, a, b):
         return [(x - y) % self.p for x, y in zip(a, b)]
@@ -105,20 +106,22 @@ class HostCurve:
         return (P[0], [(-v) % self.F.p for v in P[1]])
 
 
+# (curve constants, G2's field and its degree, Fq, Fr)
 _FAMILIES = {
-    "mnt4753": (CG.MNT4753, TG.MNT4753_FQ2, PP.MNT4753_FQ, PP.MNT4753_FR),
-    "bls12_377": (CG.BLS12_377, TG.BLS12_377_FQ2, PP.BLS12_377_FQ,
+    "mnt4753": (CG.MNT4753, TG.MNT4753_FQ2, 2, PP.MNT4753_FQ, PP.MNT4753_FR),
+    "mnt6753": (CG.MNT6753, TG.MNT6753_FQ3, 3, PP.MNT6753_FQ, PP.MNT6753_FR),
+    "bls12_377": (CG.BLS12_377, TG.BLS12_377_FQ2, 2, PP.BLS12_377_FQ,
                   PP.BLS12_377_FR),
 }
 
 
 def host_curves(family: str):
     """(G1 curve, G2 curve, Fr parameters) of ``family`` in python ints."""
-    c, tw, fq, fr = _FAMILIES[family]
+    c, tw, k, fq, fr = _FAMILIES[family]
     p = fq.modulus
     g1 = HostCurve(HostField(p), (c["a"] % p,),
                    ([c["g1_x"]], [c["g1_y"]]))
-    g2 = HostCurve(HostField(p, tw["nonresidue"] % p),
+    g2 = HostCurve(HostField(p, tw["nonresidue"] % p, k),
                    tuple(v % p for v in c["g2_a"]),
                    (list(c["g2_x"]), list(c["g2_y"])))
     return g1, g2, fr

@@ -11,7 +11,10 @@ Takes numpy arrays and python ints only.  Two sources are understood:
   digits here.
 
 Both are read by attribute name, so nothing of the other package is
-imported.
+imported.  ``params_from_numpy`` takes Groth16 proving keys
+(``groth16.Parameters``), ``gm17_params_from_numpy`` GM17 ones (the JAX
+package's ``GM17Parameters`` and ``HostGM17Params``); either carries G2
+over Fq2 or Fq3 (K = 2, 3) and a GT element of any degree.
 
 ``points_from_numpy`` / ``points_to_numpy`` carry point batches across: an
 affine batch ``((x, y), inf)`` or a projective triple ``(X, Y, Z)`` of numpy
@@ -38,6 +41,7 @@ from ..ops.limbs import NP_DTYPE
 from ..ops.rns_kernels import LANES as RNS_LANES
 from ..params import ALL_FIELDS
 from ..primitives.poseidon import PoseidonParams
+from ..proofs.gm17 import GM17Parameters, GM17VerifyingKey
 from ..proofs.groth16 import Parameters, VerifyingKey
 from ..relations.r1cs import CompiledR1CS, CooMatrix
 
@@ -139,6 +143,56 @@ def params_from_numpy(engine, src, device=None) -> Parameters:
             gamma_abc_g1=tuple(_upload(c, device) for c in v.gamma_abc_g1))
     return Parameters(vk=vk, num_inputs=int(src.num_inputs),
                       domain_size=int(src.domain_size), **out)
+
+
+_GM17_SINGLES = ("g_gamma_z", "h_gamma_z", "g_ab_gamma_z", "g_gamma2_z2")
+_GM17_QUERIES = ("a_query", "b_query", "c_query_1", "c_query_2",
+                 "g_gamma2_z_t")
+_GM17_VK_POINTS = ("h_g2", "g_alpha_g1", "h_beta_g2", "g_gamma_g1",
+                   "h_gamma_g2")
+
+
+def gm17_params_from_numpy(engine, src, device=None) -> GM17Parameters:
+    """GM17 proving key ``src`` (array form or host form, see the module
+    docstring) -> the port's ``GM17Parameters`` on ``device``.  The vk's
+    GT element ``g_alpha_h_beta`` comes across where the source has one
+    (Montgomery digits [K, nd] in the array form, K standard-form ints in
+    a host vk's dict); the JAX package's host setup leaves it out."""
+    device = resolve_device(device)
+
+    def curve_of(name):
+        return engine.g2 if name.startswith("h_") or name == "b_query" \
+            else engine.g1
+
+    def point(name, pt):
+        if isinstance(pt, tuple) and isinstance(pt[0], list):
+            xs, ys, _ = _host_points(curve_of(name), [pt], device)
+            return (xs[0], ys[0])
+        return tuple(_upload(c, device) for c in pt)
+
+    def query(name, q):
+        if isinstance(q, list):
+            return _host_points(curve_of(name), q, device)
+        xs, ys, inf = q
+        return (_upload(xs, device), _upload(ys, device),
+                _upload(inf, device, np.bool_))
+
+    v = src.vk
+    get = v.get if isinstance(v, dict) else lambda k: getattr(v, k, None)
+    gt = get("g_alpha_h_beta")
+    if gt is not None:
+        gt = _upload(fpmod.fp_from_ints(engine.g1.fp, gt)
+                     if isinstance(gt, list) else
+                     np.asarray(gt).reshape(-1, engine.g1.fp.n_digits),
+                     device)
+    vk = GM17VerifyingKey(
+        query=query("query", get("query")), g_alpha_h_beta=gt,
+        **{name: point(name, get(name)) for name in _GM17_VK_POINTS})
+    return GM17Parameters(
+        vk=vk, num_inputs=int(src.num_inputs),
+        domain_size=int(src.domain_size),
+        **{name: point(name, getattr(src, name)) for name in _GM17_SINGLES},
+        **{name: query(name, getattr(src, name)) for name in _GM17_QUERIES})
 
 
 def compiled_from_numpy(field, src, device=None) -> CompiledR1CS:

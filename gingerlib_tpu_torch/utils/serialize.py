@@ -346,18 +346,19 @@ def params_from_bytes(engine, data: bytes, device=None):
 
 # ---------------------------------------------------------------------------
 # GT (Fqk) compressed serialization (ToCompressedBits/FromCompressedBits for
-# Fp4, fields/models/fp4.rs:331-376): c1's bits and c0's parity; the
-# inverse solves the unitary relation c0^2 - NR c1^2 = 1 with a square root
-# in the subfield.  F: the host tower of Fqk (``host_ext.HostTower``).
+# Fp4 and Fp6 over Fp3, fields/models/fp4.rs:331-376): c1's bits and c0's
+# parity; the inverse solves the unitary relation c0^2 - NR c1^2 = 1 with a
+# square root in the subfield.  F: the host tower of Fqk
+# (``host_ext.HostTower``).
 # ---------------------------------------------------------------------------
 
 def _ext_is_odd(F, comps) -> bool:
-    """The reference's Field::is_odd for a tower element: the parity of
-    its highest non-zero component, recursively."""
+    """The reference's Field::is_odd for a tower element (fp2.rs:101,
+    fp3.rs:135): the parity of its highest non-zero component,
+    recursively."""
     if F.sf is None:
         return bool(comps[0] & 1)
-    k = F.sf.K
-    for part in (comps[k:], comps[:k]):
+    for part in reversed(F.parts(comps)):
         if any(v % F.p for v in part):
             return _ext_is_odd(F.sf, part)
     return False

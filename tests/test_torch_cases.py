@@ -437,19 +437,37 @@ def mnt4753_anchor():
     """The reference's pinned pairing (mnt4753/tests.rs:265-490): G1 point
     ([x], [y]) and G2 point ([x0, x1], [y0, y1]) in affine python ints, and
     their GT value (4 ints)."""
+    return _mnt_anchor("mnt4753")
+
+
+def mnt6753_anchor():
+    """The reference's pinned MNT6-753 pairing (mnt6753/tests.rs:319-614):
+    G1 point ([x], [y]), G2 point ([x0, x1, x2], [y0, y1, y2]) in affine
+    python ints, and their GT value (6 ints)."""
+    return _mnt_anchor("mnt6753")
+
+
+def _mnt_anchor(family):
     from gingerlib_tpu_torch import params as TP
     from gingerlib_tpu_torch.fields import host_ext as HE
-    from gingerlib_tpu_torch.params._gen.anchors_gen import \
-        MNT4753_PAIRING_ANCHOR as A
-    p = TP.MNT4753_FQ.modulus
-    _, fq2, _ = HE.build_mnt4_host_towers(p, 13)
+    from gingerlib_tpu_torch.params._gen import anchors_gen, towers_gen
+    if family == "mnt4753":
+        p = TP.MNT4753_FQ.modulus
+        _, sub, _ = HE.build_mnt4_host_towers(
+            p, towers_gen.MNT4753_FQ2["nonresidue"])
+        A = anchors_gen.MNT4753_PAIRING_ANCHOR
+    else:
+        p = TP.MNT6753_FQ.modulus
+        _, sub, _ = HE.build_mnt6_host_towers(
+            p, towers_gen.MNT6753_FQ3["nonresidue"])
+        A = anchors_gen.MNT6753_PAIRING_ANCHOR
     aX, aY, aZ = A["a"]
     zi = pow(aZ, -1, p)
     bX, bY, bZ = A["b"]
-    zinv = HE.host_ext_inv(fq2, list(bZ))
+    zinv = HE.host_ext_inv(sub, list(bZ))
     return (([aX * zi % p], [aY * zi % p]),
-            (HE.host_ext_mul(fq2, list(bX), zinv),
-             HE.host_ext_mul(fq2, list(bY), zinv)),
+            (HE.host_ext_mul(sub, list(bX), zinv),
+             HE.host_ext_mul(sub, list(bY), zinv)),
             [v % p for v in A["gt"]])
 
 
@@ -472,10 +490,10 @@ def short_pairings(pairing):
     wnaf, w0 = SHORT_LOOP["wnaf"], SHORT_LOOP["w0_abs"]
     short = MNTPairing("mnt4753_short", pairing.g1, pairing.g2, pairing.fqk,
                        wnaf, pairing.ate_is_neg, pairing.w1, w0,
-                       pairing.w0_is_neg)
+                       pairing.w0_is_neg, 2, False)
     H = host_mnt4753_pairing()
     return short, HostMNTPairing(H.p, H.S, H.F, H.g2_a, wnaf, H.ate_is_neg,
-                                 H.w1, w0, H.w0_is_neg)
+                                 H.w1, w0, H.w0_is_neg, 2, False)
 
 
 def one_constraint_circuit(fr):
@@ -504,11 +522,11 @@ def dense_row_circuit(fr, terms: int):
     return cs
 
 
-def host_alpha_beta(alpha: int, beta: int) -> list:
-    """e(alpha*G1, beta*G2) of MNT4-753 by the python-int oracle: what a
-    verifying key's alpha_g1_beta_g2 must be."""
-    from gingerlib_tpu_torch.curves.pairing_host import host_mnt4753_pairing
+def host_alpha_beta(alpha: int, beta: int, family: str = "mnt4753") -> list:
+    """e(alpha*G1, beta*G2) of MNT4-753 (or MNT6-753) by the python-int
+    oracle: what a verifying key's alpha_g1_beta_g2 must be."""
+    from gingerlib_tpu_torch.curves import pairing_host
     from gingerlib_tpu_torch.proofs.groth16_host import host_curves
-    g1, g2, _ = host_curves("mnt4753")
-    return host_mnt4753_pairing().pairing(g1.mul(g1.gen, alpha),
-                                          g2.mul(g2.gen, beta))
+    g1, g2, _ = host_curves(family)
+    E = getattr(pairing_host, f"host_{family}_pairing")()
+    return E.pairing(g1.mul(g1.gen, alpha), g2.mul(g2.gen, beta))

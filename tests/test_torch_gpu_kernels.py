@@ -1,6 +1,7 @@
 """The port's field, curve, pow-chain, Poseidon and RNS kernels against their
-plain PyTorch versions, and the MNT4-753 pairing and Groth16 verification
-that run over them, under pytest, on a machine with an NVIDIA GPU:
+plain PyTorch versions (the curve kernels also at MNT6-753 G1's constant),
+and the MNT4-753 and MNT6-753 pairings, Groth16 verification and GM17 that
+run over them, under pytest, on a machine with an NVIDIA GPU:
 
     python -m pytest --noconftest tests/test_torch_gpu_kernels.py -q
 
@@ -20,7 +21,8 @@ from gingerlib_tpu_torch.ops import ec_kernels as EK, msm as tmsm
 from gingerlib_tpu_torch.ops import ec_rns as ER
 from test_torch_cases import (affine_pairs, dense_row_circuit,
                               host_alpha_beta, inv_inputs,
-                              mnt4753_anchor, one_constraint_circuit,
+                              mnt4753_anchor, mnt6753_anchor,
+                              one_constraint_circuit,
                               poseidon_states, pow_edge_exponents,
                               proj_pairs, rand_below, reduced_poseidon)
 
@@ -28,7 +30,7 @@ pytestmark = pytest.mark.gpu
 N = 64
 
 
-@pytest.fixture(scope="module", params=["bls12_377", "mnt4753"])
+@pytest.fixture(scope="module", params=["bls12_377", "mnt4753", "mnt6753"])
 def curve(request):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the curve kernels have no CPU form")
@@ -629,6 +631,75 @@ def test_verify_proof_on_the_gpu(mnt4_proof, case):
         is (case == "accepts")
     assert fp.launch_counts["mont_mul"] > 0 \
         and fp.launch_counts["inv_bea"] > 0
+
+
+# ---------------------------------------------------------------------------
+# MNT6-753: Fq3/Fq6 on the kernels, its pairing; GM17
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mnt6_pairing():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the field kernels have no CPU form")
+    return CI.mnt6753_pairing()
+
+
+def test_fq3_fq6_on_the_kernels_match_plain(mnt6_pairing):
+    """Fq3 and Fq6 multiply, square, inverse, Frobenius, the cyclotomic
+    square and the sparse line ``mul_by_2345`` on the field kernels
+    against the same calls on the CPU's plain versions."""
+    F = mnt6_pairing.fqk
+    P = mnt6_pairing.fp.modulus
+    x = torch.from_numpy(np.stack([F.const(rand_below(P, 6, seed=s))
+                                   for s in range(5)]))
+    y = x.roll(1, 0)
+    u = F.mul(F.frob(x, 3), F.inv(x))                 # unitary, on the CPU
+    S = F.sf
+    ops = {"fq3 mul": lambda x, y, u: S.mul(x[..., :3, :], y[..., 3:, :]),
+           "fq3 inv": lambda x, y, u: S.inv(x[..., :3, :]),
+           "mul": lambda x, y, u: F.mul(x, y),
+           "sqr": lambda x, y, u: F.sqr(x),
+           "inv": lambda x, y, u: F.inv(x),
+           "frob1": lambda x, y, u: F.frob(x, 1),
+           "cyclotomic_square": lambda x, y, u: F.cyclotomic_square(u),
+           "mul_by_2345": lambda x, y, u: F.mul_by_2345(x, y[..., 0, :],
+                                                        y[..., 3:, :])}
+    for name, op in ops.items():
+        got = op(x.cuda(), y.cuda(), u.cuda())
+        assert torch.equal(got.cpu(), op(x, y, u)), name
+
+
+def test_mnt6753_pairing_matches_anchor(mnt6_pairing):
+    from gingerlib_tpu_torch.fields import fp, towers as T
+    E = mnt6_pairing
+    pa, qb, gt = mnt6753_anchor()
+    p, q = E.g1.affine_from_ints(*pa), E.g2.affine_from_ints(*qb)
+    fp.reset_launch_counts()
+    got = E.pairing_prepared(p, E.prepare_g2(q))
+    assert T.ext_to_ints(E.fqk, got) == gt
+    assert fp.launch_counts["inv_bea"] >= 1
+
+
+@pytest.mark.parametrize("family", ["mnt4753", "mnt6753"])
+def test_gm17_on_the_gpu(family):
+    """GM17 setup, prove and verify on the card over the 1-constraint
+    circuit: the proof equals the closed-form oracle, a wrong input is
+    refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the field kernels have no CPU form")
+    from gingerlib_tpu_torch.proofs import gm17, gm17_host, groth16
+    from gingerlib_tpu_torch.relations.r1cs import compile_r1cs
+    eng = getattr(CI, f"{family}_engine")()
+    cs = one_constraint_circuit(eng.g1.scalar_field)
+    toxic = dict(alpha=123, beta=456, t=314159)
+    rand = dict(d1=11, d2=22, r=333)
+    params = gm17.generate_parameters(eng, cs, **toxic)
+    proof = gm17.create_proof(eng, params, compile_r1cs(cs),
+                              cs.assignment(), **rand)
+    assert groth16.proof_to_ints(eng, proof) == \
+        gm17_host.expected_gm17_proof(family, cs, **toxic, **rand)
+    assert gm17.verify_proof(eng, params.vk, proof, [77])
+    assert not gm17.verify_proof(eng, params.vk, proof, [78])
 
 
 # ---------------------------------------------------------------------------

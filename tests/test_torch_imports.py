@@ -45,7 +45,38 @@ def test_sources_found():
             "poseidon_host.py", "merkle.py", "poseidon_gen.py",
             "merkle_gen.py", "rns.py", "rns_kernels.py", "ec_rns.py",
             "towers.py", "host_ext.py", "pairing_mnt.py", "pairing_host.py",
-            "anchors_gen.py", "fft.py", "r1cs.py", "serialize.py"} <= names
+            "anchors_gen.py", "fft.py", "r1cs.py", "serialize.py",
+            "gm17.py", "gm17_host.py"} <= names
+
+
+# the public names of the MNT6-753 and GM17 slice, module by module
+PUBLIC = {
+    "fields.towers": ["CubicExtOps", "QuadExtOps", "build_mnt6_towers",
+                      "ext_pow_const", "ext_cyclotomic_pow_const",
+                      "ext_batch_inverse_tree"],
+    "fields.host_ext": ["cubic_mul", "cubic_inv", "cubic_pow", "ext_ops",
+                        "frob_table_fp3", "frob_table_fp6_2over3",
+                        "build_mnt6_host_towers", "HostTower"],
+    "curves.instances": ["mnt6753_towers", "mnt6753_g1", "mnt6753_g2",
+                         "mnt6753_pairing", "mnt6753_engine"],
+    "curves.pairing_host": ["host_mnt6753_pairing"],
+    "proofs.gm17": ["GM17VerifyingKey", "GM17Parameters", "GM17Proof",
+                    "sap_size", "sap_at_device", "generate_parameters",
+                    "sap_domain", "sap_witness_map", "create_proof",
+                    "verify_proof"],
+    "proofs.gm17_host": ["HostGM17", "HostGM17Params", "host_gm17_mnt4753",
+                         "host_gm17_mnt6753", "expected_gm17_proof",
+                         "sap_at", "sap_domain", "sap_full_assignment"],
+    "utils.convert": ["gm17_params_from_numpy"],
+}
+
+
+@pytest.mark.parametrize("module", sorted(PUBLIC))
+def test_public_names(module):
+    import importlib
+    mod = importlib.import_module(f"gingerlib_tpu_torch.{module}")
+    missing = [n for n in PUBLIC[module] if not hasattr(mod, n)]
+    assert not missing, f"{module} lacks {missing}"
 
 
 @pytest.mark.parametrize(
@@ -79,7 +110,10 @@ ENTRY_POINTS = ["compile_r1cs", "Domain", "mnt4753_g1", "mnt4753_g2",
                 "rns.to_rns", "rns_from_numpy", "MixedRadixDomain",
                 "best_domain", "qap_at_device", "fp_from_bytes",
                 "ext_from_bytes", "affine_from_bytes", "proof_from_bytes",
-                "vk_from_bytes", "params_from_bytes"]
+                "vk_from_bytes", "params_from_bytes", "mnt6753_g1",
+                "mnt6753_g2", "mnt6753_engine", "mnt6753_pairing",
+                "gm17.generate_parameters", "gm17.create_proof",
+                "gm17.sap_at_device", "gm17_params_from_numpy"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
@@ -94,7 +128,7 @@ def test_device_none_raises_without_a_gpu(entry):
     from gingerlib_tpu_torch.primitives.poseidon import (PoseidonHash,
                                                          PoseidonParams)
     from gingerlib_tpu_torch.ops import rns
-    from gingerlib_tpu_torch.proofs import groth16
+    from gingerlib_tpu_torch.proofs import gm17, groth16
     from gingerlib_tpu_torch.relations.r1cs import compile_r1cs
     from gingerlib_tpu_torch.utils import convert, serialize
     eng, cs = _cpu_case()
@@ -144,6 +178,19 @@ def test_device_none_raises_without_a_gpu(entry):
         "proof_from_bytes": lambda: serialize.proof_from_bytes(mnt, b""),
         "vk_from_bytes": lambda: serialize.vk_from_bytes(mnt, b""),
         "params_from_bytes": lambda: serialize.params_from_bytes(mnt, b""),
+        "mnt6753_g1": CI.mnt6753_g1,
+        "mnt6753_g2": CI.mnt6753_g2,
+        "mnt6753_engine": CI.mnt6753_engine,
+        "mnt6753_pairing": CI.mnt6753_pairing,
+        "gm17.generate_parameters": lambda: gm17.generate_parameters(
+            eng, cs, alpha=2, beta=3, t=11),
+        # params and compiled are not reached: the device is resolved first
+        "gm17.create_proof": lambda: gm17.create_proof(
+            eng, None, compile_r1cs(cs, device="cpu"), cs.assignment(),
+            d1=1, d2=2, r=3),
+        "gm17.sap_at_device": lambda: gm17.sap_at_device(cs, 11),
+        "gm17_params_from_numpy":
+            lambda: convert.gm17_params_from_numpy(eng, None),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -105,3 +105,24 @@ def test_best_domain_selection():
     assert d.size == (1 << 13) * 5          # 40,960: the smallest 2^k 5^s
     d = tfft.best_domain(TF, 1 << 17, device="cpu")
     assert (d.size, d.factors) == (163840, [2] * 15 + [5])
+
+
+@pytest.mark.parametrize("size", [20, 40, 80])
+def test_coset_functions_match_jax(size):
+    """What GM17's witness map runs on the mixed domain -- ifft,
+    coset_fft, the division by the vanishing polynomial on the coset and
+    coset_ifft -- equal the JAX class's digit for digit (one compiled graph
+    a size), and coset_ifft(coset_fft(x)) == x."""
+    jdom = JMixed(JF, size)
+    tdom = tfft.MixedRadixDomain(TF, size, device="cpu")
+    x = tfp.fp_from_ints(TF, rand_ints(tdom.size, size + 7))
+    want = jax.jit(lambda v: (
+        jdom.ifft(v), jdom.coset_fft(v),
+        jdom.divide_by_vanishing_poly_on_coset(v), jdom.coset_ifft(v)))(
+            jnp.asarray(x.astype(np.uint32)))
+    t = torch.from_numpy(x)
+    got = (tdom.ifft(t), tdom.coset_fft(t),
+           tdom.divide_by_vanishing_poly_on_coset(t), tdom.coset_ifft(t))
+    for g, w in zip(got, want):
+        assert np.array_equal(np.asarray(w).astype(np.int64), g.numpy())
+    assert torch.equal(tdom.coset_ifft(got[1]), t)

@@ -29,7 +29,7 @@ from gingerlib_tpu_torch.proofs import groth16 as tgroth16
 from gingerlib_tpu_torch.proofs import groth16_host as thost
 from gingerlib_tpu_torch.utils import serialize as TS
 from gingerlib_tpu_torch.utils.convert import params_from_numpy
-from test_torch_cases import mnt4753_anchor
+from test_torch_cases import mnt4753_anchor, mnt6753_anchor
 
 torch.set_num_threads(1)
 CPU = "cpu"
@@ -79,8 +79,8 @@ def point_arrays(curve, pts):
             np.array([pt is None for pt in pts]))
 
 
-@pytest.mark.parametrize("field", ["MNT4753_FQ", "BLS12_377_FQ",
-                                   "BLS12_377_FR"])
+@pytest.mark.parametrize("field", ["MNT4753_FQ", "MNT6753_FQ",
+                                   "BLS12_377_FQ", "BLS12_377_FR"])
 def test_fp_bytes_match_jax(field):
     jp, tp = getattr(JP, field), getattr(TP, field)
     d = rand_elems(tp, 8, seed=len(field))
@@ -96,7 +96,7 @@ def test_fp_bytes_match_jax(field):
 
 
 @pytest.mark.parametrize("name", ["bls12_377_g1", "mnt4753_g1",
-                                  "mnt4753_g2"])
+                                  "mnt4753_g2", "mnt6753_g1", "mnt6753_g2"])
 def test_affine_bytes_match_jax(name):
     jc, tc = getattr(JCI, name)(), getattr(TCI, name)(CPU)
     xs, ys, _ = point_arrays(tc, host_points(name, [1, 2, 5]))
@@ -286,11 +286,12 @@ def test_point_compression_matches_jax(name):
 
 
 def unitary(F, seed):
-    """x^(p^2 - 1) = conj(x) / x for a seeded x of Fq4: norm 1 over Fq2,
-    the form of a GT element."""
+    """conj(x) / x for a seeded x of Fq4 (x^(p^2 - 1)) or Fq6 (x^(p^3 -
+    1)): norm 1 over the subfield, the form of a GT element."""
     rng = random.Random(seed)
-    x = [rng.randrange(F.p) for _ in range(4)]
-    conj = x[:2] + [(-v) % F.p for v in x[2:]]
+    k = F.sf.K
+    x = [rng.randrange(F.p) for _ in range(2 * k)]
+    conj = x[:k] + [(-v) % F.p for v in x[k:]]
     return host_ext.host_ext_mul(F, conj, host_ext.host_ext_inv(F, x))
 
 
@@ -318,6 +319,62 @@ def test_gt_compression_matches_jax():
         except ValueError:
             break
         c1 += 1
+
+
+def test_gt_compression_over_fq6_matches_jax():
+    """MNT6-753's GT (Fq6 = Fq3[Y]/(Y^2 - X)): c1's three components and
+    the parity of c0 by the highest non-zero Fq3 component, as the JAX
+    package writes them; the anchor's GT and seeded unitary elements
+    decompress to themselves."""
+    from gingerlib_tpu.curves.pairing_host import host_mnt6753_pairing
+    JF = host_mnt6753_pairing().F
+    p = TP.MNT6753_FQ.modulus
+    F = host_ext.build_mnt6_host_towers(
+        p, TG.MNT6753_FQ3["nonresidue"])[2]
+    parities = set()
+    for g in [mnt6753_anchor()[2]] + [unitary(F, s) for s in range(4)]:
+        bits = TS.gt_compress(F, g)
+        assert bits == JS.gt_compress(JF, g)
+        assert len(bits) == 3 * TP.MNT6753_FQ.modulus_bits + 1
+        assert TS.gt_decompress(F, bits) == g
+        parities.add(bits[-1])
+    assert parities == {True, False}
+
+
+def test_mnt6753_proof_and_vk_bytes_match_jax():
+    """A proof and a verifying key over MNT6-753 (G2 over Fq3, the GT
+    element in Fq6) as the JAX package writes them, and back."""
+    jeng = NS(g1=JCI.mnt6753_g1(), g2=JCI.mnt6753_g2(),
+              fqk=JCI.mnt6753_towers()[2])
+    teng = TCI.mnt6753_engine(CPU)
+    g1s = point_arrays(teng.g1, host_points("mnt6753_g1", [3, 5, 7, 9]))
+    g2s = point_arrays(teng.g2, host_points("mnt6753_g2", [4, 6, 8]))
+    t = lambda a: torch.from_numpy(a)                      # noqa: E731
+    proof = tgroth16.Proof(a=(t(g1s[0][0]), t(g1s[1][0])),
+                           b=(t(g2s[0][0]), t(g2s[1][0])),
+                           c=(t(g1s[0][1]), t(g1s[1][1])))
+    raw = TS.proof_to_bytes(teng, proof)
+    assert raw == JS.proof_to_bytes(jeng, jgroth16.Proof(
+        *(tuple(as_jax(c.numpy()) for c in pt)
+          for pt in (proof.a, proof.b, proof.c))))
+    assert len(raw) == (2 * 96 + 1) * 2 + 6 * 96 + 1
+    back, off = TS.proof_from_bytes(teng, raw, device=CPU)
+    assert off == len(raw) and all(torch.equal(g, w) for g, w in zip(
+        (*back.a, *back.b, *back.c), (*proof.a, *proof.b, *proof.c)))
+    gt = tfp.fp_from_ints(teng.fp, mnt6753_anchor()[2]).reshape(6, 48)
+    vk = tgroth16.VerifyingKey(
+        alpha_g1_beta_g2=t(gt), gamma_g2=(t(g2s[0][1]), t(g2s[1][1])),
+        delta_g2=(t(g2s[0][2]), t(g2s[1][2])),
+        gamma_abc_g1=(t(g1s[0][2:]), t(g1s[1][2:])))
+    raw = TS.vk_to_bytes(teng, vk)
+    assert raw == JS.vk_to_bytes(jeng, jgroth16.VerifyingKey(
+        alpha_g1_beta_g2=as_jax(gt),
+        gamma_g2=tuple(as_jax(c.numpy()) for c in vk.gamma_g2),
+        delta_g2=tuple(as_jax(c.numpy()) for c in vk.delta_g2),
+        gamma_abc_g1=tuple(as_jax(c.numpy()) for c in vk.gamma_abc_g1)))
+    back, off = TS.vk_from_bytes(teng, raw, device=CPU)
+    assert off == len(raw) and TS.vk_to_bytes(teng, back) == raw
+    assert torch.equal(back.alpha_g1_beta_g2, vk.alpha_g1_beta_g2)
 
 
 def test_proof_and_vk_bytes_match_hand_derived_reference_layout(engines):
