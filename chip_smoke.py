@@ -86,9 +86,18 @@ What it does, in order (any failure raises, so the exit code is non-zero):
    "mnt6753"); GM17 over MNT4-753 at 2^10 (SAP domain 4,096, radix 2) and
    over MNT6-753 at 2^14 (SAP size 32,777: the mixed domain of 40,960)
    with setup, prove and verify seconds, phases and launches (``gm17``
-   lines); and K4, K5 and K6 on MNT6-753 G1 against their plain versions
-   at the widest batch the MNT6 paths launched each, then on MNT4-753 and
-   MNT6-753 G1 in turns (``mnt6_curve_kernels``);
+   lines); one step of recursion (``recursion`` line): an MNT4-753
+   Groth16 proof of 7 * 11 = 77 made on the card, its vk and proof brought
+   to the host (``utils.convert``), the 61,407-constraint verifier circuit
+   built by the gadgets with the statement's 753 bits as public inputs and
+   checked on the host, and that circuit's GM17 proof over MNT6-753 on the
+   mixed domain of 163,840 points (setup, prove and verify with phases,
+   launches, curve widths and peak memory), then K1 and add/sub/neg at
+   the widest layout of each class of its setup
+   (``field_kernels_at_setup_recursion``); and K4, K5 and K6 on MNT6-753
+   G1 against their plain versions at the widest batch the MNT6 paths and
+   the recursion launched each, then on MNT4-753 and MNT6-753 G1 in turns
+   (``mnt6_curve_kernels``);
 5. checks the results: each device proof equals the closed-form python-int
    oracle coordinate for coordinate, a repeat gives the same proof, a proof
    with another ``s`` differs; setup's device QAP equals ``qap_at`` (every
@@ -105,7 +114,12 @@ What it does, in order (any failure raises, so the exit code is non-zero):
    oracle and verify, a wrong input and an altered C refused, a circuit
    one constraint past the 2^15 domain refused; the GM17 proofs equal the
    closed-form oracle ``expected_gm17_proof``, verify, and a wrong input is
-   refused); the Legendre symbols, roots
+   refused); the recursion's inner vk and proof equal ``HostGroth16``'s,
+   verify, and the input 78 is refused; its circuit has 61,407
+   constraints and 754 inputs and is satisfied; its outer proof equals
+   ``expected_gm17_proof``, its SAP at t ``sap_at``, and verify accepts the
+   bits of 77 and refuses those of 78 and C + G1's generator; the Legendre
+   symbols, roots
    and masks agree with python ints; the tree equals the one the plain
    permutation builds on the device, sixteen sampled paths verify and hash
    to its root in python ints, a wrong leaf is refused, a 2^10-leaf tree
@@ -113,8 +127,8 @@ What it does, in order (any failure raises, so the exit code is non-zero):
    the field API launches K3 once a call (4); and the launch counters, set
    to zero before each path, show that every kernel was launched on the path
    that reaches it (K7 and K8 on the RNS path), and K1 and K2 on the
-   verifier's, and K1, K2, add/sub and K4-K6 on the MNT6-753 2^15 rung and
-   both GM17 rungs;
+   verifier's, and K1, K2, add/sub and K4-K6 on the MNT6-753 2^15 rung,
+   both GM17 rungs and the recursion;
 6. prints the card's name and power limit, the kernel table as one JSON
    line, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -187,7 +201,9 @@ def main():
         return 1
 
     from gingerlib_tpu_torch import params as PP
-    from gingerlib_tpu_torch.circuits import benchmark_circuit
+    from gingerlib_tpu_torch.circuits import (benchmark_circuit,
+                                              groth16_verifier_circuit,
+                                              mul_circuit)
     from gingerlib_tpu_torch.curves import instances as CI
     from gingerlib_tpu_torch.fields import fp
     from gingerlib_tpu_torch.fields import host_ext as HE
@@ -208,7 +224,7 @@ def main():
     from gingerlib_tpu_torch.proofs import gm17, gm17_host, groth16, \
         groth16_host
     from gingerlib_tpu_torch.relations.r1cs import compile_r1cs
-    from gingerlib_tpu_torch.utils import serialize
+    from gingerlib_tpu_torch.utils import convert, serialize
     from gingerlib_tpu_torch.utils.timing import graph_ms
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path[:0] = [os.path.join(root, "tests"), os.path.join(root, "tools")]
@@ -2536,7 +2552,7 @@ def main():
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             t = time.perf_counter()
-            compiled = compile_r1cs(cs)
+            compiled = gm17.compile_circuit(cs)
             params = gm17.generate_parameters(engine, cs, **GM17_TOXIC)
             torch.cuda.synchronize()
             out["setup_s"] = time.perf_counter() - t
@@ -2642,6 +2658,186 @@ def main():
             turns.append({"curve": curve.name, "max_abs_err": max(e1, e2)})
         out["in_turns"] = turns
         return out
+
+    # ------------------------------------------------------------------
+    # 4e. one step of recursion (BASELINE config #5): an MNT4-753 Groth16
+    #     proof of 7 * 11 = 77 made on the card, verified inside a circuit
+    #     over MNT4-753 Fq built by the gadgets on the host, whose GM17
+    #     proof over MNT6-753 is made on the card on the mixed domain
+    # ------------------------------------------------------------------
+    INNER_TOXIC = dict(alpha=1234, beta=5678, gamma=9101, delta=1121,
+                       t=31415)
+    INNER_BLIND = dict(r=171717, s=282828)
+    OUTER_TOXIC = dict(alpha=135, beta=246, t=579111)
+    OUTER_RAND = dict(d1=8642, d2=9753, r=2468)
+
+    def since(before):
+        """Launches by kind since the counts ``before``."""
+        return {k: v - before.get(k, 0) for k, v in fp.launch_counts.items()
+                if v > before.get(k, 0)}
+
+    def phase(fn):
+        """(fn(), host-clock seconds, launches by kind), counts kept."""
+        before = dict(fp.launch_counts)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t, since(before)
+
+    def recursion():
+        """The inner proof on the card, held to ``HostGroth16``'s through
+        the bridge to the gadgets' host dicts; the verifier circuit with
+        the statement's 753 bits as public inputs, satisfied; the outer
+        GM17 setup, prove and verify with phases, launches, curve widths
+        and peak memory, the proof against ``expected_gm17_proof``, the
+        SAP at t against ``sap_at``, and the refusals."""
+        out = {"inner": {}, "circuit": {}, "outer": {}}
+        inner, circ, outer = out["inner"], out["circuit"], out["outer"]
+        groth16.setup_table.cache_clear()
+        fp.reset_launch_counts()
+        cs_in = mul_circuit(fr, 7, 11)
+        params_in, inner["setup_s"], inner["setup_launches"] = phase(
+            lambda: groth16.generate_parameters(eng, cs_in, **INNER_TOXIC))
+        proof_in, inner["prove_s"], inner["prove_launches"] = phase(
+            lambda: groth16.create_proof(eng, params_in,
+                                         compile_r1cs(cs_in),
+                                         cs_in.assignment(), **INNER_BLIND))
+        ok, inner["verify_s"], inner["verify_launches"] = phase(
+            lambda: groth16.verify_proof(eng, params_in.vk, proof_in, [77]))
+        if not ok:
+            raise AssertionError("recursion: the inner verify refused 77")
+        vk_host = convert.groth16_vk_to_host(eng, params_in.vk)
+        proof_host = convert.proof_to_host(eng, proof_in)
+        t = time.perf_counter()
+        H = groth16_host.host_groth16_mnt4753()
+        host_params = H.setup(cs_in, **INNER_TOXIC)
+        host_proof = H.prove(cs_in, host_params, **INNER_BLIND)
+        inner["host_groth16_s"] = time.perf_counter() - t
+        if vk_host != {k: host_params.vk[k] for k in vk_host} or \
+                proof_host != host_proof:
+            raise AssertionError("recursion: the inner vk or proof differs "
+                                 "from HostGroth16's")
+        inner["checks"] = {"vk and proof equal HostGroth16's": True,
+                           "accepts 77": True}
+
+        t = time.perf_counter()
+        cs = groth16_verifier_circuit(vk_host, proof_host, [77])
+        circ["build_s"] = time.perf_counter() - t
+        circ.update(num_constraints=cs.num_constraints,
+                    num_variables=cs.num_variables,
+                    num_inputs=cs.num_inputs)
+        if (cs.num_constraints, cs.num_inputs) != (61407, 754):
+            raise AssertionError(f"recursion: the circuit has "
+                                 f"{cs.num_constraints} constraints and "
+                                 f"{cs.num_inputs} inputs")
+        t = time.perf_counter()
+        circ["which_is_unsatisfied"] = cs.which_is_unsatisfied()
+        circ["check_s"] = time.perf_counter() - t
+        if circ["which_is_unsatisfied"] is not None:
+            raise AssertionError(f"recursion: the verifier circuit fails at "
+                                 f"{circ['which_is_unsatisfied']}")
+
+        groth16.setup_table.cache_clear()
+        ec_kernels.reset_launch_widths()
+        with phase_clock(phase_clock.prover(eng6, gm17)) as clock:
+            torch.cuda.reset_peak_memory_stats()
+            with layout_log() as layouts:
+                compiled, outer["compile_s"], _ = phase(
+                    lambda: gm17.compile_circuit(cs))
+                params, outer["setup_s"], outer["setup_launches"] = phase(
+                    lambda: gm17.generate_parameters(eng6, cs,
+                                                     **OUTER_TOXIC))
+            outer["setup_phases_s"] = clock.take()
+            outer["setup_phase_launches"], clock.launches = \
+                clock.launches, {}
+            outer["setup_query_scalars"] = clock.query_scalars
+            outer["setup_peak_device_gib"] = \
+                torch.cuda.max_memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(fp.launch_counts)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            proof_dev = gm17.create_proof(eng6, params, compiled,
+                                          cs.assignment(), **OUTER_RAND)
+            proof = groth16.proof_to_ints(eng6, proof_dev)   # a barrier
+            outer["prove_s"] = time.perf_counter() - t
+            outer["prove_launches"] = since(before)
+            outer["prove_phases_s"] = clock.take()
+            outer["prove_phase_launches"] = clock.launches
+            outer["prove_peak_device_gib"] = \
+                torch.cuda.max_memory_allocated() / 2**30
+        outer["curve_launches_by_width"] = {
+            k: dict(sorted(v.items()))
+            for k, v in ec_kernels.launch_widths.items()
+            if k not in ec_kernels.RNS_KERNELS}
+        dom = gm17.sap_domain(compiled)
+        outer["domain"] = {"kind": type(dom).__name__, "size": dom.size,
+                           "sap_rows": gm17.sap_size(cs.num_constraints,
+                                                     cs.num_inputs)}
+        if (outer["domain"]["kind"], dom.size, params.domain_size,
+                outer["domain"]["sap_rows"]) != (
+                    "MixedRadixDomain", 163840, 163840, 124321):
+            raise AssertionError(f"recursion: domain {outer['domain']}")
+        t = time.perf_counter()
+        sap = gm17_host.sap_at(cs, OUTER_TOXIC["t"])
+        outer["sap_host_oracle_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        want = gm17_host.expected_gm17_proof("mnt6753", cs, **OUTER_TOXIC,
+                                             **OUTER_RAND, sap=sap)
+        outer["oracle_host_s"] = time.perf_counter() - t
+        if proof != want:
+            raise AssertionError("recursion: the outer proof differs from "
+                                 "expected_gm17_proof")
+        inputs = cs.input_values[1:]
+        ok, outer["verify_s"], outer["verify_launches"] = phase(
+            lambda: gm17.verify_proof(eng6, params.vk, proof_dev, inputs))
+        # the path ends here: the checks below launch kernels of their own
+        out["path_launches"] = dict(fp.launch_counts)
+        if groth16.verify_proof(eng, params_in.vk, proof_in, [78]):
+            raise AssertionError("recursion: the inner verify accepted 78")
+        inner["checks"]["refuses 78"] = True
+        # the SAP at t on the device against python ints, every value
+        got = gm17.sap_at_device(cs, OUTER_TOXIC["t"])
+        if [fp.fp_to_ints(eng6.g1.scalar_field, v) for v in got[:2]] != \
+                list(sap[:2]) or (got[2], got[3].size) != (sap[2], sap[4]):
+            raise AssertionError("recursion: sap_at_device differs from "
+                                 "sap_at")
+        del got, sap
+        bits78 = [(78 >> i) & 1 for i in range(len(inputs))]
+        altered = gm17.GM17Proof(a=proof_dev.a, b=proof_dev.b,
+                                 c=g1_6.to_affine(g1_6.add_mixed(
+                                     g1_6.from_affine(*proof_dev.c),
+                                     g1_6.generator_affine)))
+        refusals = {
+            "bits of 78": gm17.verify_proof(eng6, params.vk, proof_dev,
+                                            bits78),
+            "C + G1's generator": gm17.verify_proof(eng6, params.vk,
+                                                    altered, inputs)}
+        if not ok or any(refusals.values()):
+            raise AssertionError(f"recursion: the outer verify gave {ok}, "
+                                 f"and {refusals} on the refusals")
+        outer["checks"] = {"equals expected_gm17_proof": True,
+                           "sap_at_device equals sap_at": True,
+                           "accepts the bits of 77": True,
+                           **{f"refuses {k}": True for k in refusals}}
+        out["setup_layouts"] = layouts.seen
+        return out
+
+    t_rec = time.perf_counter()
+    recursion_line = recursion()
+    rec_layouts = recursion_line.pop("setup_layouts")
+    recursion_line["section_s"] = time.perf_counter() - t_rec
+    add_widths(recursion_line["outer"]["curve_launches_by_width"])
+    mnt6_paths["recursion"] = recursion_line
+    print("recursion " + json.dumps(recursion_line), flush=True)
+    errs_r, rows_r, _ = field_kernels_at_setup(rec_layouts)
+    print("field_kernels_at_setup_recursion " + json.dumps(rows_r),
+          flush=True)
+    for k in kernels:
+        if k["name"] in errs_r:
+            k["max_abs_err"] = max(k["max_abs_err"], errs_r[k["name"]])
+    del rec_layouts
 
     mnt6_kernels = mnt6_curve_kernels(mnt6_widths)
     print("mnt6_curve_kernels " + json.dumps(mnt6_kernels), flush=True)

@@ -1,14 +1,21 @@
-"""Synthetic circuits for driving the prover.
+"""Circuits for driving the prover.
 
 ``benchmark_circuit`` is the chained-multiplication circuit of ginger-lib's
 snark-scalability example, the circuit of the package's headline
 configuration (Groth16 over MNT4-753 at about 2^10 constraints).
+``mul_circuit`` is the one-constraint a * b = c whose proof the recursion
+verifies, and ``groth16_verifier_circuit`` the recursion's outer circuit:
+an MNT4-753 Groth16 verifier over MNT4-753's Fq (= MNT6-753's Fr), one step
+of the MNT4/MNT6 cycle (nizk/groth16/mod.rs:517).
 """
 
 from __future__ import annotations
 
 import random
 
+from . import params as PP
+from .gadgets.crypto.nizk import mnt4753_verifier_gadget
+from .gadgets.std.boolean import Boolean
 from .relations.r1cs import ConstraintSystem, LinearCombination
 
 
@@ -33,3 +40,36 @@ def benchmark_circuit(fr, num_inputs: int, num_constraints: int,
                    LinearCombination.of(new), f"mul{i}")
         prev, prev_val = new, new_val
     return cs, xs
+
+
+def mul_circuit(fr, a: int, b: int) -> ConstraintSystem:
+    """c = a * b with c the one public input, then a and b."""
+    cs = ConstraintSystem(fr)
+    c = cs.alloc_input("c", a * b % fr.modulus)
+    va = cs.alloc("a", a)
+    vb = cs.alloc("b", b)
+    cs.enforce(LinearCombination.of(va), LinearCombination.of(vb),
+               LinearCombination.of(c), "a*b=c")
+    return cs
+
+
+def groth16_verifier_circuit(vk_host: dict, proof_host: dict,
+                             inputs) -> ConstraintSystem:
+    """The circuit over MNT4-753 Fq that verifies an MNT4-753 Groth16
+    proof of the statement ``inputs`` (python ints): each input as its 753
+    little-endian bits, the circuit's public inputs (``Boolean.alloc_input``,
+    the reference's ``alloc_input_vec``), so that an outer proof states the
+    inner statement; then the vk and the proof allocated as witnesses from
+    their host dicts (``utils.convert``'s ``groth16_vk_to_host`` and
+    ``proof_to_host``), and ``check_verify``.  The bits come first, as
+    every input precedes the witnesses."""
+    vg = mnt4753_verifier_gadget()
+    cs = ConstraintSystem(PP.MNT4753_FQ)
+    nbits = PP.MNT4753_FR.modulus_bits
+    names = ["x" if j == 0 else f"x{j}" for j in range(len(inputs))]
+    bits = [[Boolean.alloc_input(cs, (x >> i) & 1, f"{name}/b{i}")
+             for i in range(nbits)] for x, name in zip(inputs, names)]
+    vk = vg.alloc_vk(cs, vk_host)
+    proof = vg.alloc_proof(cs, proof_host)
+    vg.check_verify(cs, vk, bits, proof)
+    return cs

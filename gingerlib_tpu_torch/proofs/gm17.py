@@ -44,8 +44,8 @@ from ..fields import fp as fpmod
 from ..ops import msm as msm_mod
 from ..ops.fft import _build_powers_device, best_domain
 from ..relations.r1cs import (ConstraintSystem, CompiledR1CS,
-                              _compile_matrix, column_sums, eval_matrix,
-                              eval_matrix_transposed)
+                              _compile_matrix, column_sums, compile_r1cs,
+                              eval_matrix, eval_matrix_transposed)
 from .groth16 import (_engine_device, _fixed_base_affine, _scalar_digits,
                       accumulate_inputs)
 
@@ -203,6 +203,17 @@ def generate_parameters(engine, cs: ConstraintSystem, alpha: int, beta: int,
 @functools.lru_cache(maxsize=8)
 def _domain(field, size: int, device):
     return best_domain(field, size, device=device)
+
+
+def compile_circuit(cs: ConstraintSystem, device=None) -> CompiledR1CS:
+    """``cs`` compiled for ``create_proof``, its rows counted on the SAP's
+    domain (``best_domain``).  The prover reads only the matrices'
+    constraint rows, so no radix-2 domain is asked for: a circuit past the
+    field's two-adicity, which ``compile_r1cs`` refuses, still compiles."""
+    device = resolve_device(device)
+    domain = _domain(cs.field, sap_size(cs.num_constraints, cs.num_inputs),
+                     device)
+    return compile_r1cs(cs, domain_size=domain.size, device=device)
 
 
 def sap_domain(compiled: CompiledR1CS):

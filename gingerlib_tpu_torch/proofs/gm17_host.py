@@ -23,7 +23,8 @@ from dataclasses import dataclass
 from ..curves.pairing_host import (HostMNTPairing, host_mnt4753_pairing,
                                    host_mnt6753_pairing)
 from ..relations.r1cs import ConstraintSystem
-from .groth16_host import HostCurve, host_curves, lagrange_at
+from .groth16_host import (HostCurve, divide_by_vanishing, host_curves,
+                           host_idft, lagrange_at)
 
 # the small prime of the mixed-radix domain (ops/fft.py's MIXED_RADIX)
 _Q = 5
@@ -69,16 +70,20 @@ def sap_at(cs: ConstraintSystem, t: int):
     evo, eco, evo2 = ni + na, 2 * nc, ni + na + nc - 1
     a = [0] * (sap_num_vars + 1)
     c = [0] * (sap_num_vars + 1)
+    # the sums are reduced once at the end: a verifier circuit's rows hold
+    # millions of terms
     for i in range(nc):
         u2i, u2i1 = u[2 * i], u[2 * i + 1]
-        ua, us = (u2i + u2i1) % p, (u2i - u2i1) % p
+        ua, us, uc = u2i + u2i1, u2i - u2i1, 4 * u2i
         for v, k in cs.at[i]:
-            a[v] = (a[v] + ua * k) % p
+            a[v] += ua * k
         for v, k in cs.bt[i]:
-            a[v] = (a[v] + us * k) % p
+            a[v] += us * k
         for v, k in cs.ct[i]:
-            c[v] = (c[v] + 4 * u2i * k) % p
-        c[evo + i] = (c[evo + i] + ua) % p
+            c[v] += uc * k
+        c[evo + i] += ua
+    a = [x % p for x in a]
+    c = [x % p for x in c]
     a[0] = (a[0] + u[eco]) % p
     c[0] = (c[0] + u[eco]) % p
     for i in range(1, ni):
@@ -195,33 +200,8 @@ class HostGM17:
             c_ev[eco + 2 * i - 1] = (4 * vals[i] + full[evo2 + i]) % p
             c_ev[eco + 2 * i] = full[evo2 + i]
 
-        def idft(ev):
-            minv = pow(m, -1, p)
-            out = []
-            for j in range(m):
-                wj, s, w = pow(gen, -j, p), 0, 1
-                for e in ev:
-                    s = (s + e * w) % p
-                    w = w * wj % p
-                out.append(s * minv % p)
-            return out
-
-        A, C = idft(a_ev), idft(c_ev)
-        AA = [0] * (2 * m)
-        for i in range(m):
-            if A[i]:
-                for j in range(m):
-                    AA[i + j] = (AA[i + j] + A[i] * A[j]) % p
-        for i in range(m):
-            AA[i] = (AA[i] - C[i]) % p
-        hq = [0] * m
-        for i in range(2 * m - 1, m - 1, -1):      # divide by x^m - 1
-            q = AA[i]
-            hq[i - m] = (hq[i - m] + q) % p
-            AA[i - m] = (AA[i - m] + q) % p
-            AA[i] = 0
-        if any(AA[:m]):
-            raise ValueError("the assignment does not satisfy the SAP")
+        A, C = host_idft(a_ev, gen, p), host_idft(c_ev, gen, p)
+        hq = divide_by_vanishing(A, A, C, p)
         # h = 2 d1 A + (A^2 - C)/Z - d2 - d1^2 at [0], plus top coeff d1^2
         h = [(2 * d1 * A[i] + hq[i]) % p for i in range(m)]
         h[0] = (h[0] - d2 - d1 * d1) % p
@@ -303,7 +283,8 @@ def host_gm17_mnt6753() -> HostGM17:
 
 
 def expected_gm17_proof(family: str, cs: ConstraintSystem, alpha: int,
-                        beta: int, t: int, d1: int, d2: int, r: int) -> dict:
+                        beta: int, t: int, d1: int, d2: int, r: int,
+                        sap=None) -> dict:
     """The GM17 proof of ``cs``'s assignment under the given toxic waste
     (gamma = 1, as ``HostGM17.setup``) and randomness, in closed form:
     {"a": G1, "b": G2, "c": G1}, each an affine (x, y) of component lists
@@ -316,10 +297,11 @@ def expected_gm17_proof(family: str, cs: ConstraintSystem, alpha: int,
              + 2 r Z(t) A(t) + Z(t) (h(t) + d2)]
 
     with h(t) + d2 = 2 d1 A(t) + (A(t)^2 - C(t)) / Z(t) + d1^2 Z(t): the
-    prover's MSMs, each sum taken at t (t^m = Z(t) + 1 on both domains)."""
+    prover's MSMs, each sum taken at t (t^m = Z(t) + 1 on both domains).
+    ``sap``: ``sap_at(cs, t)`` where the caller has it already."""
     g1, g2, fr = host_curves(family)
     p = fr.modulus
-    a, c, zt, _, _, _ = sap_at(cs, t)
+    a, c, zt, _, _, _ = sap or sap_at(cs, t)
     full = sap_full_assignment(cs)
     ni = cs.num_inputs
     a_t = sum(x * y for x, y in zip(full, a)) % p

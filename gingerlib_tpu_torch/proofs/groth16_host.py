@@ -16,9 +16,11 @@ its six MSMs would take far too long.
 
 Also here: the QAP at the toxic point in python ints (Lagrange
 coefficients and per-variable evaluations, ``qap_at``), the oracle that
-``proofs/groth16.qap_at_device`` is held to, and affine curve arithmetic
+``proofs/groth16.qap_at_device`` is held to, affine curve arithmetic
 over Fq, Fq2 and Fq3 in python ints (``host_curves``: MNT4-753, MNT6-753,
-BLS12-377).
+BLS12-377), and ``HostGroth16``: setup, prove and verify in python ints
+for small circuits (counterpart of the JAX package's ``HostGroth16``), the
+prover of the recursion's inner proofs in the tests.
 """
 
 from __future__ import annotations
@@ -27,8 +29,11 @@ import functools
 from dataclasses import dataclass
 
 from .. import params as PP
+from ..curves.pairing_host import (HostMNTPairing, host_mnt4753_pairing,
+                                   host_mnt6753_pairing)
 from ..fields import host_ext
 from ..params._gen import curves_gen as CG, towers_gen as TG
+from ..relations.r1cs import ConstraintSystem
 
 
 # ---------------------------------------------------------------------------
@@ -216,3 +221,191 @@ def expected_proof(family: str, cs, alpha: int, beta: int, gamma: int,
            - r * s % p * delta) % p
     return {"a": g1.mul(g1.gen, a_s), "b": g2.mul(g2.gen, b_s),
             "c": g1.mul(g1.gen, c_s)}
+
+
+# ---------------------------------------------------------------------------
+# Groth16 in python ints
+# ---------------------------------------------------------------------------
+
+def host_idft(ev, gen: int, p: int) -> list:
+    """The coefficients of the polynomial with the evaluations ``ev`` on
+    the domain of len(ev) points with generator ``gen``: a quadratic
+    inverse DFT (small domains only)."""
+    m = len(ev)
+    m_inv = pow(m, -1, p)
+    out = []
+    for j in range(m):
+        wj, w, acc = pow(gen, -j, p), 1, 0
+        for e in ev:
+            acc = (acc + e * w) % p
+            w = w * wj % p
+        out.append(acc * m_inv % p)
+    return out
+
+
+def divide_by_vanishing(A, B, C, p: int) -> list:
+    """(A B - C) / (x^m - 1) for coefficient lists of length m, by
+    schoolbook product and division; ValueError where a remainder is left
+    (the assignment does not satisfy the circuit)."""
+    m = len(A)
+    ab = [0] * (2 * m)
+    for i in range(m):
+        if A[i]:
+            for j in range(m):
+                ab[i + j] = (ab[i + j] + A[i] * B[j]) % p
+    for i in range(m):
+        ab[i] = (ab[i] - C[i]) % p
+    h = [0] * m
+    for i in range(2 * m - 1, m - 1, -1):
+        h[i - m] = (h[i - m] + ab[i]) % p
+        ab[i - m] = (ab[i - m] + ab[i]) % p     # x^m == 1
+        ab[i] = 0
+    if any(ab[:m]):
+        raise ValueError("the assignment does not satisfy the circuit")
+    return h
+
+
+@dataclass
+class HostParams:
+    vk: dict
+    num_inputs: int
+    domain_size: int
+    # the prover's tables, absent on setup_vk results (verify-only use)
+    alpha_g1: tuple = None
+    beta_g1: tuple = None
+    beta_g2: tuple = None
+    delta_g1: tuple = None
+    delta_g2: tuple = None
+    a_query: list = None
+    b_g1_query: list = None
+    b_g2_query: list = None
+    h_query: list = None
+    l_query: list = None
+
+
+class HostGroth16:
+    """Groth16 in python ints over the pairing ``E``: points are affine
+    ([x comps], [y comps]) in standard form, None for infinity; every query
+    element is one scalar multiplication, so only small circuits.  The vk
+    is the dict the verifier gadget allocates from: ``alpha_g1_beta_g2``
+    (flat GT ints), ``gamma_g2``, ``delta_g2`` and ``gamma_abc``."""
+
+    def __init__(self, pairing: HostMNTPairing, g1: HostCurve,
+                 g2: HostCurve, fr_params):
+        self.E = pairing
+        self.g1 = g1
+        self.g2 = g2
+        self.fr = fr_params
+
+    def _g1(self, k, base=None):
+        return self.g1.mul(base or self.g1.gen, k % self.fr.modulus)
+
+    def _g2(self, k, base=None):
+        return self.g2.mul(base or self.g2.gen, k % self.fr.modulus)
+
+    def _vk(self, a, b, c, ni, alpha, beta, gamma, delta):
+        p = self.fr.modulus
+        ginv = pow(gamma, -1, p)
+        return {
+            "alpha_g1_beta_g2": self.E.pairing(self._g1(alpha),
+                                               self._g2(beta)),
+            "gamma_g2": self._g2(gamma),
+            "delta_g2": self._g2(delta),
+            "gamma_abc": [self._g1((beta * a[i] + alpha * b[i] + c[i])
+                                   * ginv) for i in range(ni)],
+        }
+
+    def setup(self, cs: ConstraintSystem, alpha, beta, gamma, delta, t):
+        p = self.fr.modulus
+        ni = cs.num_inputs
+        a, b, c, zt, m = qap_at(cs, t)
+        dinv = pow(delta, -1, p)
+        return HostParams(
+            vk=self._vk(a, b, c, ni, alpha, beta, gamma, delta),
+            alpha_g1=self._g1(alpha), beta_g1=self._g1(beta),
+            beta_g2=self._g2(beta), delta_g1=self._g1(delta),
+            delta_g2=self._g2(delta),
+            a_query=[self._g1(s) for s in a],
+            b_g1_query=[self._g1(s) for s in b],
+            b_g2_query=[self._g2(s) for s in b],
+            h_query=[self._g1(zt * dinv * pow(t, i, p))
+                     for i in range(m - 1)],
+            l_query=[self._g1((beta * a[i] + alpha * b[i] + c[i]) * dinv)
+                     for i in range(ni, cs.num_variables)],
+            num_inputs=ni, domain_size=m)
+
+    def setup_vk(self, cs: ConstraintSystem, alpha, beta, gamma, delta, t):
+        """The verifying key only: ``setup`` without the prover's query
+        tables (a scalar multiplication a query element); verify needs the
+        inputs' gamma_abc points and three constants."""
+        a, b, c, _, m = qap_at(cs, t)
+        return HostParams(
+            vk=self._vk(a, b, c, cs.num_inputs, alpha, beta, gamma, delta),
+            num_inputs=cs.num_inputs, domain_size=m)
+
+    def _witness_h(self, cs: ConstraintSystem, m: int):
+        """h's coefficients and the assignment (small m only)."""
+        p = self.fr.modulus
+        vals = cs.assignment()
+        gen = domain_generator(self.fr, m)
+        ev = [[0] * m for _ in range(3)]
+        for i in range(cs.num_constraints):
+            for e, mat in zip(ev, (cs.at, cs.bt, cs.ct)):
+                e[i] = cs.eval_lc(mat[i], vals)
+        for i in range(cs.num_inputs):
+            ev[0][cs.num_constraints + i] = vals[i] if i else 1
+        A, B, C = (host_idft(e, gen, p) for e in ev)
+        return divide_by_vanishing(A, B, C, p), vals
+
+    def prove(self, cs: ConstraintSystem, params: HostParams, r, s):
+        p = self.fr.modulus
+        m = params.domain_size
+        h, vals = self._witness_h(cs, m)
+        ni = params.num_inputs
+        g1, g2 = self.g1, self.g2
+
+        def msm(curve, points, scalars):
+            acc = None
+            for pt, k in zip(points, scalars):
+                if pt is not None and k % p:
+                    acc = curve.add(acc, curve.mul(pt, k % p))
+            return acc
+
+        g_a = g1.add(g1.add(msm(g1, params.a_query, vals),
+                            self._g1(r, params.delta_g1)), params.alpha_g1)
+        g1_b = g1.add(g1.add(msm(g1, params.b_g1_query, vals),
+                             self._g1(s, params.delta_g1)), params.beta_g1)
+        g2_b = g2.add(g2.add(msm(g2, params.b_g2_query, vals),
+                             self._g2(s, params.delta_g2)), params.beta_g2)
+        terms = [g1.mul(g_a, s % p), g1.mul(g1_b, r % p),
+                 g1.neg(self._g1(r * s, params.delta_g1)),
+                 msm(g1, params.l_query, vals[ni:]),
+                 msm(g1, params.h_query, h[:m - 1])]
+        g_c = None
+        for term in terms:
+            g_c = g1.add(g_c, term)
+        return {"a": g_a, "b": g2_b, "c": g_c}
+
+    def verify(self, params: HostParams, proof, public_inputs) -> bool:
+        """e(A, B) e(acc, -gamma) e(C, -delta) == e(alpha, beta), acc the
+        sum of gamma_abc[i] times (1, public_inputs...)."""
+        p = self.fr.modulus
+        vk = params.vk
+        g1, g2, E = self.g1, self.g2, self.E
+        g_ic = vk["gamma_abc"][0]
+        for x, pt in zip(public_inputs, vk["gamma_abc"][1:]):
+            g_ic = g1.add(g_ic, g1.mul(pt, x % p))
+        gt = E._fmul(E._fmul(E.pairing(proof["a"], proof["b"]),
+                             E.pairing(g_ic, g2.neg(vk["gamma_g2"]))),
+                     E.pairing(proof["c"], g2.neg(vk["delta_g2"])))
+        return gt == vk["alpha_g1_beta_g2"]
+
+
+def host_groth16_mnt4753() -> HostGroth16:
+    g1, g2, fr = host_curves("mnt4753")
+    return HostGroth16(host_mnt4753_pairing(), g1, g2, fr)
+
+
+def host_groth16_mnt6753() -> HostGroth16:
+    g1, g2, fr = host_curves("mnt6753")
+    return HostGroth16(host_mnt6753_pairing(), g1, g2, fr)

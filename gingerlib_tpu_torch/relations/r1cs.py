@@ -19,6 +19,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -199,20 +200,25 @@ class CompiledR1CS:
 
 def _compile_matrix(params: FpParams, mat, num_rows: int, device
                     ) -> CooMatrix:
-    rows, cols, coeffs = [], [], []
-    max_nnz = 0
-    for i, terms in enumerate(mat):
-        max_nnz = max(max_nnz, len(terms))
-        for v, k in terms:
-            rows.append(i)
-            cols.append(v)
-            coeffs.append(k)
-    if not rows:
-        rows, cols, coeffs = [0], [0], [0]
+    """The rows of ``mat`` as COO tensors.  Each distinct coefficient is
+    put in Montgomery form once and gathered on the device: a verifier
+    circuit's B matrix holds 13 million terms over fewer than 5,000
+    coefficients."""
+    lens = np.fromiter(map(len, mat), dtype=np.int64, count=len(mat))
+    max_nnz = int(lens.max()) if len(mat) else 0
+    nnz = int(lens.sum())
+    if nnz == 0:
+        lens, nnz, mat = np.ones(1, np.int64), 1, [[(0, 0)]]
+    first = {}                   # coefficient -> its index among distinct
+    cols = np.fromiter((v for row in mat for v, _ in row), np.int64, nnz)
+    keys = np.fromiter((first.setdefault(k, len(first))
+                        for row in mat for _, k in row), np.int64, nnz)
+    table = torch.from_numpy(fpmod.fp_from_ints(params, list(first)))
     return CooMatrix(
-        rows=torch.tensor(rows, dtype=torch.int64, device=device),
-        cols=torch.tensor(cols, dtype=torch.int64, device=device),
-        coeffs=torch.from_numpy(fpmod.fp_from_ints(params, coeffs)).to(device),
+        rows=torch.from_numpy(np.repeat(np.arange(len(mat)), lens)).to(
+            device),
+        cols=torch.from_numpy(cols).to(device),
+        coeffs=table.to(device)[torch.from_numpy(keys).to(device)],
         num_rows=num_rows,
         max_row_nnz=max_nnz,
     )

@@ -28,6 +28,13 @@ sets included, so that both packages hash with the same constants.
 ``rns_from_numpy`` / ``rns_to_numpy`` carry packed RNS residues across: the
 JAX package's tile ``[128, N]`` uint32 (``pallas_rns.pack_rns``) is the
 transpose of the port's ``[N, 128]`` int32 (``ops/rns_kernels.py``).
+
+The other way, ``groth16_vk_to_host``, ``gm17_vk_to_host`` and
+``proof_to_host`` turn a verifying key and a proof made on the device into
+the host dicts the verifier gadgets allocate from (``gadgets/crypto/
+nizk.py``): points as python-int affine ``([x comps], [y comps])``, GT
+elements as flat lists of ints, all in standard form.  They run once a
+proof, on the host.
 """
 
 from __future__ import annotations
@@ -42,7 +49,8 @@ from ..ops.rns_kernels import LANES as RNS_LANES
 from ..params import ALL_FIELDS
 from ..primitives.poseidon import PoseidonParams
 from ..proofs.gm17 import GM17Parameters, GM17VerifyingKey
-from ..proofs.groth16 import Parameters, VerifyingKey
+from ..proofs.groth16 import (Parameters, VerifyingKey,
+                              affine_to_ints, proof_to_ints)
 from ..relations.r1cs import CompiledR1CS, CooMatrix
 
 _SINGLES = ("alpha_g1", "beta_g1", "beta_g2", "delta_g1", "delta_g2")
@@ -248,3 +256,48 @@ def rns_from_numpy(tile, device=None) -> torch.Tensor:
 def rns_to_numpy(packed, dtype=np.uint32) -> np.ndarray:
     """The inverse of ``rns_from_numpy``: ``[N, 128]`` -> ``[128, N]``."""
     return np.ascontiguousarray(packed.detach().cpu().numpy().T.astype(dtype))
+
+
+# ---------------------------------------------------------------------------
+# the device's keys and proofs as the verifier gadgets' host dicts
+# ---------------------------------------------------------------------------
+
+def _query_to_host(curve, query):
+    """(xs, ys[, inf]) [n, K, nd] -> list of host affine points."""
+    xs, ys = query[0], query[1]
+    return [affine_to_ints(curve, (x, y)) for x, y in zip(xs, ys)]
+
+
+def groth16_vk_to_host(engine, vk: VerifyingKey) -> dict:
+    """A device Groth16 verifying key as ``Groth16VerifierGadget.alloc_vk``
+    takes it."""
+    if vk.alpha_g1_beta_g2 is None:
+        raise ValueError("verifying key has no alpha_g1_beta_g2")
+    return {
+        "alpha_g1_beta_g2": fpmod.fp_to_ints(engine.g1.fp,
+                                             vk.alpha_g1_beta_g2),
+        "gamma_g2": affine_to_ints(engine.g2, vk.gamma_g2),
+        "delta_g2": affine_to_ints(engine.g2, vk.delta_g2),
+        "gamma_abc": _query_to_host(engine.g1, vk.gamma_abc_g1)}
+
+
+def gm17_vk_to_host(engine, vk: GM17VerifyingKey) -> dict:
+    """A device GM17 verifying key as ``Gm17VerifierGadget.alloc_vk``
+    takes it."""
+    if vk.g_alpha_h_beta is None:
+        raise ValueError("verifying key has no g_alpha_h_beta")
+    g1, g2 = engine.g1, engine.g2
+    return {
+        "h_g2": affine_to_ints(g2, vk.h_g2),
+        "g_alpha_g1": affine_to_ints(g1, vk.g_alpha_g1),
+        "h_beta_g2": affine_to_ints(g2, vk.h_beta_g2),
+        "g_gamma_g1": affine_to_ints(g1, vk.g_gamma_g1),
+        "h_gamma_g2": affine_to_ints(g2, vk.h_gamma_g2),
+        "query": _query_to_host(g1, vk.query),
+        "g_alpha_h_beta": fpmod.fp_to_ints(g1.fp, vk.g_alpha_h_beta)}
+
+
+# a device proof, Groth16's or GM17's, as the verifier gadgets'
+# ``alloc_proof`` takes it ({"a", "b", "c"}): ``proof_to_ints`` under the
+# bridge's name
+proof_to_host = proof_to_ints

@@ -99,7 +99,7 @@ def test_sap_instance_map_on_the_mixed_domain():
 def witness_case(fr, cs, domain=None):
     """The device witness map of ``cs`` (on ``domain`` where given) and the
     host map with the same domain's size and generator."""
-    compiled = tr1cs.compile_r1cs(cs, device="cpu")
+    compiled = tgm17.compile_circuit(cs, device="cpu")
     dom = domain or tgm17.sap_domain(compiled)
     z = torch.from_numpy(tfp.fp_from_ints(fr, cs.assignment()))
     full, h = tgm17.sap_witness_map(compiled, z, RAND["d1"], RAND["d2"],
@@ -233,7 +233,7 @@ def bls_case():
     vk's GT element stays None) on the 4-constraint benchmark circuit."""
     eng = TCI.bls12_377_engine("cpu")
     cs, _ = benchmark_circuit(TP.BLS12_377_FR, 2, 4)
-    compiled = tr1cs.compile_r1cs(cs, device="cpu")
+    compiled = tgm17.compile_circuit(cs, device="cpu")
     params = tgm17.generate_parameters(eng, cs, **TOXIC, device="cpu")
     proof = tgm17.create_proof(eng, params, compiled, cs.assignment(),
                                **RAND, device="cpu")
@@ -279,7 +279,7 @@ def test_mnt4753_mul_circuit_setup_prove_verify():
     verify accepts it and refuses a wrong input."""
     eng = TCI.mnt4753_engine("cpu")
     cs = mul_circuit(TP.MNT4753_FR)
-    compiled = tr1cs.compile_r1cs(cs, device="cpu")
+    compiled = tgm17.compile_circuit(cs, device="cpu")
     params = tgm17.generate_parameters(eng, cs, **TOXIC, device="cpu")
     proof = tgm17.create_proof(eng, params, compiled, cs.assignment(),
                                **RAND, device="cpu")

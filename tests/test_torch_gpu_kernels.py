@@ -1,6 +1,7 @@
 """The port's field, curve, pow-chain, Poseidon and RNS kernels against their
 plain PyTorch versions (the curve kernels also at MNT6-753 G1's constant),
-and the MNT4-753 and MNT6-753 pairings, Groth16 verification and GM17 that
+and the MNT4-753 and MNT6-753 pairings, Groth16 verification, GM17 and the
+recursion's inner proof (through the bridge to the verifier circuit) that
 run over them, under pytest, on a machine with an NVIDIA GPU:
 
     python -m pytest --noconftest tests/test_torch_gpu_kernels.py -q
@@ -688,13 +689,12 @@ def test_gm17_on_the_gpu(family):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the field kernels have no CPU form")
     from gingerlib_tpu_torch.proofs import gm17, gm17_host, groth16
-    from gingerlib_tpu_torch.relations.r1cs import compile_r1cs
     eng = getattr(CI, f"{family}_engine")()
     cs = one_constraint_circuit(eng.g1.scalar_field)
     toxic = dict(alpha=123, beta=456, t=314159)
     rand = dict(d1=11, d2=22, r=333)
     params = gm17.generate_parameters(eng, cs, **toxic)
-    proof = gm17.create_proof(eng, params, compile_r1cs(cs),
+    proof = gm17.create_proof(eng, params, gm17.compile_circuit(cs),
                               cs.assignment(), **rand)
     assert groth16.proof_to_ints(eng, proof) == \
         gm17_host.expected_gm17_proof(family, cs, **toxic, **rand)
@@ -814,3 +814,62 @@ def test_proof_vk_and_params_bytes_round_trip(mnt4_proof):
                                  cs.assignment(), r=31337, s=71717)
     assert groth16.proof_to_ints(eng, again) \
         == groth16.proof_to_ints(eng, proof)
+
+
+# ---------------------------------------------------------------------------
+# one step of recursion
+# ---------------------------------------------------------------------------
+
+def test_recursion_inner_proof_through_the_bridge():
+    """The recursion's inner proof of 7 * 11 = 77 made on the card (the
+    toxic waste of tests/test_recursion.py) comes back through the bridge
+    equal to ``HostGroth16``'s, and the verifier circuit built from the
+    device's dicts, the statement's 753 bits public, has 61,407
+    constraints and 754 inputs and is satisfied (~30 s on the host)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the field kernels have no CPU form")
+    from gingerlib_tpu_torch.circuits import (groth16_verifier_circuit,
+                                              mul_circuit)
+    from gingerlib_tpu_torch.proofs import groth16, groth16_host
+    from gingerlib_tpu_torch.relations.r1cs import compile_r1cs
+    from gingerlib_tpu_torch.utils import convert
+    eng = CI.mnt4753_engine()
+    cs = mul_circuit(eng.g1.scalar_field, 7, 11)
+    toxic = dict(alpha=1234, beta=5678, gamma=9101, delta=1121, t=31415)
+    blind = dict(r=171717, s=282828)
+    params = groth16.generate_parameters(eng, cs, **toxic)
+    proof = groth16.create_proof(eng, params, compile_r1cs(cs),
+                                 cs.assignment(), **blind)
+    vk_host = convert.groth16_vk_to_host(eng, params.vk)
+    proof_host = convert.proof_to_host(eng, proof)
+    H = groth16_host.host_groth16_mnt4753()
+    host_params = H.setup(cs, **toxic)
+    assert vk_host == {k: host_params.vk[k] for k in vk_host}
+    assert proof_host == H.prove(cs, host_params, **blind)
+    outer = groth16_verifier_circuit(vk_host, proof_host, [77])
+    assert (outer.num_constraints, outer.num_inputs) == (61407, 754)
+    assert outer.which_is_unsatisfied() is None
+
+
+@pytest.mark.parametrize("n", [1 << 20, 1 << 21])
+def test_affine_kernels_at_the_outer_proofs_widths(n):
+    """K5 (pre, post) and K6 (up, tail, down) on MNT6-753 G1 against their
+    plain versions at the widest batches the recursion's outer GM17 proof
+    launched (2^20 and 2^21 lanes, its C MSM's first tree levels:
+    ``chip_smoke.py``'s ``recursion`` line): 64 distinct points with the
+    special lanes first, repeated."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the curve kernels have no CPU form")
+    curve = CI.mnt6753_g1()
+    k = torch.randint(1, 1 << 16, (N, 1), dtype=torch.int64,
+                      generator=torch.Generator().manual_seed(21))
+    aff = curve.to_affine(curve.mul_scalar_digits(curve.generator((N,)),
+                                                  k.to(curve.device)))
+    reps = n // N
+    a_pt, b_pt = (((x.repeat(reps, 1, 1), y.repeat(reps, 1, 1)),
+                   inf.repeat(reps))
+                  for (x, y), inf in affine_pairs(curve, aff))
+    (gx, gy), ginf = EK.batch_affine_add(curve, a_pt, b_pt)
+    (wx, wy), winf = EK.batch_affine_add_plain(curve, a_pt, b_pt)
+    assert torch.equal(gx, wx) and torch.equal(gy, wy) \
+        and torch.equal(ginf, winf)

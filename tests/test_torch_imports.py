@@ -46,10 +46,12 @@ def test_sources_found():
             "merkle_gen.py", "rns.py", "rns_kernels.py", "ec_rns.py",
             "towers.py", "host_ext.py", "pairing_mnt.py", "pairing_host.py",
             "anchors_gen.py", "fft.py", "r1cs.py", "serialize.py",
-            "gm17.py", "gm17_host.py"} <= names
+            "gm17.py", "gm17_host.py", "boolean.py", "ext_fields.py",
+            "groups.py", "pairing.py", "nizk.py", "circuits.py"} <= names
 
 
-# the public names of the MNT6-753 and GM17 slice, module by module
+# the public names of the MNT6-753 and GM17 slice and of the recursion's
+# (the gadgets, the host Groth16, the bridge, the circuits), module by module
 PUBLIC = {
     "fields.towers": ["CubicExtOps", "QuadExtOps", "build_mnt6_towers",
                       "ext_pow_const", "ext_cyclotomic_pow_const",
@@ -63,11 +65,35 @@ PUBLIC = {
     "proofs.gm17": ["GM17VerifyingKey", "GM17Parameters", "GM17Proof",
                     "sap_size", "sap_at_device", "generate_parameters",
                     "sap_domain", "sap_witness_map", "create_proof",
-                    "verify_proof"],
+                    "verify_proof", "compile_circuit"],
     "proofs.gm17_host": ["HostGM17", "HostGM17Params", "host_gm17_mnt4753",
                          "host_gm17_mnt6753", "expected_gm17_proof",
                          "sap_at", "sap_domain", "sap_full_assignment"],
-    "utils.convert": ["gm17_params_from_numpy"],
+    "utils.convert": ["gm17_params_from_numpy", "groth16_vk_to_host",
+                      "gm17_vk_to_host", "proof_to_host"],
+    "gadgets.std": ["Boolean", "FpG"],
+    "gadgets.std.boolean": ["Boolean"],
+    "gadgets.std.fp": ["FpG"],
+    "gadgets.std.ext_fields": ["FpGOps", "QuadExtG", "CubicExtG",
+                               "build_mnt4_tower_gadgets",
+                               "build_mnt6_tower_gadgets"],
+    "gadgets.std.groups": ["AffinePointG", "SWGroupGadget"],
+    "gadgets.std.pairing": ["MNTPairingGadget", "mnt4753_pairing_gadget",
+                            "mnt6753_pairing_gadget"],
+    "gadgets.crypto": ["Groth16VerifierGadget", "Gm17VerifierGadget",
+                       "mnt4753_verifier_gadget", "mnt6753_verifier_gadget",
+                       "mnt4753_gm17_verifier_gadget",
+                       "mnt6753_gm17_verifier_gadget"],
+    "gadgets.crypto.nizk": ["Groth16VerifierGadget", "Gm17VerifierGadget",
+                            "mnt4753_verifier_gadget",
+                            "mnt6753_verifier_gadget",
+                            "mnt4753_gm17_verifier_gadget",
+                            "mnt6753_gm17_verifier_gadget"],
+    "proofs.groth16_host": ["HostParams", "HostGroth16",
+                            "host_groth16_mnt4753", "host_groth16_mnt6753",
+                            "expected_proof"],
+    "circuits": ["benchmark_circuit", "mul_circuit",
+                 "groth16_verifier_circuit"],
 }
 
 
@@ -113,7 +139,8 @@ ENTRY_POINTS = ["compile_r1cs", "Domain", "mnt4753_g1", "mnt4753_g2",
                 "vk_from_bytes", "params_from_bytes", "mnt6753_g1",
                 "mnt6753_g2", "mnt6753_engine", "mnt6753_pairing",
                 "gm17.generate_parameters", "gm17.create_proof",
-                "gm17.sap_at_device", "gm17_params_from_numpy"]
+                "gm17.sap_at_device", "gm17_params_from_numpy",
+                "gm17.compile_circuit"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
@@ -186,11 +213,13 @@ def test_device_none_raises_without_a_gpu(entry):
             eng, cs, alpha=2, beta=3, t=11),
         # params and compiled are not reached: the device is resolved first
         "gm17.create_proof": lambda: gm17.create_proof(
-            eng, None, compile_r1cs(cs, device="cpu"), cs.assignment(),
+            eng, None, gm17.compile_circuit(cs, device="cpu"),
+            cs.assignment(),
             d1=1, d2=2, r=3),
         "gm17.sap_at_device": lambda: gm17.sap_at_device(cs, 11),
         "gm17_params_from_numpy":
             lambda: convert.gm17_params_from_numpy(eng, None),
+        "gm17.compile_circuit": lambda: gm17.compile_circuit(cs),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
