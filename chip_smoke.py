@@ -97,7 +97,23 @@ What it does, in order (any failure raises, so the exit code is non-zero):
    (``field_kernels_at_setup_recursion``); and K4, K5 and K6 on MNT6-753
    G1 against their plain versions at the widest batch the MNT6 paths and
    the recursion launched each, then on MNT4-753 and MNT6-753 G1 in turns
-   (``mnt6_curve_kernels``);
+   (``mnt6_curve_kernels``); then BLS12-377 and BLS12-381 (GT in Fq12 over
+   Fq6 over Fq2; the D- and the M-twist): on each, the pairing of the
+   generators and of (2P, 3Q) against ``HostBls12Pairing``, e(3P, 5Q) =
+   e(P, Q)^15 and GT^r = 1 on the card, the seconds and launches of the
+   line coefficients, the Miller loop and the final exponentiation, and
+   the launches of one product in Fq2, Fq6 and Fq12, of a cyclotomic
+   square and of an f * line (``pairing_bls12`` lines); Groth16 over
+   BLS12-381 at 2^16 constraints through the same rung and verify steps
+   as MNT4-753's (lines tagged "family": "bls12_381"); GM17 over both
+   curves at 2^10; the BLS12-377 recursion (``recursion_bls12``): an
+   inner proof of 7 * 11 = 77 made and verified on the card, equal to
+   ``HostGroth16``'s, and its 42,006-constraint verifier circuit built and
+   checked on the host (no outer proof: it would be over SW6); and K1,
+   K2, add/sub/neg, K4, K5 and K6 at 24 digits against their plain
+   versions at the BLS12-381 rung's and the pairings' widest layouts and
+   widths (``bls12_curve_kernels``, ``field_kernels_at_bls12``; rows
+   ``*_d24`` of the kernels line);
 5. checks the results: each device proof equals the closed-form python-int
    oracle coordinate for coordinate, a repeat gives the same proof, a proof
    with another ``s`` differs; setup's device QAP equals ``qap_at`` (every
@@ -144,6 +160,7 @@ with the kernels, and a check that both give the same proof.
 import argparse
 import ctypes
 import json
+import math
 import multiprocessing
 import os
 import random
@@ -205,8 +222,10 @@ def main():
                                               groth16_verifier_circuit,
                                               mul_circuit)
     from gingerlib_tpu_torch.curves import instances as CI
+    from gingerlib_tpu_torch.curves import pairing_host
     from gingerlib_tpu_torch.fields import fp
     from gingerlib_tpu_torch.fields import host_ext as HE
+    from gingerlib_tpu_torch.fields import towers as T
     from gingerlib_tpu_torch.ops import cuda_lib, ec_kernels, limbs, rns
     from gingerlib_tpu_torch.ops import fft as fft_mod
     from gingerlib_tpu_torch.ops import ec_rns as ER
@@ -442,25 +461,31 @@ def main():
     def plain_by_chunks(plain, a, b, rows=1 << 15):
         """The plain version over chunks of rows: it is elementwise, and its
         temporaries are a hundred times its operands."""
+        w = a.shape[-1]                    # digits of the operands' field
         if b is None:
-            shape, fa = a.shape, a.reshape(-1, nd)
+            shape, fa = a.shape, a.reshape(-1, w)
             fb = fa
         else:
             a_e, b_e = torch.broadcast_tensors(a, b)
             shape = a_e.shape
-            fa, fb = a_e.reshape(-1, nd), b_e.reshape(-1, nd)
+            fa, fb = a_e.reshape(-1, w), b_e.reshape(-1, w)
         return torch.cat([plain(fa[i:i + rows], fb[i:i + rows])
                           for i in range(0, fa.shape[0], rows)]
                          ).reshape(shape)
 
     def field_row(name, label, kern, plain, a, b, ops_each):
         """A timed case: the kernel's times, the plain version's, the
-        bound."""
+        bound.  The bound reads each input element once: an operand given
+        twice (b = a) counts once, a broadcast axis (stride 0) once."""
         got = kern(a, b)
-        n_in = a.numel() + (0 if b is None else b.numel())
-        n_out = got.numel() // nd
-        b_ms, b_by = bound((n_in // nd + n_out) * elem_bytes,
-                           n_out * ops_each)
+        w = a.shape[-1]                    # digits of the operands' field
+
+        def distinct(t):
+            return math.prod(n for n, st in zip(t.shape, t.stride()) if st)
+
+        n_in = distinct(a) + (0 if b is None or b is a else distinct(b))
+        n_out = got.numel() // w
+        b_ms, b_by = bound((n_in // w + n_out) * 2 * w, n_out * ops_each)
         return {"name": name, "case": label, "rows": n_out,
                 "ms": time_ms(lambda: kern(a, b), 20),
                 "device_ms": graph_ms(lambda: kern(a, b), 20),
@@ -1101,7 +1126,7 @@ def main():
                           ec_kernels.affine_pre_plain(curve, x1, y1, x2, y2,
                                                       inf1, inf2))
         num, den, inf3 = pre
-        den2 = den.reshape(n, nd)
+        den2 = den.reshape(n, fq.n_digits)
         tree, roots = ec_kernels.inv_up_cuda(fq, den2)
         want_tree, want_roots = ec_kernels.inv_up_plain(fq, den2)
         err = max(err, compare(f"inv_tree_up [{n}] trees",
@@ -1145,7 +1170,7 @@ def main():
         def __exit__(self, *exc):
             fp._launch_binary = self.real
 
-    def field_kernels_at_setup(seen):
+    def field_kernels_at_setup(seen, timed_field=None):
         """K1 and add/sub/neg against their plain versions at the layouts
         a rung's setup launched them at (``layout_log``), the widest of
         each class: kernel, field, the output's shape past its first axis
@@ -1156,14 +1181,21 @@ def main():
         the query scalars' one conversion to standard form; at MNT6-753
         2^15 the same over Fq3, and the Fq6 products of setup's pairing.
         Fresh operands of the same shapes and strides; the widest of each
-        kernel also timed.  Returns ({kernel: max error}, rows, {kernel:
+        kernel also timed (of the field named ``timed_field`` where
+        given).
+        Returns ({kernel: max error}, rows, {kernel:
         its timed row})."""
-        # MNT6-753's Fq and Fr are MNT4-753's Fr and Fq (the same objects)
-        fields = {F.name: F for F in (fq, fr, PP.MNT6753_FQ, PP.MNT6753_FR)}
-        fns = {"mont_mul": (fp.mont_mul, fp.mont_mul_plain, MUL_OPS),
-               "fp_add": (fp.add_mod, fp.add_mod_plain, 2 * L),
-               "fp_sub": (fp.sub_mod, fp.sub_mod_plain, 2 * L),
-               "fp_neg": (fp.neg_mod, fp.neg_mod_plain, L)}
+        # MNT6-753's Fq and Fr are MNT4-753's Fr and Fq (the same objects);
+        # the BLS12 paths' at 24 and 16 digits
+        fields = {F.name: F for F in (
+            fq, fr, PP.MNT6753_FQ, PP.MNT6753_FR, PP.BLS12_377_FQ,
+            PP.BLS12_377_FR, PP.BLS12_381_FQ, PP.BLS12_381_FR)}
+        # (kernel, plain version, 32-bit operations an element of l limbs)
+        fns = {"mont_mul": (fp.mont_mul, fp.mont_mul_plain,
+                            lambda l: (2 * l * l + l) * 2),
+               "fp_add": (fp.add_mod, fp.add_mod_plain, lambda l: 2 * l),
+               "fp_sub": (fp.sub_mod, fp.sub_mod_plain, lambda l: 2 * l),
+               "fp_neg": (fp.neg_mod, fp.neg_mod_plain, lambda l: l)}
 
         def out_rows(key):
             shape = torch.broadcast_shapes(key[2], key[4])
@@ -1211,9 +1243,10 @@ def main():
             errs[name] = max(errs.get(name, 0), err)
             row = {"name": name, "case": label, "rows": out_rows(key),
                    "setup_launches": count, "max_abs_err": err}
-            if name not in timed:           # sorted: the widest comes first
+            if name not in timed and timed_field in (None, F.name):
+                # sorted: the widest comes first
                 row.update(field_row(name, label, kern, plain, a, b,
-                                     ops_each))
+                                     ops_each(F.n_digits // 2)))
                 timed[name] = row
             rows.append(row)
             del a, b
@@ -2015,8 +2048,7 @@ def main():
                     (msm_mod, "_msm_lanes"), (msm_mod, "msm_hybrid"),
                     (msm_mod, "msm_affine"),
                     (system, "_sap_witness_core" if system is gm17
-                     else "_witness_map_core"),
-                    (engine, "prepare_g2"), (engine, "pairing_prepared"))
+                     else "_witness_map_core"), (engine, "pairing"))
 
         def __init__(self, targets=None):
             self.targets = targets or self.prover(eng)
@@ -2103,8 +2135,7 @@ def main():
             out["setup_phases_s"] = phases.take()
             out["setup_query_scalars"] = phases.query_scalars
             out["setup_phase_launches"] = phases.launches
-            out["setup_pairing_launches"] = phases.launches.get(
-                "pairing_prepared")
+            out["setup_pairing_launches"] = phases.launches.get("pairing")
             phases.query_scalars, phases.launches = {}, {}
         proof, out["prove_first_s"], proof_dev = prove(params, compiled, cs,
                                                        engine=engine)
@@ -2295,7 +2326,12 @@ def main():
     again, big["prove_steady_s"], _ = prove(params10, compiled10, cs10)
     if again != proof10:
         raise AssertionError("the same inputs gave two different proofs")
-    other, _, other_dev = prove(params10, compiled10, cs10, s=S_BLIND + 1)
+    # a proof with another s, its ATen operators counted (the launches
+    # beside the hand-written kernels: one proof's worth)
+    with_s = {}
+    aten = count_aten_ops(lambda: with_s.update(other=prove(
+        params10, compiled10, cs10, s=S_BLIND + 1)))
+    other, _, other_dev = with_s["other"]
     if other == proof10 or other["a"] != proof10["a"]:
         raise AssertionError("a proof with another s must differ in B and C "
                              "and keep A")
@@ -2306,7 +2342,6 @@ def main():
         raise AssertionError("vk.alpha_g1_beta_g2 differs from the "
                              "python-int oracle")
     verify_line["checks"]["alpha_g1_beta_g2 equals the oracle"] = True
-    aten = count_aten_ops(lambda: prove(params10, compiled10, cs10))
     no_launch = {"expand", "view", "_unsafe_view", "slice", "select",
                  "unbind", "unsqueeze", "split", "split_with_sizes", "alias",
                  "detach", "t", "transpose", "permute", "as_strided",
@@ -2853,6 +2888,395 @@ def main():
           flush=True)
 
     # ------------------------------------------------------------------
+    # 4f. BLS12-377 and BLS12-381: the pairing on both curves, Groth16
+    #     over BLS12-381 at 2^16 constraints, GM17 over both at 2^10, the
+    #     BLS12-377 verifier circuit of a proof made on the card, and K1,
+    #     K2, add/sub/neg and K4-K6 at 24 digits
+    # ------------------------------------------------------------------
+    t_bls = time.perf_counter()
+    for family in ("bls12_377", "bls12_381"):
+        engines[family] = getattr(CI, f"{family}_engine")()
+    bls_paths = {}        # the BLS12 paths whose launches are checked
+    bls_layouts = {}      # K1 and add/sub/neg layouts by path
+
+    def tower_launches(E, family):
+        """Launches of one multiply in Fq2, Fq6 and Fq12, of one Fq12
+        cyclotomic square and one f * line, each product against python
+        ints."""
+        _, h2, h6, h12 = HE.build_bls12_host_towers(
+            E.fp.modulus, *(getattr(TG, f"{family.upper()}_FQ{k}")[
+                "nonresidue"] for k in (2, 6)))
+        rng = random.Random(15)
+        out = {}
+        for F, H in ((E.sub, h2), (E.fq6, h6), (E.fqk, h12)):
+            vals = [[rng.randrange(F.fp.modulus) for _ in range(F.K)]
+                    for _ in range(2)]
+            x, y = (torch.from_numpy(F.const(v)).to(dev) for v in vals)
+            prod, _, out[F.name] = counted(lambda: F.mul(x, y))
+            if fp.fp_to_ints(F.fp, prod) != HE.host_ext_mul(H, *vals):
+                raise AssertionError(f"{F.name}: product differs from "
+                                     f"python ints")
+        F, f12 = E.fqk, x                         # the last: Fq12's
+        unit = E.final_exponentiation(f12)        # in the cyclotomic group
+        sq, _, out["cyclotomic_square"] = counted(
+            lambda: F.cyclotomic_square(unit))
+        if not torch.equal(sq, F.sqr(unit)):
+            raise AssertionError(f"{family}: the cyclotomic square differs")
+        c = [y[2 * k:2 * k + 2] for k in range(3)]
+        shape = "mul_by_014" if E.twist_type == "M" else "mul_by_034"
+        pos = (0, 1, 4) if E.twist_type == "M" else (0, 3, 4)
+        dense = torch.zeros_like(f12).unflatten(-2, (6, 2))
+        for k, ck in zip(pos, c):
+            dense[k] = ck
+        got, _, out[shape] = counted(lambda: getattr(F, shape)(f12, *c))
+        if not torch.equal(got, F.mul(f12, dense.flatten(-3, -2))):
+            raise AssertionError(f"{family}: {shape} differs from the "
+                                 f"dense product")
+        return out
+
+    def pairing_bls12(family):
+        """GT of (G1, G2) and of (2P, 3Q) against ``HostBls12Pairing``;
+        e(3P, 5Q) = e(P, Q)^15 and GT^r = 1 on the card; seconds and
+        launches of the line coefficients, the Miller loop (its lines
+        included) and the final exponentiation; the towers' launches."""
+        E = engines[family]
+        H = getattr(pairing_host, f"host_{family}_pairing")()
+        hg1, hg2, fr_ = groth16_host.host_curves(family)
+        P, Q = E.g1.generator_affine, E.g2.generator_affine
+        out = {"family": family, "twist": E.twist_type,
+               "x_is_negative": E.x_is_neg}
+        with layout_log() as layouts:
+            _, out["line_coefficients_s"], \
+                out["line_coefficients_launches"] = counted(
+                    lambda: E._prepare_g2(Q))
+            f, out["miller_loop_s"], out["miller_loop_launches"] = counted(
+                lambda: E.miller_loop(P, Q))
+            gt, out["final_exponentiation_s"], \
+                out["final_exponentiation_launches"] = counted(
+                    lambda: E.final_exponentiation(f))
+        bls_layouts[family, "pairing"] = layouts.seen
+        if fp.fp_to_ints(E.fp, gt) != H.pairing(hg1.gen, hg2.gen):
+            raise AssertionError(f"{family}: e(G1, G2) differs from "
+                                 f"HostBls12Pairing's")
+
+        def on_card(k1, k2):
+            p1, q2 = hg1.mul(hg1.gen, k1), hg2.mul(hg2.gen, k2)
+            return p1, q2, E.pairing(E.g1.affine_from_ints(*p1),
+                                     E.g2.affine_from_ints(*q2))
+
+        p2, q3, gt23 = on_card(2, 3)
+        if fp.fp_to_ints(E.fp, gt23) != H.pairing(p2, q3):
+            raise AssertionError(f"{family}: e(2P, 3Q) differs from "
+                                 f"HostBls12Pairing's")
+        F = E.fqk
+        _, _, gt35 = on_card(3, 5)
+        if not torch.equal(gt35, T.ext_pow_const(
+                F, gt, limbs.bits_msb_first(15, 4))):
+            raise AssertionError(f"{family}: e(3P, 5Q) != e(P, Q)^15")
+        r = fr_.modulus
+        if not torch.equal(T.ext_pow_const(
+                F, gt, limbs.bits_msb_first(r, r.bit_length())),
+                F.tensor("one", dev)) or torch.equal(
+                    gt, F.tensor("one", dev)):
+            raise AssertionError(f"{family}: GT^r != 1 or GT = 1")
+        out["checks"] = {"e(G1, G2) equals HostBls12Pairing's": True,
+                         "e(2P, 3Q) equals HostBls12Pairing's": True,
+                         "e(3P, 5Q) = e(P, Q)^15": True,
+                         "GT^r = 1 and GT != 1": True}
+        out["launches_per_operation"] = tower_launches(E, family)
+        return out
+
+    for family in ("bls12_377", "bls12_381"):
+        line = pairing_bls12(family)
+        # the pairing's path: its Miller loop (the lines included) and its
+        # final exponentiation
+        bls_paths[f"pairing_{family}"] = {"path_launches": {
+            k: line["miller_loop_launches"].get(k, 0) +
+            line["final_exponentiation_launches"].get(k, 0)
+            for k in fp.launch_counts}}
+        print("pairing_bls12 " + json.dumps(line), flush=True)
+
+    # Groth16 over BLS12-381 at 2^16 constraints (domain 2^17): the MNT4-753
+    # 2^16 rung's circuit and toxic waste
+    eng381 = engines["bls12_381"]
+    g1_381 = eng381.g1
+    line, (cs_, compiled_, params_, proof_, dev_, _) = rung(
+        16, phases=True, family="bls12_381")
+    bls_paths["groth16_bls12_381_2p16"] = bls381_rung = line
+    print("rung " + json.dumps(line), flush=True)
+    verify_bls = {"family": "bls12_381", "rungs": {}, "checks": {}}
+    verify_rung(16, cs_, params_, dev_, eng381, verify_bls)
+    want_gt = host_alpha_beta(TOXIC["alpha"], TOXIC["beta"], "bls12_381")
+    if fp.fp_to_ints(g1_381.fp, params_.vk.alpha_g1_beta_g2) != want_gt:
+        raise AssertionError("bls12_381: vk.alpha_g1_beta_g2 differs from "
+                             "the python-int oracle")
+    verify_bls["checks"]["alpha_g1_beta_g2 equals the oracle"] = True
+    inputs_ = cs_.input_values[1:]
+    altered = groth16.Proof(a=dev_.a, b=dev_.b, c=g1_381.to_affine(
+        g1_381.add_mixed(g1_381.from_affine(*dev_.c),
+                         g1_381.generator_affine)))
+    for label, proof_inputs in (
+            ("2^16 wrong input", (dev_, [inputs_[0] + 1] + inputs_[1:])),
+            ("2^16 altered C", (altered, inputs_))):
+        if verify(params_, *proof_inputs, label, eng381)[0] is not False:
+            raise AssertionError(f"bls12_381 verify_proof: {label} "
+                                 f"accepted")
+        verify_bls["checks"][label] = False
+    del params_, dev_, altered, compiled_
+    print("verify " + json.dumps(verify_bls), flush=True)
+
+    # GM17 over BLS12-377 and BLS12-381 at 2^10 (SAP domain 4,096)
+    for family in ("bls12_377", "bls12_381"):
+        line = gm17_rung(family, 10, "Domain", 4096)
+        bls_paths[f"gm17_{family}_2p10"] = line
+        print("gm17 " + json.dumps(line), flush=True)
+
+    def recursion_bls12():
+        """The inner BLS12-377 Groth16 proof of 7 * 11 = 77 made on the
+        card, its vk and proof equal to ``HostGroth16``'s through the
+        bridge; verify accepts 77 and refuses 78 and an altered C; the
+        verifier circuit over BLS12-377 Fq (the statement's 253 bits as
+        public inputs) built and checked on the host, satisfied, and
+        unsatisfied for 78.  No outer proof: it would be over SW6."""
+        eng377 = engines["bls12_377"]
+        g1_377 = eng377.g1
+        out = {"inner": {}, "circuit": {}}
+        inner, circ = out["inner"], out["circuit"]
+        groth16.setup_table.cache_clear()
+        fp.reset_launch_counts()
+        cs_in = mul_circuit(g1_377.scalar_field, 7, 11)
+        params_in, inner["setup_s"], inner["setup_launches"] = phase(
+            lambda: groth16.generate_parameters(eng377, cs_in,
+                                                **INNER_TOXIC))
+        proof_in, inner["prove_s"], inner["prove_launches"] = phase(
+            lambda: groth16.create_proof(eng377, params_in,
+                                         compile_r1cs(cs_in),
+                                         cs_in.assignment(), **INNER_BLIND))
+        ok, inner["verify_s"], inner["verify_launches"] = phase(
+            lambda: groth16.verify_proof(eng377, params_in.vk, proof_in,
+                                         [77]))
+        out["path_launches"] = dict(fp.launch_counts)
+        altered = groth16.Proof(a=proof_in.a, b=proof_in.b,
+                                c=g1_377.to_affine(g1_377.add_mixed(
+                                    g1_377.from_affine(*proof_in.c),
+                                    g1_377.generator_affine)))
+        refusals = {
+            "78": groth16.verify_proof(eng377, params_in.vk, proof_in, [78]),
+            "altered C": groth16.verify_proof(eng377, params_in.vk, altered,
+                                              [77])}
+        if not ok or any(refusals.values()):
+            raise AssertionError(f"recursion_bls12: verify gave {ok}, and "
+                                 f"{refusals} on the refusals")
+        vk_host = convert.groth16_vk_to_host(eng377, params_in.vk)
+        proof_host = convert.proof_to_host(eng377, proof_in)
+        t = time.perf_counter()
+        H = groth16_host.host_groth16_bls12_377()
+        host_params = H.setup(cs_in, **INNER_TOXIC)
+        host_proof = H.prove(cs_in, host_params, **INNER_BLIND)
+        inner["host_groth16_s"] = time.perf_counter() - t
+        if vk_host != {k: host_params.vk[k] for k in vk_host} or \
+                proof_host != host_proof:
+            raise AssertionError("recursion_bls12: the inner vk or proof "
+                                 "differs from HostGroth16's")
+        inner["checks"] = {"vk and proof equal HostGroth16's": True,
+                           "accepts 77": True,
+                           **{f"refuses {k}": True for k in refusals}}
+        for value, want in ((77, None), (78, "unsatisfied")):
+            t = time.perf_counter()
+            cs = groth16_verifier_circuit(vk_host, proof_host, [value],
+                                          "bls12_377")
+            build_s = time.perf_counter() - t
+            t = time.perf_counter()
+            bad = cs.which_is_unsatisfied()
+            check_s = time.perf_counter() - t
+            if (bad is None) != (want is None):
+                raise AssertionError(f"recursion_bls12: the circuit for "
+                                     f"{value} gave {bad}")
+            if value == 77:
+                circ.update(build_s=build_s, check_s=check_s,
+                            num_constraints=cs.num_constraints,
+                            num_variables=cs.num_variables,
+                            num_inputs=cs.num_inputs)
+            else:
+                circ["refuses_78_at"] = bad
+        if (circ["num_constraints"], circ["num_inputs"]) != (42006, 254):
+            raise AssertionError(f"recursion_bls12: the circuit has "
+                                 f"{circ['num_constraints']} constraints "
+                                 f"and {circ['num_inputs']} inputs")
+        circ["checks"] = {"satisfied for 77": True,
+                          "unsatisfied for 78": True}
+        return out
+
+    t = time.perf_counter()
+    rec_bls = recursion_bls12()
+    rec_bls["section_s"] = time.perf_counter() - t
+    bls_paths["recursion_bls12"] = rec_bls
+    print("recursion_bls12 " + json.dumps(rec_bls), flush=True)
+
+    def bls12_curve_kernels(widths, curve, launches):
+        """K1, K2, add/sub/neg, K4, K5 and K6 at 24 digits against their
+        plain versions, tolerance 0: K1 and add/sub/neg at the widest
+        layout of each class the BLS12-381 rung's setup and both pairings
+        launched (``field_kernels_at_setup``), K2 on the one element the
+        path inverts, K4 at the rung's widest batch (the special lanes
+        first, a doubling among them), K5 and K6 at their widest batch
+        (the windowed query's first level) and the tail at its widest;
+        each timed beside its plain version and its bound.  Returns the
+        rows of the kernels line (``launches``: the rung's counts) and
+        the field kernels' rows by layout."""
+        F = curve.fp
+        w, l24 = F.n_digits, F.n_digits // 2
+        eb, mul24 = 2 * w, (2 * l24 * l24 + l24) * 2
+        seen = dict(setup_layouts["bls12_381", 16])
+        for (fam, _), lay in bls_layouts.items():
+            for key, n in lay.items():
+                seen[key] = seen.get(key, 0) + n
+        errs, field_rows, timed = field_kernels_at_setup(seen, F.name)
+        rows = {}
+        for name, row in timed.items():
+            rows[name] = dict(max_abs_err=errs[name], case=row["case"],
+                              **{k: row[k] for k in (
+                                  "ms", "device_ms", "plain_ms", "bound_ms",
+                                  "bound_by")})
+
+        def timed_case(name, fn, plain, err, nbytes, nops, **extra):
+            b_ms, b_by = bound(nbytes, nops)
+            rows[name] = dict(
+                max_abs_err=err, ms=time_ms(fn, 20),
+                device_ms=graph_ms(fn, 20), plain_ms=time_ms(plain, 2),
+                bound_ms=b_ms, bound_by=b_by, **extra)
+
+        def inv24(v):
+            return divsteps_model.inverse(v, F.modulus).passes * (
+                31 * 12 + 24 * l24)
+
+        # K2 on one element, as the path calls it
+        x1 = torch.from_numpy(limbs.to_digits_batch(
+            [random.Random(24).randrange(1, F.modulus)], w)).to(dev)
+        timed_case("inv_bea", lambda: fp.inv_bea(F, x1),
+                   lambda: fp.inv_bea_plain(F, x1),
+                   compare("inv_bea [1,24]", fp.inv_bea(F, x1),
+                           fp.inv_bea_plain(F, x1)),
+                   2 * eb, inv24(limbs.from_digits_batch(x1.cpu())[0]),
+                   case="[1, 24]")
+        # K4 at the widest batch
+        n = max(widths["ec_proj_add"])
+        proj, _, _ = multiples(curve, max(n, 16), seed=65)
+        P, Q = proj_case(curve, proj, n)
+        err = max(compare_all(f"{curve.name} ec_proj_add [{n}]",
+                              ec_kernels.proj_add(curve, P, Q),
+                              ec_kernels.proj_add_plain(curve, P, Q)),
+                  compare_all(f"{curve.name} ec_proj_add [1] P+P",
+                              ec_kernels.proj_add(
+                                  curve, *(tuple(c[8:9] for c in proj),) * 2),
+                              curve.double(tuple(c[8:9] for c in proj))))
+        timed_case("ec_proj_add", lambda: ec_kernels.proj_add(curve, P, Q),
+                   lambda: ec_kernels.proj_add_plain(curve, P, Q), err,
+                   9 * n * eb,
+                   (2 * 5 + 2 * 17 + (n - N_SPECIAL) * 14) * mul24, lanes=n)
+        del P, Q, proj
+        # K5 and K6 at the widest batch
+        n = max(widths["ec_affine_pre"])
+        _, points, _ = multiples(curve, 1 << 18, seed=66)
+        copies = -(-n // points[0].shape[0])
+        a_pt, b_pt = affine_case(curve, tuple(
+            torch.cat([c] * copies) for c in points), n)
+        del points
+        (x1_, y1_), inf1 = a_pt
+        (x2_, y2_), inf2 = b_pt
+        pre_args = (x1_, y1_, x2_, y2_, inf1, inf2)
+        pre = ec_kernels.affine_pre(curve, *pre_args)
+        timed_case("ec_affine_pre",
+                   lambda: ec_kernels.affine_pre(curve, *pre_args),
+                   lambda: ec_kernels.affine_pre_plain(curve, *pre_args),
+                   compare_all(f"{curve.name} ec_affine_pre [{n}]", pre,
+                               ec_kernels.affine_pre_plain(curve,
+                                                           *pre_args)),
+                   (6 * eb + 3) * n,
+                   n * 2 * 2 * l24 + 2 * (mul24 + 4 * 2 * l24), lanes=n)
+        num, den, inf3 = pre
+        den2 = den.reshape(n, w)
+        tree, roots = ec_kernels.inv_up_cuda(F, den2)
+        want_tree, want_roots = ec_kernels.inv_up_plain(F, den2)
+        err = max(compare(f"{curve.name} inv_tree_up [{n}] trees",
+                          ec_kernels.unpack_limbs(tree), want_tree),
+                  compare(f"{curve.name} inv_tree_up [{n}] products", roots,
+                          want_roots))
+        tiles, muls = roots.shape[0], tile_muls(den2)
+        timed_case("inv_tree_up", lambda: ec_kernels.inv_up_cuda(F, den2),
+                   lambda: ec_kernels.inv_up_plain(F, den2), err,
+                   (n + tiles * 2 * B) * eb, muls * mul24, lanes=n)
+        rinv = ec_kernels.batch_inverse(F, roots)
+        timed_case("inv_tree_down",
+                   lambda: ec_kernels.inv_down_cuda(F, tree, rinv, n),
+                   lambda: ec_kernels.inv_down_plain(F, want_tree, rinv, n),
+                   compare(f"{curve.name} inv_tree_down [{n}]",
+                           ec_kernels.inv_down_cuda(F, tree, rinv, n),
+                           ec_kernels.inv_down_plain(F, want_tree, rinv, n)),
+                   (tiles * (2 * B - 1) + n) * eb, 2 * muls * mul24, lanes=n)
+        del tree, want_tree, want_roots, rinv
+        dinv = ec_kernels.batch_inverse(F, den2).reshape(den.shape)
+        post_args = (num, dinv, *pre_args, inf3)
+        live = int((~(inf1 | inf2 | inf3)).sum())
+        timed_case("ec_affine_post",
+                   lambda: ec_kernels.affine_post(curve, *post_args),
+                   lambda: ec_kernels.affine_post_plain(curve, *post_args),
+                   compare_all(f"{curve.name} ec_affine_post [{n}]",
+                               ec_kernels.affine_post(curve, *post_args),
+                               ec_kernels.affine_post_plain(curve,
+                                                            *post_args)),
+                   (8 * eb + 3) * n, live * (3 * mul24 + 4 * 2 * l24),
+                   lanes=n)
+        del a_pt, b_pt, pre, num, den, den2, dinv, post_args, pre_args
+        # the tail at its widest (the products of up to 512 tiles)
+        m = max(widths["inv_tree_tail"])
+        rng = random.Random(67)
+        xt = torch.from_numpy(limbs.to_digits_batch(
+            [rng.randrange(1, F.modulus) for _ in range(m)], w)).to(dev)
+        root = limbs.from_digits_batch(
+            ec_kernels.inv_up_plain(F, xt)[1].cpu())[0]
+        timed_case("inv_tree_tail", lambda: ec_kernels.inv_tail_cuda(F, xt),
+                   lambda: ec_kernels.inv_tail_plain(F, xt),
+                   compare(f"{curve.name} inv_tree_tail [{m}]",
+                           ec_kernels.inv_tail_cuda(F, xt),
+                           ec_kernels.inv_tail_plain(F, xt)),
+                   2 * m * eb, 3 * tile_muls(xt) * mul24 + inv24(root),
+                   lanes=m)
+        meta = {k["name"]: k for k in kernels}
+        out = []
+        for name, row in rows.items():
+            if launches.get(name, 0) <= 0:
+                raise AssertionError(f"the BLS12-381 rung never launched "
+                                     f"{name}")
+            out.append({
+                "name": f"{name}_d24", "route": "cuda",
+                "source": meta[name]["source"],
+                "replaces": meta[name]["replaces"],
+                "launches": launches.get(name, 0), **row,
+                # no PyTorch call computes a modular product, a curve
+                # addition or an inverse
+                "library_ms": None,
+                "path": "groth16_bls12_381_2p16", "kernel": name,
+                "field": F.name})
+        return out, field_rows
+
+    bls_rows, bls_field_rows = bls12_curve_kernels(
+        bls381_rung["curve_launches_by_width"], g1_381,
+        bls381_rung["path_launches"])
+    print("field_kernels_at_bls12 " + json.dumps(bls_field_rows), flush=True)
+    print("bls12_curve_kernels " + json.dumps(bls_rows), flush=True)
+    # every BLS12 path launched K1, K2 and add/sub; the rung K4-K6 as well
+    for name, line in bls_paths.items():
+        need = ["mont_mul", "inv_bea", "fp_add", "fp_sub"]
+        if name == "groth16_bls12_381_2p16":
+            need += ["ec_proj_add", "ec_affine_pre", "ec_affine_post",
+                     "inv_tree_up", "inv_tree_tail", "inv_tree_down"]
+        for k in need:
+            if line["path_launches"].get(k, 0) <= 0:
+                raise AssertionError(f"{name} never launched {k}")
+    print(f"bls12_section_s {time.perf_counter() - t_bls:.1f}", flush=True)
+
+    # ------------------------------------------------------------------
     # 4a. FFT: 2^20 radix-2 over MNT4-753 Fr, mixed radix over MNT6-753 Fr
     # ------------------------------------------------------------------
 
@@ -3178,6 +3602,9 @@ def main():
             k["launches_mnt6_and_gm17_paths"] = {
                 path: line["path_launches"].get(name, 0)
                 for path, line in mnt6_paths.items()}
+            k["launches_bls12_paths"] = {
+                path: line["path_launches"].get(name, 0)
+                for path, line in bls_paths.items()}
             k["launches_2p16_path"] = full["path_launches"][name]
             if k["launches_2p16_path"] <= 0:
                 raise AssertionError(f"the 2^16 path never launched {name}")
@@ -3196,6 +3623,9 @@ def main():
         if k["launches"] <= 0:
             raise AssertionError(f"the main path never launched {name}")
 
+    # the 24-digit rows, made on the BLS12-381 rung (their launches are
+    # that rung's, checked where they were made)
+    kernels.extend(bls_rows)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

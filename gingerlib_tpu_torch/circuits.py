@@ -6,7 +6,8 @@ configuration (Groth16 over MNT4-753 at about 2^10 constraints).
 ``mul_circuit`` is the one-constraint a * b = c whose proof the recursion
 verifies, and ``groth16_verifier_circuit`` the recursion's outer circuit:
 an MNT4-753 Groth16 verifier over MNT4-753's Fq (= MNT6-753's Fr), one step
-of the MNT4/MNT6 cycle (nizk/groth16/mod.rs:517).
+of the MNT4/MNT6 cycle (nizk/groth16/mod.rs:517), or a BLS12-377 Groth16
+verifier over BLS12-377's Fq (= SW6's Fr; nizk/groth16/mod.rs:431).
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ from __future__ import annotations
 import random
 
 from . import params as PP
-from .gadgets.crypto.nizk import mnt4753_verifier_gadget
+from .gadgets.crypto.nizk import (bls12_377_verifier_gadget,
+                                  mnt4753_verifier_gadget)
 from .gadgets.std.boolean import Boolean
 from .relations.r1cs import ConstraintSystem, LinearCombination
 
@@ -53,19 +55,30 @@ def mul_circuit(fr, a: int, b: int) -> ConstraintSystem:
     return cs
 
 
-def groth16_verifier_circuit(vk_host: dict, proof_host: dict,
-                             inputs) -> ConstraintSystem:
-    """The circuit over MNT4-753 Fq that verifies an MNT4-753 Groth16
-    proof of the statement ``inputs`` (python ints): each input as its 753
-    little-endian bits, the circuit's public inputs (``Boolean.alloc_input``,
-    the reference's ``alloc_input_vec``), so that an outer proof states the
-    inner statement; then the vk and the proof allocated as witnesses from
-    their host dicts (``utils.convert``'s ``groth16_vk_to_host`` and
+# the verifier gadget of each inner curve, the circuit's field (the inner
+# curve's Fq) and the inner curve's Fr
+_VERIFIERS = {
+    "mnt4753": (mnt4753_verifier_gadget, PP.MNT4753_FQ, PP.MNT4753_FR),
+    "bls12_377": (bls12_377_verifier_gadget, PP.BLS12_377_FQ,
+                  PP.BLS12_377_FR),
+}
+
+
+def groth16_verifier_circuit(vk_host: dict, proof_host: dict, inputs,
+                             family: str = "mnt4753") -> ConstraintSystem:
+    """The circuit over the inner curve's Fq that verifies a Groth16 proof
+    over ``family`` (MNT4-753 or BLS12-377) of the statement ``inputs``
+    (python ints): each input as its little-endian bits (753 or 253), the
+    circuit's public inputs (``Boolean.alloc_input``, the reference's
+    ``alloc_input_vec``), so that an outer proof states the inner
+    statement; then the vk and the proof allocated as witnesses from their
+    host dicts (``utils.convert``'s ``groth16_vk_to_host`` and
     ``proof_to_host``), and ``check_verify``.  The bits come first, as
     every input precedes the witnesses."""
-    vg = mnt4753_verifier_gadget()
-    cs = ConstraintSystem(PP.MNT4753_FQ)
-    nbits = PP.MNT4753_FR.modulus_bits
+    gadget, fq, fr = _VERIFIERS[family]
+    vg = gadget()
+    cs = ConstraintSystem(fq)
+    nbits = fr.modulus_bits
     names = ["x" if j == 0 else f"x{j}" for j in range(len(inputs))]
     bits = [[Boolean.alloc_input(cs, (x >> i) & 1, f"{name}/b{i}")
              for i in range(nbits)] for x, name in zip(inputs, names)]

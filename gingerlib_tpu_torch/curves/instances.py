@@ -1,6 +1,6 @@
-"""Concrete curve instantiations of the port: the MNT4-753/MNT6-753 cycle
-(Groth16 and GM17 setup, prove and verify over either curve) and BLS12-377
-(the narrow width the CPU tests use; its pairing is not ported yet).
+"""Concrete curve instantiations of the port: the MNT4-753/MNT6-753 cycle,
+BLS12-377 and BLS12-381 (Groth16 and GM17 setup, prove and verify over
+each curve).
 
 Each constructor takes ``device`` under the package's device rule and caches
 one object per device (and, for G1, per choice of ``ec_rns``: the RNS
@@ -8,30 +8,21 @@ multiplies in ``batch_affine_add``, see ``SWCurveOps``).  Constants come
 from ``params/_gen`` (standard form); Frobenius tables are derived on the
 fly.
 
-An engine is what Groth16 takes: the pairing where there is one (an
-``MNTPairing``, which carries ``g1`` and ``g2``), else an ``Engine`` of the
-two groups, which can set up and prove but not verify.
+An engine is what Groth16 and GM17 take: the curve's pairing (an
+``MNTPairing`` or a ``Bls12Pairing``), which carries ``g1`` and ``g2``.
 """
 
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
 
 from .. import params as PP
 from ..device import resolve_device
 from ..params._gen import curves_gen as CG, towers_gen as TG
 from ..fields import towers as T
+from .pairing_bls12 import Bls12Pairing
 from .pairing_mnt import MNTPairing
 from .sw import SWCurveOps
-
-
-@dataclass(frozen=True)
-class Engine:
-    """The two source groups of a curve whose pairing is not ported: the
-    prover needs nothing else."""
-    g1: SWCurveOps
-    g2: SWCurveOps
 
 
 @functools.lru_cache()
@@ -48,8 +39,18 @@ def mnt6753_towers():
 
 @functools.lru_cache()
 def bls12_377_towers():
-    return T.build_quadratic_tower(PP.BLS12_377_FQ,
-                                   TG.BLS12_377_FQ2["nonresidue"])
+    """(Fq, Fq2, Fq6, Fq12) of BLS12-377."""
+    return T.build_bls12_towers(PP.BLS12_377_FQ,
+                                TG.BLS12_377_FQ2["nonresidue"],
+                                TG.BLS12_377_FQ6["nonresidue"])
+
+
+@functools.lru_cache()
+def bls12_381_towers():
+    """(Fq, Fq2, Fq6, Fq12) of BLS12-381."""
+    return T.build_bls12_towers(PP.BLS12_381_FQ,
+                                TG.BLS12_381_FQ2["nonresidue"],
+                                TG.BLS12_381_FQ6["nonresidue"])
 
 
 @functools.lru_cache()
@@ -59,6 +60,7 @@ def _curve(family: str, group: str, device, ec_rns: bool = False
         "mnt4753": (mnt4753_towers, CG.MNT4753, PP.MNT4753_FR),
         "mnt6753": (mnt6753_towers, CG.MNT6753, PP.MNT6753_FR),
         "bls12_377": (bls12_377_towers, CG.BLS12_377, PP.BLS12_377_FR),
+        "bls12_381": (bls12_381_towers, CG.BLS12_381, PP.BLS12_381_FR),
     }[family]
     if group == "g1":
         return SWCurveOps(f"{family}_g1", towers()[0], c["a"], c["b"],
@@ -96,6 +98,14 @@ def bls12_377_g1(device=None, ec_rns: bool = False) -> SWCurveOps:
 
 def bls12_377_g2(device=None) -> SWCurveOps:
     return _curve("bls12_377", "g2", resolve_device(device))
+
+
+def bls12_381_g1(device=None, ec_rns: bool = False) -> SWCurveOps:
+    return _curve("bls12_381", "g1", resolve_device(device), ec_rns)
+
+
+def bls12_381_g2(device=None) -> SWCurveOps:
+    return _curve("bls12_381", "g2", resolve_device(device))
 
 
 # (curve constants, G1, G2, GT's tower, easy part: the Frobenius power and
@@ -138,5 +148,38 @@ def mnt6753_engine(device=None) -> MNTPairing:
     return mnt6753_pairing(device)
 
 
-def bls12_377_engine(device=None) -> Engine:
-    return Engine(bls12_377_g1(device), bls12_377_g2(device))
+# (curve constants, G1, G2, GT's tower, twist type)
+_BLS12 = {
+    "bls12_377": (CG.BLS12_377, bls12_377_g1, bls12_377_g2, bls12_377_towers,
+                  "D"),
+    "bls12_381": (CG.BLS12_381, bls12_381_g1, bls12_381_g2, bls12_381_towers,
+                  "M"),
+}
+
+
+@functools.lru_cache()
+def _bls12_pairing(family: str, device) -> Bls12Pairing:
+    c, g1, g2, towers, twist = _BLS12[family]
+    _, _, fq6, fq12 = towers()
+    return Bls12Pairing(family, g1(device), g2(device), fq6, fq12, c["x"],
+                        c["x_is_negative"], twist)
+
+
+def bls12_377_pairing(device=None) -> Bls12Pairing:
+    """BLS12-377's ate pairing: GT in Fq12, the D-twist, x > 0."""
+    return _bls12_pairing("bls12_377", resolve_device(device))
+
+
+def bls12_381_pairing(device=None) -> Bls12Pairing:
+    """BLS12-381's ate pairing: GT in Fq12, the M-twist, x < 0."""
+    return _bls12_pairing("bls12_381", resolve_device(device))
+
+
+def bls12_377_engine(device=None) -> Bls12Pairing:
+    """BLS12-377's engine: its pairing, with ``g1`` and ``g2``."""
+    return bls12_377_pairing(device)
+
+
+def bls12_381_engine(device=None) -> Bls12Pairing:
+    """BLS12-381's engine: its pairing, with ``g1`` and ``g2``."""
+    return bls12_381_pairing(device)

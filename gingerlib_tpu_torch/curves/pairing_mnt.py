@@ -196,14 +196,7 @@ class MNTPairing:
 
     def product_of_miller(self, f_batch):
         """Multiply Miller values along axis 0 (a tree of products)."""
-        F = self.fqk
-        cur = f_batch
-        while cur.shape[0] > 1:
-            if cur.shape[0] % 2:
-                cur = torch.cat([cur, F.tensor("one", cur.device).expand(
-                    (1,) + cur.shape[1:])], dim=0)
-            cur = F.mul(cur[0::2], cur[1::2])
-        return cur[0]
+        return T.ext_product(self.fqk, f_batch)
 
     def final_exponentiation(self, f):
         """f^((q^k - 1)/r): the easy part elt = f^(q^2 - 1) for MNT4,
@@ -241,3 +234,13 @@ class MNTPairing:
         stacked = {k: torch.stack([pr[k] for pr in preps]) for k in preps[0]}
         return self.final_exponentiation(self.product_of_miller(
             self.miller_loop_prepared(p_affines, stacked)))
+
+    def pairing(self, p_affine, q_affine):
+        """e(P, Q) for one pair: Q through the host ladder."""
+        return self.pairing_prepared(p_affine, self.prepare_g2(q_affine))
+
+    def product_of_pairings(self, p_affines, q_affines):
+        """k pairs stacked on axis 0, as ``Bls12Pairing``'s: each G2 point
+        through the host ladder, then ``product_of_pairings_prepared``."""
+        return self.product_of_pairings_prepared(p_affines, [
+            self.prepare_g2((x, y)) for x, y in zip(*q_affines)])

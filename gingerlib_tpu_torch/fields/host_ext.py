@@ -2,8 +2,9 @@
 
 Counterpart of ``gingerlib_tpu/fields/host_ext.py`` as far as the ported
 towers need it: the Frobenius coefficients of the quadratic and cubic
-extensions, of MNT4's Fq4 and of MNT6's Fq6, derived at build time instead
-of transcribed, the python-int arithmetic over Fq2 and Fq3 that the host
+extensions, of MNT4's Fq4, of MNT6's Fq6 and of BLS12's Fq6 = Fq2[V]/(V^3
+- xi) and Fq12 = Fq6[W]/(W^2 - V) (coefficients in Fq2), derived at build
+time instead of transcribed, the python-int arithmetic over Fq2 and Fq3 that the host
 ladders run (``ext_ops``), and the flat component-list arithmetic over a
 tower of quadratic and cubic extensions that the python-int pairing oracle
 (``curves/pairing_host.py``) runs on.
@@ -118,6 +119,24 @@ def frob_table_fp6_2over3(p, nr3):
     return out
 
 
+def frob_table_fp6_3over2(p, nr2, xi):
+    """Fp6 = Fp2[V]/(V^3 - xi), xi in Fp2, X^2 = nr2.  c1[i] =
+    xi^((p^i-1)/3), c2[i] = xi^(2(p^i-1)/3): Fp2 elements (pairs)."""
+    c1, c2 = [], []
+    for i in range(6):
+        e = (pow(p, i) - 1) // 3
+        c1.append(quad_pow(p, nr2, tuple(xi), e))
+        c2.append(quad_pow(p, nr2, tuple(xi), 2 * e))
+    return c1, c2
+
+
+def frob_table_fp12(p, nr2, xi):
+    """Fp12 = Fp6[W]/(W^2 - V), V^3 = xi in Fp2.  c1[i] = xi^((p^i-1)/6):
+    Fp2 elements (pairs)."""
+    return [quad_pow(p, nr2, tuple(xi), (pow(p, i) - 1) // 6)
+            for i in range(12)]
+
+
 def flatten(v):
     """Nested int tuple/list -> flat list of ints (depth-first)."""
     if isinstance(v, int):
@@ -134,7 +153,8 @@ class HostTower:
     functions read it: the prime field (``sf`` None, K = 1) or
     sf[Y]/(Y^d - nr), d = ``degree`` (2 or 3), with ``nr`` and the Frobenius
     coefficients ``frob_c1`` (and ``frob_c2`` for d = 3) flat elements of
-    ``sf``."""
+    ``sf``.  Either degree goes over any level: BLS12's Fq6 is a cubic
+    extension of the quadratic Fq2, its Fq12 a quadratic one of that."""
     p: int
     K: int = 1
     sf: "HostTower | None" = None
@@ -254,3 +274,16 @@ def build_mnt6_host_towers(p: int, nr3: int):
     fq6 = HostTower.quad(fq3, [0, 1, 0],
                          [[c, 0, 0] for c in frob_table_fp6_2over3(p, nr3)])
     return base, fq3, fq6
+
+
+def build_bls12_host_towers(p: int, nr2: int, xi):
+    """Fq -> Fq2 (X^2 = nr2) -> Fq6 (V^3 = xi) -> Fq12 (W^2 = V) as host
+    descriptors; Fq12's Frobenius coefficients are Fq2 values embedded as
+    (c, 0, 0) in Fq6."""
+    base = HostTower(p)
+    fq2 = HostTower.quad(base, nr2, frob_table_fp2(p, nr2))
+    fq6 = HostTower.cubic(fq2, list(xi), *frob_table_fp6_3over2(p, nr2, xi))
+    fq12 = HostTower.quad(fq6, [0, 0, 1, 0, 0, 0],
+                          [[list(c), [0, 0], [0, 0]]
+                           for c in frob_table_fp12(p, nr2, xi)])
+    return base, fq2, fq6, fq12

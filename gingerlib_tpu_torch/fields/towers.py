@@ -1,15 +1,15 @@
 """Extension-field towers as batched flat component tensors.
 
-Counterpart of ``gingerlib_tpu/fields/towers.py``, as far as the port's paths
-need it: the base field with a unit component axis (``FpOps``), the
-quadratic extension (``QuadExtOps``) and the cubic one (``CubicExtOps``):
-Fq2, which carries G2 of MNT4-753 and BLS12-377, and MNT4's Fq4 =
-Fq2[Y]/(Y^2 - X), which carries its pairing's GT; Fq3, which carries G2 of
-MNT6-753, and MNT6's Fq6 = Fq3[Y]/(Y^2 - X), its GT; with the cyclotomic
-square, the sparse line multiplies ``mul_by_023`` (MNT4) and
-``mul_by_2345`` (MNT6) and the fixed-exponent powers.  BLS12's Fq6/Fq12
-(a cubic tower over Fq2, whose Frobenius coefficients are not base-field
-values) and their line shapes are not ported yet.
+Counterpart of ``gingerlib_tpu/fields/towers.py``: the base field with a
+unit component axis (``FpOps``), the quadratic extension (``QuadExtOps``)
+and the cubic one (``CubicExtOps``): Fq2, which carries G2 of MNT4-753 and
+of BLS12; MNT4's Fq4 = Fq2[Y]/(Y^2 - X), which carries its pairing's GT;
+Fq3, which carries G2 of MNT6-753, and MNT6's Fq6 = Fq3[Y]/(Y^2 - X), its
+GT; BLS12's Fq6 = Fq2[V]/(V^3 - xi) and Fq12 = Fq6[W]/(W^2 - V), its GT;
+with the cyclotomic squares (the quartic formula, Granger-Scott over
+Fq12), the sparse line multiplies ``mul_by_023`` (MNT4), ``mul_by_2345``
+(MNT6), ``mul_by_014`` (BLS12's M-twist) and ``mul_by_034`` (its D-twist)
+and the fixed-exponent powers.
 
 An element of a degree-K tower is an int64 tensor [..., K, n_digits] whose K
 components are in Montgomery form, sub-tower low component first.  Constants
@@ -23,10 +23,21 @@ multiply of three rows; over Fq2 it is one Fq2 product of three elements,
 i.e. one multiply of nine rows.  ``CubicExtOps`` does the same with the six
 products of its Toom-style multiply: one multiply of six rows over the base
 field, so that an Fq6 product is one Fq3 product of three elements, one
-multiply of eighteen rows.  Every Montgomery product is canonical, so
-the values are those of the JAX package's one-after-another calls, digit for
-digit, in a fraction of the launches.  Fixed exponents are host constants,
-so the power chains branch on the host where the JAX package selects.
+multiply of eighteen rows; over Fq2 one Fq2 product of six elements, so
+that an Fq12 product is one Fq2 product of eighteen elements, one multiply
+of 54 rows.  The BLS12 line multiplies and the Granger-Scott square put all
+their Fq2 products (13 and 6) in one Fq2 product too.  Every Montgomery
+product is canonical, so the values are those of the JAX package's
+one-after-another calls, digit for digit, in a fraction of the launches.
+Fixed exponents are host constants, so the power chains branch on the host
+where the JAX package selects.
+
+Frobenius maps: where every coefficient of every level lies in the base
+field (the MNT towers, and BLS12-377's, whose happen to) x^(p^i) is one
+componentwise scaling; BLS12-381's lie in Fq2, and there x^(p^i) is the
+Fq2 Frobenius of every Fq2 component of x (a conjugation for odd i) times
+one Fq2 constant per component, derived on the host from the levels'
+tables: one Fq2 product.
 """
 
 from __future__ import annotations
@@ -92,23 +103,84 @@ class _FieldBase:
         """Multiply every component by the base-field element s [..., n]."""
         return fpmod.mont_mul(self.fp, a, s.unsqueeze(-2))
 
+    # whether every Frobenius coefficient of this level and those below it
+    # lies in the base field (then ``frob`` is a componentwise scaling)
+    frob_in_base = True
+
     def frob_scale_ints(self, i: int) -> list:
         """Standard-form factors, one a component, by which ``frob(x, i)``
-        multiplies x: every Frobenius map of the ported towers is such a
-        componentwise scaling."""
+        multiplies x where ``frob_in_base``."""
         return [1] * self.K
 
     def frob_scale(self, i: int) -> np.ndarray:
         return fpmod.fp_from_ints(self.fp, self.frob_scale_ints(i))
 
+    def frob_fq2_ints(self, i: int) -> list:
+        """Where the coefficients lie in Fq2 (BLS12): the Fq2 constant, a
+        pair of standard-form ints, by which ``frob(x, i)`` multiplies the
+        Fq2 Frobenius of each Fq2 component of x."""
+        return [[1, 0]]
+
+    def frob_fq2(self, i: int) -> np.ndarray:
+        return fpmod.fp_from_ints(self.fp, host_ext.flatten(
+            self.frob_fq2_ints(i))).reshape(self.K // 2, 2, -1)
+
+    def fq2(self):
+        """The Fq2 at the bottom of this tower (BLS12's chunk field)."""
+        f = self
+        while f.K > 2:
+            f = f.sf
+        if f.K != 2 or not isinstance(f.sf, FpOps):
+            raise NotImplementedError(f"{self.name}: no Fq2 at the bottom")
+        return f
+
     def frob(self, x, i: int):
-        """x^(p^i): one multiply by the per-component factors, none where
-        they are all one."""
+        """x^(p^i): one multiply by the per-component factors (none where
+        they are all one), or over Fq2 components, their Frobenius and one
+        Fq2 product by the constants."""
         i %= self.K
-        if all(c == 1 for c in self.frob_scale_ints(i)):
-            return x
-        return fpmod.mont_mul(self.fp, x,
-                              self.tensor("frob_scale", x.device, i))
+        if self.frob_in_base:
+            if all(c == 1 for c in self.frob_scale_ints(i)):
+                return x
+            return fpmod.mont_mul(self.fp, x,
+                                  self.tensor("frob_scale", x.device, i))
+        f2 = self.fq2()
+        y = f2.frob(x.unflatten(-2, (self.K // 2, 2)), i)
+        if all(c == [1, 0] for c in self.frob_fq2_ints(i)):
+            return y.flatten(-3, -2)
+        return f2.mul(y, self.tensor("frob_fq2", x.device, i)).flatten(-3,
+                                                                      -2)
+
+
+def _check_frob(level, sub, tables):
+    """Set ``level.frob_in_base`` from its Frobenius tables (flat subfield
+    elements); coefficients outside the base field must be Fq2 values over
+    an Fq2 at the bottom of the tower (BLS12's)."""
+    coeffs = [c for t in tables for c in t]
+    if any(len(c) != sub.K for c in coeffs):
+        raise ValueError(f"{level.name}: Frobenius coefficients of "
+                         f"{sub.K} components expected")
+    level.frob_in_base = sub.frob_in_base and not any(
+        any(c[1:]) for c in coeffs)
+    if not level.frob_in_base:
+        if any(any(c[2:]) for c in coeffs):
+            raise NotImplementedError(
+                f"{level.name}: Frobenius coefficients outside Fq2")
+        level.fq2()
+
+
+def _frob_fq2_parts(level, i: int, tables) -> list:
+    """The Fq2 constants of ``level.frob(x, i)``, one an Fq2 component:
+    the subfield's for the first part, times the part's coefficient (an
+    Fq2 value) for each further part."""
+    f2 = level.fq2()
+    p, nr2 = level.fp.modulus, f2.nr_ints[0]
+    sub = level.sf.frob_fq2_ints(i)
+    out = list(sub)
+    for t in tables:
+        c = t[i % level.K][:2]
+        out += [list(host_ext.quad_mul(p, nr2, u, c)) for u in sub]
+    return out
 
 
 class FpOps(_FieldBase):
@@ -151,16 +223,18 @@ class QuadExtOps(_FieldBase):
         self.fp = sub.fp
         self.K = 2 * sub.K
         self._nr_host = sub.const(nonresidue_host)           # [sK, n]
+        self.nr_ints = [v % self.fp.modulus
+                        for v in host_ext.flatten(nonresidue_host)]
         gen = [0] * sub.K
         if not isinstance(sub, FpOps):
             gen[sub.sf.K] = 1
         self.nr_is_sub_gen = not isinstance(sub, FpOps) and \
             host_ext.flatten(nonresidue_host) == gen
+        self._nr_is_minus_one = isinstance(sub, FpOps) and \
+            host_ext.flatten(nonresidue_host)[0] % self.fp.modulus == \
+            self.fp.modulus - 1
         self._frob_c1 = [host_ext.flatten(c) for c in frob_c1_host]
-        for c in self._frob_c1:
-            if len(c) != sub.K or any(c[1:]):
-                raise NotImplementedError(
-                    "Frobenius coefficients outside the base field")
+        _check_frob(self, sub, [self._frob_c1])
 
     def one(self) -> np.ndarray:
         z = self.zero()
@@ -174,6 +248,11 @@ class QuadExtOps(_FieldBase):
         sub = self.sf.frob_scale_ints(i)
         c = self._frob_c1[i % self.K][0]
         return sub + [s * c % self.fp.modulus for s in sub]
+
+    def frob_fq2_ints(self, i: int) -> list:
+        if self.K == 2:
+            return [[1, 0]]
+        return _frob_fq2_parts(self, i, [self._frob_c1])
 
     # -- structure ------------------------------------------------------
 
@@ -204,9 +283,12 @@ class QuadExtOps(_FieldBase):
     # -- arithmetic -----------------------------------------------------
 
     def mul_by_nonresidue(self, a):
-        """A subfield element times Y^2."""
+        """A subfield element times Y^2 (a negation where Y^2 = -1, as over
+        BLS12-381's Fq2)."""
         if self.nr_is_sub_gen:
             return self.sf.mul_by_gen(a)
+        if self._nr_is_minus_one:
+            return self.sf.neg(a)
         return self.sf.mul(a, self.tensor("nonresidue", a.device))
 
     def mul_by_gen(self, x):
@@ -239,9 +321,13 @@ class QuadExtOps(_FieldBase):
     # -- the cyclotomic subgroup (GT) -----------------------------------
 
     def cyclotomic_square(self, x):
-        """Squaring of unitary elements (norm 1): the quartic formula, two
-        subfield squarings (one stacked product) instead of three."""
+        """Squaring of unitary elements (norm 1): Granger-Scott over
+        BLS12's Fq12 (``_cyclotomic_square_gs``), elsewhere the quartic
+        formula, two subfield squarings (one stacked product) instead of
+        three."""
         S = self.sf
+        if isinstance(S, CubicExtOps) and isinstance(S.sf, QuadExtOps):
+            return self._cyclotomic_square_gs(x)
         a0, a1 = self._halves(x)
         sq = S.sqr(torch.stack([a1, S.add(a1, a0)], dim=-3))
         a = sq[..., 0, :, :]
@@ -250,6 +336,88 @@ class QuadExtOps(_FieldBase):
         e = S.sub(c, d)
         one = S.tensor("one", x.device)
         return torch.cat([S.add(S.double(d), one), S.sub(e, one)], dim=-2)
+
+    def _cyclotomic_square_gs(self, x):
+        """Granger-Scott compressed squaring (fp12_2over3over2.rs:116-180):
+        three Fp4-style squarings over the Fq2 pairs (z0, z1), (z2, z3),
+        (z4, z5) of x = ((z0, z4, z3), (z2, z1, z5)), their six Fq2
+        products in one."""
+        fq6 = self.sf
+        f2 = fq6.sf
+        ch = x.unflatten(-2, (6, 2))              # Fq2 components
+        za, zb = ch[..., [0, 3, 1], :, :], ch[..., [4, 2, 5], :, :]
+        # tmp = za zb and (za + zb)(za + xi zb), all three pairs at once
+        lhs = torch.cat([za, f2.add(za, zb)], dim=-3)
+        rhs = torch.cat([zb, f2.add(za, fq6.mul_by_nonresidue(zb))], dim=-3)
+        pr = f2.mul(lhs, rhs)
+        tmp, big = pr[..., :3, :, :], pr[..., 3:, :, :]
+        xi_tmp = fq6.mul_by_nonresidue(tmp)
+        ta = f2.sub(f2.sub(big, tmp), xi_tmp)     # t0, t2, t4
+        # 3 t - 2 z for (t0, z0), (t4, z3), (t2, z4); 3 t + 2 z for
+        # (xi t5, z2), (t1, z1), (t3, z5), with t1, t3, t5 = 2 tmp
+        u = ta[..., [0, 2, 1], :, :]
+        m = f2.add(f2.double(f2.sub(u, ch[..., [0, 2, 1], :, :])), u)
+        v = f2.double(torch.stack([xi_tmp[..., 2, :, :], tmp[..., 0, :, :],
+                                   tmp[..., 1, :, :]], dim=-3))
+        pl = f2.add(f2.double(f2.add(v, ch[..., 3:, :, :])), v)
+        # ((nz0, nz4, nz3), (nz2, nz1, nz5))
+        return torch.cat([m[..., [0, 2, 1], :, :], pl],
+                         dim=-3).flatten(-3, -2)
+
+    def _line_products(self, parts):
+        """One subfield product of the stacked operand pairs ``parts``
+        (lhs, rhs), each [..., k, sK, n] over a batch that broadcasts;
+        returns the products split back into the parts' sizes."""
+        batch = torch.broadcast_shapes(*(t.shape[:-3] for pr in parts
+                                         for t in pr))
+        lhs = torch.cat([l.expand(batch + l.shape[-3:]) for l, _ in parts],
+                        dim=-3)
+        rhs = torch.cat([r.expand(batch + l.shape[-3:]) for l, r in parts],
+                        dim=-3)
+        out = self.sf.sf.mul(lhs, rhs)
+        return out.split([l.shape[-3] for l, _ in parts], dim=-3)
+
+    def mul_by_014(self, x, c0, c1, c4):
+        """x * (c0 + c1 V + c4 V W), c* in Fq2 [..., 2, n]: the M-twist
+        BLS12 line (fp12_2over3over2.rs:95-114, BLS12-381), the Karatsuba
+        shape of the JAX package: mul_by_01 of a and of a + b, mul_by_1 of
+        b, their 13 Fq2 products in one."""
+        fq6 = self.sf
+        if not isinstance(fq6, CubicExtOps) or fq6.sf.K != 2:
+            raise NotImplementedError("mul_by_014 is the Fq12 line shape")
+        a_, b_ = self._halves(x)
+        p01, p1 = self._line_products([
+            fq6._by_01_pair(a_, fq6.add(a_, b_), (c0, c1),
+                            (c0, fq6.sf.add(c1, c4))),
+            (fq6._parts(b_)[..., [2, 0, 1], :, :], c4.unsqueeze(-3))])
+        r = fq6._by_01_combine(p01.unflatten(-3, (2, 5)))
+        aa, t = r[..., 0, :, :], r[..., 1, :, :]
+        bb = torch.cat([fq6.mul_by_nonresidue(p1[..., 0, :, :]),
+                        p1[..., 1, :, :], p1[..., 2, :, :]], dim=-2)
+        return self._line_combine(aa, bb, t)
+
+    def mul_by_034(self, x, c0, c3, c4):
+        """x * (c0 + c3 W + c4 V W), c* in Fq2 [..., 2, n]: the D-twist
+        BLS12 line (BLS12-377), the same Karatsuba shape with the roles
+        flipped: a times c0, mul_by_01 of b and of a + b, their 13 Fq2
+        products in one."""
+        fq6 = self.sf
+        if not isinstance(fq6, CubicExtOps) or fq6.sf.K != 2:
+            raise NotImplementedError("mul_by_034 is the Fq12 line shape")
+        a_, b_ = self._halves(x)
+        pa, p01 = self._line_products([
+            (fq6._parts(a_), c0.unsqueeze(-3)),
+            fq6._by_01_pair(b_, fq6.add(a_, b_), (c3, c4),
+                            (fq6.sf.add(c0, c3), c4))])
+        r = fq6._by_01_combine(p01.unflatten(-3, (2, 5)))
+        bb, t = r[..., 0, :, :], r[..., 1, :, :]
+        return self._line_combine(pa.flatten(-3, -2), bb, t)
+
+    def _line_combine(self, aa, bb, t):
+        """(aa + nr bb, t - aa - bb): the Karatsuba tail of the lines."""
+        fq6 = self.sf
+        return torch.cat([fq6.add(self.mul_by_nonresidue(bb), aa),
+                          fq6.sub(fq6.sub(t, aa), bb)], dim=-2)
 
     def mul_by_023(self, x, a, c1):
         """x * (c0 + c1*Y) with c0 = [a, 0], a in Fp: the MNT4 affine-line
@@ -307,9 +475,9 @@ class CubicExtOps(_FieldBase):
     """sub[X]/(X^3 - nonresidue): x = a0 + a1*X + a2*X^2 as
     [..., 3*sub.K, n_digits], the Toom-style products of the JAX package's
     ``CubicExtOps``: six subfield products a multiply, stacked into ONE
-    subfield product of six elements.  Its Frobenius maps need
-    coefficients in the base field, as MNT6's Fq3 has them; BLS12's Fq6
-    over Fq2 is not ported."""
+    subfield product of six elements.  Over the base field (MNT6's Fq3)
+    or over Fq2 (BLS12's Fq6, X^3 = xi in Fq2, Frobenius coefficients in
+    Fq2)."""
 
     def __init__(self, name, sub, nonresidue_host, frob_c1_host,
                  frob_c2_host):
@@ -319,13 +487,21 @@ class CubicExtOps(_FieldBase):
         self.fp = sub.fp
         self.K = 3 * sub.K
         self._nr_host = sub.const(nonresidue_host)           # [sK, n]
-        self._frob = []
-        for c1, c2 in zip(frob_c1_host, frob_c2_host):
-            c1, c2 = host_ext.flatten(c1), host_ext.flatten(c2)
-            if any(c1[1:]) or any(c2[1:]) or len(c1) != sub.K:
-                raise NotImplementedError(
-                    "Frobenius coefficients outside the base field")
-            self._frob.append((c1[0], c2[0]))
+        self.nr_ints = [v % self.fp.modulus
+                        for v in host_ext.flatten(nonresidue_host)]
+        gen = [0] * sub.K
+        if not isinstance(sub, FpOps):
+            gen[sub.sf.K] = 1
+        # xi = X, the subfield's generator (BLS12-377: (0, 1)), or 1 + X
+        # (BLS12-381: (1, 1)): a rotation and one multiply by the
+        # subfield's nonresidue, and an addition for the second
+        self._nr_kind = "generic" if isinstance(sub, FpOps) else \
+            "gen" if self.nr_ints == gen else \
+            "one_plus_gen" if self.nr_ints == [1] + gen[1:] else "generic"
+        self._c1 = [host_ext.flatten(c) for c in frob_c1_host]
+        self._c2 = [host_ext.flatten(c) for c in frob_c2_host]
+        _check_frob(self, sub, [self._c1, self._c2])
+        self._frob = [(c1[0], c2[0]) for c1, c2 in zip(self._c1, self._c2)]
 
     def one(self) -> np.ndarray:
         z = self.zero()
@@ -337,9 +513,12 @@ class CubicExtOps(_FieldBase):
 
     def frob_scale_ints(self, i: int) -> list:
         sub = self.sf.frob_scale_ints(i)
-        c1, c2 = self._frob[i % 3]
+        c1, c2 = self._frob[i % self.K]
         p = self.fp.modulus
         return sub + [s * c1 % p for s in sub] + [s * c2 % p for s in sub]
+
+    def frob_fq2_ints(self, i: int) -> list:
+        return _frob_fq2_parts(self, i, [self._c1, self._c2])
 
     # -- structure ------------------------------------------------------
 
@@ -372,6 +551,10 @@ class CubicExtOps(_FieldBase):
 
     def mul_by_nonresidue(self, a):
         """A subfield element (or a stack of them) times X^3."""
+        if self._nr_kind == "gen":
+            return self.sf.mul_by_gen(a)
+        if self._nr_kind == "one_plus_gen":
+            return self.sf.add(a, self.sf.mul_by_gen(a))
         return self.sf.mul(a, self.tensor("nonresidue", a.device))
 
     def mul_by_gen(self, x):
@@ -410,20 +593,40 @@ class CubicExtOps(_FieldBase):
         """Multiply by a subfield element s [..., sK, n] (sparse)."""
         return self.sf.mul(self._parts(x), s.unsqueeze(-3)).flatten(-3, -2)
 
-    def mul_by_01(self, x, b0, b1):
-        """x * (b0 + b1*X), b0, b1 in the subfield: five subfield products,
-        one stacked product."""
+    def _by_01_operands(self, x, b0, b1):
+        """The five subfield products of x * (b0 + b1 X) as operand stacks
+        [..., 5, sK, n]: a0 b0, a1 b1, (a1 + a2) b1, (a0 + a1)(b0 + b1),
+        (a0 + a2) b0."""
         S = self.sf
-        a0, a1, a2 = self._parts(x).unbind(-3)
-        pr = S.mul(torch.stack([a0, a1, S.add(a1, a2), S.add(a0, a1),
-                                S.add(a0, a2)], dim=-3),
-                   torch.stack(torch.broadcast_tensors(
-                       b0, b1, b1, S.add(b0, b1), b0), dim=-3))
+        a = self._parts(x)
+        sums = S.add(a[..., [1, 0, 0], :, :], a[..., [2, 1, 2], :, :])
+        b0, b1 = torch.broadcast_tensors(b0, b1)
+        return (torch.cat([a[..., :2, :, :], sums], dim=-3),
+                torch.stack([b0, b1, b1, S.add(b0, b1), b0], dim=-3))
+
+    def _by_01_pair(self, x, y, bx, by):
+        """The operands of x * (bx0 + bx1 X) and y * (by0 + by1 X) as one
+        stack of ten products [..., 10, sK, n] each side."""
+        def st(u, v):
+            return torch.stack(torch.broadcast_tensors(u, v), dim=-3)
+        lhs, rhs = self._by_01_operands(st(x, y), st(bx[0], by[0]),
+                                        st(bx[1], by[1]))
+        return lhs.flatten(-4, -3), rhs.flatten(-4, -3)
+
+    def _by_01_combine(self, pr):
+        """The five products [..., 5, sK, n] -> x * (b0 + b1 X)."""
+        S = self.sf
         aa, bb, t12, t01, t02 = pr.unbind(-3)
         c0 = S.add(self.mul_by_nonresidue(S.sub(t12, bb)), aa)
         c1 = S.sub(S.sub(t01, aa), bb)
         c2 = S.add(S.sub(t02, aa), bb)
         return torch.cat([c0, c1, c2], dim=-2)
+
+    def mul_by_01(self, x, b0, b1):
+        """x * (b0 + b1*X), b0, b1 in the subfield: five subfield products,
+        one stacked product."""
+        lhs, rhs = self._by_01_operands(x, b0, b1)
+        return self._by_01_combine(self.sf.mul(lhs, rhs))
 
     def mul_by_1(self, x, b1):
         """x * (b1*X), b1 in the subfield: three subfield products."""
@@ -480,6 +683,19 @@ def ext_cyclotomic_pow_const(ops, x, e: int):
     return r
 
 
+def ext_product(ops, f_batch):
+    """The product of f_batch [k, ..., K, nd] along axis 0: a tree of
+    products, one ``ops.mul`` a level (the pairings' product of Miller
+    values)."""
+    cur = f_batch
+    while cur.shape[0] > 1:
+        if cur.shape[0] % 2:
+            cur = torch.cat([cur, ops.tensor("one", cur.device).expand(
+                (1,) + cur.shape[1:])], dim=0)
+        cur = ops.mul(cur[0::2], cur[1::2])
+    return cur[0]
+
+
 def ext_batch_inverse_tree(ops, a):
     """Invert a flat batch [N, K, nd] with ~3N multiplies and ONE field
     inversion: pairwise products up a log-depth tree, ``ops.inv`` at the
@@ -524,6 +740,22 @@ def build_quadratic_tower(fq_params: FpParams, nr2: int):
     fq2 = QuadExtOps(f"{fq_params.name}2", base, nr2,
                      host_ext.frob_table_fp2(fq_params.modulus, nr2))
     return base, fq2
+
+
+def build_bls12_towers(fq_params: FpParams, nr2: int, xi):
+    """BLS12 tower Fq -> Fq2 (X^2 = nr2) -> Fq6 (V^3 = xi) -> Fq12 (W^2 =
+    V); Fq12's nonresidue V is (0, 0, 1, 0, 0, 0) in flat Fq6 components
+    and its Frobenius coefficients are Fq2 values embedded as (c, 0, 0).
+    Returns (base, fq2, fq6, fq12)."""
+    p = fq_params.modulus
+    base, fq2 = build_quadratic_tower(fq_params, nr2)
+    c1, c2 = host_ext.frob_table_fp6_3over2(p, nr2, xi)
+    fq6 = CubicExtOps(f"{fq_params.name}6", fq2, list(xi),
+                      [list(c) for c in c1], [list(c) for c in c2])
+    fq12 = QuadExtOps(f"{fq_params.name}12", fq6, [0, 0, 1, 0, 0, 0],
+                      [[list(c), [0, 0], [0, 0]] for c in
+                       host_ext.frob_table_fp12(p, nr2, xi)])
+    return base, fq2, fq6, fq12
 
 
 def build_mnt4_towers(fq_params: FpParams, nr2: int):

@@ -1,8 +1,9 @@
 """Groth16 and GM17 verifier gadgets — one step of recursive composition
 (r1cs/gadgets/crypto/src/nizk/groth16/mod.rs:106-184, nizk/gm17/mod.rs).
 
-Counterpart of ``gingerlib_tpu/gadgets/crypto/nizk.py`` over the MNT4-753 /
-MNT6-753 cycle.
+Counterpart of ``gingerlib_tpu/gadgets/crypto/nizk.py``: over the
+MNT4-753 / MNT6-753 cycle, and the BLS12-377 Groth16 verifier (circuit
+field BLS12-377 Fq = SW6 Fr).
 
 The circuit field is the inner curve's Fq (= the outer curve's Fr on the
 MNT4/6-753 cycle), so a proof over MNT4-753 is verified inside a circuit
@@ -203,3 +204,14 @@ def mnt6753_gm17_verifier_gadget():
     g1 = SWGroupGadget(base, [c["a"]], [c["b"]])
     return Gm17VerifierGadget(pg, g1, pg.g2, fq6)
 
+
+def bls12_377_verifier_gadget():
+    """Groth16 verifier for BLS12-377 proofs; circuit field = BLS12-377 Fq
+    (= SW6 Fr) -- the reference's third recursion configuration
+    (nizk/groth16/mod.rs:431)."""
+    from ..std.pairing_bls12 import bls12_377_pairing_gadget
+    from ...params._gen import curves_gen as CG
+    pg, base, fq2, fq12 = bls12_377_pairing_gadget()
+    c = CG.BLS12_377
+    g1 = SWGroupGadget(base, [c["a"]], [c["b"]])
+    return Groth16VerifierGadget(pg, g1, pg.g2, fq12)

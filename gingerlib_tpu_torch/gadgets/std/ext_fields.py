@@ -1,8 +1,8 @@
 """In-circuit extension-field gadgets (r1cs/gadgets/std/src/fields/).
 
-Counterpart of ``gingerlib_tpu/gadgets/std/ext_fields.py``: the MNT4 and
-MNT6 towers (Fq2, Fq4; Fq3, Fq6), their Frobenius tables from
-``fields/host_ext.py``.
+Counterpart of ``gingerlib_tpu/gadgets/std/ext_fields.py``: the MNT4,
+MNT6 and BLS12 towers (Fq2, Fq4; Fq3, Fq6; Fq2, Fq6 = Fq2[V]/(V^3 - xi),
+Fq12), their Frobenius tables from ``fields/host_ext.py``.
 
 Same composable quad/cubic tower design as the device side
 (fields/towers.py), but over FpG wires: elements are flat lists of K wires,
@@ -320,3 +320,17 @@ def build_mnt6_tower_gadgets(fq_params, nr3: int):
     fq6 = QuadExtG(fq3, [0, 1, 0], [[c, 0, 0] for c in c1_6])
     return base, fq3, fq6
 
+
+def build_bls12_tower_gadgets(fq_params, nr2: int, xi):
+    """Fq -> Fq2 (X^2 = nr2) -> Fq6 (V^3 = xi) -> Fq12 (W^2 = V), gadget
+    descriptors mirroring fields/towers.build_bls12_towers."""
+    p = fq_params.modulus
+    base = FpGOps(fq_params)
+    fq2 = QuadExtG(base, nr2, host_ext.frob_table_fp2(p, nr2))
+    c1, c2 = host_ext.frob_table_fp6_3over2(p, nr2, xi)
+    fq6 = CubicExtG(fq2, list(xi), [list(c) for c in c1],
+                    [list(c) for c in c2])
+    c1_12 = host_ext.frob_table_fp12(p, nr2, xi)
+    fq12 = QuadExtG(fq6, [0, 0, 1, 0, 0, 0],
+                    [[list(c), [0, 0], [0, 0]] for c in c1_12])
+    return base, fq2, fq6, fq12

@@ -26,9 +26,10 @@ extra point of that element's MSM: A is one MSM over the a query and
 gamma Z(t) G1, B the same in G2, C one MSM over both c queries, the
 h query and the two single bases, with r * c2_acc folded into the c2
 query's scalars.  The points are those of the JAX package's sums term by
-term.  Verification: the input accumulation, five host ladders
-(``prepare_g2``) and the two pairing-product equations, each one prepared
-Miller loop over its pairs and one final exponentiation.
+term.  Verification: the input accumulation and the two pairing-product
+equations, each the engine's ``product_of_pairings``: one Miller loop
+over its pairs (prepared through five host ladders over MNT; with the
+lines on the device over BLS12) and one final exponentiation.
 """
 
 from __future__ import annotations
@@ -38,7 +39,6 @@ from dataclasses import dataclass
 
 import torch
 
-from ..curves.pairing_mnt import MNTPairing
 from ..device import resolve_device
 from ..fields import fp as fpmod
 from ..ops import msm as msm_mod
@@ -59,8 +59,8 @@ class GM17VerifyingKey:
     h_gamma_g2: tuple
     query: tuple                  # (xs, ys, inf) [num_inputs]
     g_alpha_h_beta: torch.Tensor | None  # GT element [K, nd]: e(g^alpha,
-    #                                       h^beta); None where the engine
-    #                                       has no pairing
+    #                                       h^beta); None only in a key
+    #                                       carried across without it
 
 
 @dataclass
@@ -149,8 +149,7 @@ GAMMA = 1
 def generate_parameters(engine, cs: ConstraintSystem, alpha: int, beta: int,
                         t: int, device=None) -> GM17Parameters:
     """CRS generation with explicit toxic waste (gm17/generator.rs) and
-    gamma = ``GAMMA``.  An engine without a pairing (BLS12-377) sets up and
-    proves, and leaves the vk's GT element at ``None``."""
+    gamma = ``GAMMA``."""
     device = _engine_device(engine, device)
     g1, g2 = engine.g1, engine.g2
     fr = g1.scalar_field
@@ -184,11 +183,7 @@ def generate_parameters(engine, cs: ConstraintSystem, alpha: int, beta: int,
     vk = GM17VerifyingKey(
         h_g2=g2.generator_affine, g_alpha_g1=g_alpha, h_beta_g2=h_beta,
         g_gamma_g1=pick(single1, 1), h_gamma_g2=pick(single2, 1),
-        query=query,
-        # an engine with a pairing is the pairing (instances.py)
-        g_alpha_h_beta=engine.pairing_prepared(
-            g_alpha, engine.prepare_g2(h_beta))
-        if isinstance(engine, MNTPairing) else None)
+        query=query, g_alpha_h_beta=engine.pairing(g_alpha, h_beta))
     return GM17Parameters(
         vk=vk, a_query=a_q, b_query=b_q, c_query_1=c1_q, c_query_2=c2_q,
         g_gamma_z=pick(single1, 2), h_gamma_z=pick(single2, 2),
@@ -357,17 +352,13 @@ def create_proof(engine, params: GM17Parameters,
 # verification
 # ---------------------------------------------------------------------------
 
-def verify_proof(engine: MNTPairing, vk: GM17VerifyingKey, proof: GM17Proof,
+def verify_proof(engine, vk: GM17VerifyingKey, proof: GM17Proof,
                  public_inputs) -> bool:
     """The two pairing-product equations (gm17/verifier.rs):
         e(A + alpha, B + beta) = e(alpha, beta) e(psi, gamma_h2) e(C, h)
         e(A, gamma_h2)         = e(gamma_g1, B)
     with psi the sum of the query's points times (1, public_inputs...);
     public_inputs: python ints, without the leading one."""
-    if not isinstance(engine, MNTPairing):
-        raise NotImplementedError(
-            f"verify_proof needs the engine's pairing, and this engine "
-            f"({engine.g1.name}, {engine.g2.name}) has none")
     if vk.g_alpha_h_beta is None:
         raise ValueError("verifying key has no g_alpha_h_beta")
     g1, g2 = engine.g1, engine.g2
@@ -385,14 +376,12 @@ def verify_proof(engine: MNTPairing, vk: GM17VerifyingKey, proof: GM17Proof,
     def pairs(*pts):
         return tuple(torch.stack(c) for c in zip(*pts))
 
-    gt1 = engine.product_of_pairings_prepared(
+    gt1 = engine.product_of_pairings(
         pairs(plus(g1, proof.a, vk.g_alpha_g1), g_psi, proof.c),
-        [engine.prepare_g2(q) for q in (plus(g2, proof.b, vk.h_beta_g2),
-                                        neg(g2, vk.h_gamma_g2),
-                                        neg(g2, vk.h_g2))])
+        pairs(plus(g2, proof.b, vk.h_beta_g2), neg(g2, vk.h_gamma_g2),
+              neg(g2, vk.h_g2)))
     if not torch.equal(gt1, vk.g_alpha_h_beta):
         return False
-    gt2 = engine.product_of_pairings_prepared(
-        pairs(proof.a, neg(g1, vk.g_gamma_g1)),
-        [engine.prepare_g2(q) for q in (vk.h_gamma_g2, proof.b)])
+    gt2 = engine.product_of_pairings(pairs(proof.a, neg(g1, vk.g_gamma_g1)),
+                                     pairs(vk.h_gamma_g2, proof.b))
     return bool(torch.equal(gt2, engine.fqk.tensor("one", gt2.device)))

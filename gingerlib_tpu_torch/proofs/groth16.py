@@ -26,13 +26,13 @@ two-lane loop over G1 gives s*A + r*B1.  The results are those of the JAX
 package's one-after-another calls.
 
 Verification follows the JAX package's ``verify_proof``: the input
-accumulation (``msm_naive`` below 64 inputs, ``msm_bucketed`` from 64), one
-host affine ladder for each of B, -gamma and -delta (``prepare_g2``), ONE
-prepared Miller loop over the batch of three pairs, one final
+accumulation (``msm_naive`` below 64 inputs, ``msm_bucketed`` from 64),
+then the product of the three pairs, the engine's
+``product_of_pairings``: ONE Miller loop over the batch of three pairs
+(over MNT after one host affine ladder for each of B, -gamma and -delta;
+over BLS12 with the G2 lines on the device) and one final
 exponentiation, and the compare in GT with ``vk.alpha_g1_beta_g2``, which
-setup fills in with one prepared pairing.  An engine without a pairing
-(BLS12-377, whose pairing is not ported yet) sets up and proves, leaves
-``alpha_g1_beta_g2`` at ``None`` and cannot verify.
+setup fills in with the engine's ``pairing``.
 """
 
 from __future__ import annotations
@@ -42,8 +42,6 @@ from dataclasses import dataclass
 
 import torch
 
-from ..curves.instances import Engine
-from ..curves.pairing_mnt import MNTPairing
 from ..device import resolve_device
 from ..fields import fp as fpmod
 from ..ops import limbs
@@ -57,7 +55,8 @@ from ..relations.r1cs import (ConstraintSystem, CompiledR1CS,
 @dataclass
 class VerifyingKey:
     alpha_g1_beta_g2: torch.Tensor | None   # GT element [K, nd]; None
-    #                                         where the engine has no pairing
+    #                                         only in a key carried across
+    #                                         without it (utils.convert)
     gamma_g2: tuple                         # G2 affine (x, y)
     delta_g2: tuple
     gamma_abc_g1: tuple                     # (xs, ys) [num_inputs, 1, nd]
@@ -87,7 +86,7 @@ class Proof:
     c: tuple  # G1 affine
 
 
-def _engine_device(engine: Engine, device) -> torch.device:
+def _engine_device(engine, device) -> torch.device:
     device = resolve_device(device)
     for g in (engine.g1, engine.g2):
         if g.device != device:
@@ -151,7 +150,7 @@ def qap_at_device(cs: ConstraintSystem, t: int, device=None):
     return a, b, c, domain.evaluate_vanishing_polynomial(t), domain
 
 
-def generate_parameters(engine: Engine, cs: ConstraintSystem,
+def generate_parameters(engine, cs: ConstraintSystem,
                         alpha: int, beta: int, gamma: int, delta: int,
                         t: int, device=None) -> Parameters:
     """CRS generation with explicit toxic waste."""
@@ -189,10 +188,8 @@ def generate_parameters(engine: Engine, cs: ConstraintSystem,
         return (group[0][i], group[1][i])
 
     vk = VerifyingKey(
-        # an engine with a pairing is the pairing (instances.py)
-        alpha_g1_beta_g2=engine.pairing_prepared(
-            pick(single1, 0), engine.prepare_g2(pick(single2, 0)))
-        if isinstance(engine, MNTPairing) else None,
+        alpha_g1_beta_g2=engine.pairing(pick(single1, 0),
+                                        pick(single2, 0)),
         gamma_g2=pick(single2, 1),
         delta_g2=pick(single2, 2),
         gamma_abc_g1=(abc_q[0], abc_q[1]),
@@ -259,7 +256,7 @@ def _witness_map_core(compiled: CompiledR1CS, z, blind):
     return h[:m - 1]
 
 
-def create_proof(engine: Engine, params: Parameters,
+def create_proof(engine, params: Parameters,
                  compiled: CompiledR1CS, assignment, r: int, s: int,
                  d1: int = 0, d2: int = 0, d3: int = 0,
                  device=None) -> Proof:
@@ -349,17 +346,12 @@ def accumulate_inputs(g1, query, public_inputs):
     return g1.to_affine(msm(g1, xs, ys, sd, inf_mask=inf))
 
 
-def verify_proof(engine: MNTPairing, vk: VerifyingKey, proof: Proof,
+def verify_proof(engine, vk: VerifyingKey, proof: Proof,
                  public_inputs) -> bool:
     """The three-pair product check (verifier.rs:18-44):
     e(A, B) * e(acc, -gamma) * e(C, -delta) == e(alpha, beta), where acc
     is the sum of gamma_abc[i] times (1, public_inputs...).  public_inputs:
     python ints, without the leading one."""
-    if not isinstance(engine, MNTPairing):
-        raise NotImplementedError(
-            f"verify_proof needs the engine's pairing, and this engine "
-            f"({engine.g1.name}, {engine.g2.name}) has none: the BLS12 "
-            f"pairing over Fq12 is not ported yet")
     g1, g2 = engine.g1, engine.g2
     xs, ys = vk.gamma_abc_g1
     if xs.shape[0] != len(public_inputs) + 1:
@@ -372,8 +364,9 @@ def verify_proof(engine: MNTPairing, vk: VerifyingKey, proof: Proof,
     neg_delta = (vk.delta_g2[0], g2.F.neg(vk.delta_g2[1]))
     p_batch = tuple(torch.stack([a, b, c])
                     for a, b, c in zip(proof.a, acc, proof.c))
-    preps = [engine.prepare_g2(q) for q in (proof.b, neg_gamma, neg_delta)]
-    gt = engine.product_of_pairings_prepared(p_batch, preps)
+    q_batch = tuple(torch.stack([b, g, d])
+                    for b, g, d in zip(proof.b, neg_gamma, neg_delta))
+    gt = engine.product_of_pairings(p_batch, q_batch)
     return bool(torch.equal(gt, vk.alpha_g1_beta_g2))
 
 
@@ -391,7 +384,7 @@ def affine_to_ints(curve, xy):
     return (x, y)
 
 
-def proof_to_ints(engine: Engine, proof: Proof) -> dict:
+def proof_to_ints(engine, proof: Proof) -> dict:
     """The proof in the host oracle's form."""
     return {"a": affine_to_ints(engine.g1, proof.a),
             "b": affine_to_ints(engine.g2, proof.b),

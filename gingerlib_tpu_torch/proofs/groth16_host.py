@@ -18,7 +18,7 @@ Also here: the QAP at the toxic point in python ints (Lagrange
 coefficients and per-variable evaluations, ``qap_at``), the oracle that
 ``proofs/groth16.qap_at_device`` is held to, affine curve arithmetic
 over Fq, Fq2 and Fq3 in python ints (``host_curves``: MNT4-753, MNT6-753,
-BLS12-377), and ``HostGroth16``: setup, prove and verify in python ints
+BLS12-377, BLS12-381), and ``HostGroth16``: setup, prove and verify in python ints
 for small circuits (counterpart of the JAX package's ``HostGroth16``), the
 prover of the recursion's inner proofs in the tests.
 """
@@ -29,8 +29,9 @@ import functools
 from dataclasses import dataclass
 
 from .. import params as PP
-from ..curves.pairing_host import (HostMNTPairing, host_mnt4753_pairing,
-                                   host_mnt6753_pairing)
+from ..curves.pairing_host import (HostMNTPairing, host_bls12_377_pairing,
+                                   host_bls12_381_pairing,
+                                   host_mnt4753_pairing, host_mnt6753_pairing)
 from ..fields import host_ext
 from ..params._gen import curves_gen as CG, towers_gen as TG
 from ..relations.r1cs import ConstraintSystem
@@ -117,6 +118,8 @@ _FAMILIES = {
     "mnt6753": (CG.MNT6753, TG.MNT6753_FQ3, 3, PP.MNT6753_FQ, PP.MNT6753_FR),
     "bls12_377": (CG.BLS12_377, TG.BLS12_377_FQ2, 2, PP.BLS12_377_FQ,
                   PP.BLS12_377_FR),
+    "bls12_381": (CG.BLS12_381, TG.BLS12_381_FQ2, 2, PP.BLS12_381_FQ,
+                  PP.BLS12_381_FR),
 }
 
 
@@ -284,7 +287,8 @@ class HostParams:
 
 
 class HostGroth16:
-    """Groth16 in python ints over the pairing ``E``: points are affine
+    """Groth16 in python ints over the pairing ``E`` (an MNT or a BLS12
+    host pairing): points are affine
     ([x comps], [y comps]) in standard form, None for infinity; every query
     element is one scalar multiplication, so only small circuits.  The vk
     is the dict the verifier gadget allocates from: ``alpha_g1_beta_g2``
@@ -409,3 +413,15 @@ def host_groth16_mnt4753() -> HostGroth16:
 def host_groth16_mnt6753() -> HostGroth16:
     g1, g2, fr = host_curves("mnt6753")
     return HostGroth16(host_mnt6753_pairing(), g1, g2, fr)
+
+
+def host_groth16_bls12_377() -> HostGroth16:
+    """Groth16 over BLS12-377 (reference groth16/test.rs bls12_377
+    module): the inner proof of the BLS12-377 verifier circuit."""
+    g1, g2, fr = host_curves("bls12_377")
+    return HostGroth16(host_bls12_377_pairing(), g1, g2, fr)
+
+
+def host_groth16_bls12_381() -> HostGroth16:
+    g1, g2, fr = host_curves("bls12_381")
+    return HostGroth16(host_bls12_381_pairing(), g1, g2, fr)

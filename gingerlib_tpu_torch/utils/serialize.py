@@ -240,8 +240,7 @@ def proof_from_bytes(engine, data: bytes, device=None):
 
 def vk_to_bytes(engine, vk) -> bytes:
     if vk.alpha_g1_beta_g2 is None:
-        raise ValueError("verifying key has no alpha_g1_beta_g2 (an engine "
-                         "without a pairing)")
+        raise ValueError("verifying key has no alpha_g1_beta_g2")
     xs, ys = vk.gamma_abc_g1
     n = xs.shape[0]
     return b"".join([
@@ -375,6 +374,38 @@ def _ext_pow_host(F, a, e: int):
     return r
 
 
+def _ext_norm_host(F, a) -> int:
+    """The norm of a down to the prime field, one level at a time:
+    a0^2 - nr a1^2 over a quadratic level, a0^3 + nr a1^3 + nr^2 a2^3 -
+    3 nr a0 a1 a2 over a cubic one."""
+    if F.sf is None:
+        return a[0] % F.p
+    S, p, nr = F.sf, F.p, list(F.nr)
+
+    def m(x, y):
+        return host_ext.host_ext_mul(S, x, y)
+
+    if F.degree == 2:
+        a0, a1 = F.parts(a)
+        n = [(x - y) % p for x, y in zip(
+            m(a0, a0), host_ext.host_ext_mul_const(S, m(a1, a1), nr))]
+    else:
+        a0, a1, a2 = F.parts(a)
+        nr2 = m(nr, nr)
+        n = [(x + y + z - 3 * w) % p for x, y, z, w in zip(
+            m(a0, m(a0, a0)),
+            host_ext.host_ext_mul_const(S, m(a1, m(a1, a1)), nr),
+            host_ext.host_ext_mul_const(S, m(a2, m(a2, a2)), nr2),
+            host_ext.host_ext_mul_const(S, m(a0, m(a1, a2)), nr))]
+    return _ext_norm_host(S, n)
+
+
+def _ext_is_square_host(F, a) -> bool:
+    """Euler's criterion through the norm: a^((q - 1)/2) = N(a)^((p -
+    1)/2) for a non-zero a of F_q over F_p."""
+    return pow(_ext_norm_host(F, a), (F.p - 1) // 2, F.p) == 1
+
+
 def _ext_sqrt_host(F, a):
     """Tonelli-Shanks over F_(p^k) in host ints; None for a non-square."""
     p, k = F.p, F.K
@@ -384,7 +415,7 @@ def _ext_sqrt_host(F, a):
     a = [v % p for v in a]
     if a == zero:
         return zero
-    if _ext_pow_host(F, a, (q - 1) // 2) != one:
+    if not _ext_is_square_host(F, a):
         return None
     t, s = q - 1, 0
     while t % 2 == 0:
@@ -396,8 +427,7 @@ def _ext_sqrt_host(F, a):
         if k > 1:
             cands += [[0] * (k - 1) + [trial], [trial, 1] + [0] * (k - 2)]
         for cand in cands:
-            if _ext_pow_host(F, cand, (q - 1) // 2) != one and \
-                    _ext_pow_host(F, cand, q - 1) == one:
+            if not _ext_is_square_host(F, cand):
                 z = cand
                 break
         if z:
@@ -405,8 +435,10 @@ def _ext_sqrt_host(F, a):
     if z is None:
         raise ValueError("no quadratic non-residue found")
     m, c = s, _ext_pow_host(F, z, t)
+    # x = a^((t + 1)/2), b = a^t = x^2 / a
     x = _ext_pow_host(F, a, (t + 1) // 2)
-    b = _ext_pow_host(F, a, t)
+    b = host_ext.host_ext_mul(F, host_ext.host_ext_mul(F, x, x),
+                              host_ext.host_ext_inv(F, a))
     while b != one:
         i, bb = 0, list(b)
         while bb != one:

@@ -39,6 +39,7 @@ from gingerlib_tpu_torch.proofs import groth16 as tgroth16
 from gingerlib_tpu_torch.relations import r1cs as tr1cs
 from gingerlib_tpu_torch.utils.convert import (gm17_params_from_numpy,
                                                points_to_numpy)
+from test_torch_cases import host_alpha_beta
 from test_torch_groth16 import jax_copy
 
 torch.set_num_threads(1)
@@ -229,8 +230,8 @@ def test_params_carried_from_the_jax_host_form(host_pair):
 
 @pytest.fixture(scope="module")
 def bls_case():
-    """Setup and prove over BLS12-377 (an engine without a pairing: its
-    vk's GT element stays None) on the 4-constraint benchmark circuit."""
+    """Setup and prove over BLS12-377 on the 4-constraint benchmark
+    circuit."""
     eng = TCI.bls12_377_engine("cpu")
     cs, _ = benchmark_circuit(TP.BLS12_377_FR, 2, 4)
     compiled = tgm17.compile_circuit(cs, device="cpu")
@@ -244,10 +245,12 @@ def test_device_gm17_over_bls12_377_matches_oracle(bls_case):
     eng, params = bls_case["eng"], bls_case["params"]
     assert tgroth16.proof_to_ints(eng, bls_case["proof"]) == \
         GH.expected_gm17_proof("bls12_377", bls_case["cs"], **TOXIC, **RAND)
-    assert params.vk.g_alpha_h_beta is None
+    # the vk's GT element: e(alpha G1, beta G2) by the host oracle
+    assert tfp.fp_to_ints(eng.fp, params.vk.g_alpha_h_beta) == \
+        host_alpha_beta(TOXIC["alpha"], TOXIC["beta"], "bls12_377")
     assert params.domain_size == 16
-    with pytest.raises(NotImplementedError, match="pairing"):
-        tgm17.verify_proof(eng, params.vk, bls_case["proof"], [1, 2])
+    inputs = bls_case["cs"].input_values[1:]
+    assert tgm17.verify_proof(eng, params.vk, bls_case["proof"], inputs)
 
 
 def test_params_carried_from_the_array_form(bls_case):

@@ -1,8 +1,8 @@
 """The port's field, curve, pow-chain, Poseidon and RNS kernels against their
 plain PyTorch versions (the curve kernels also at MNT6-753 G1's constant),
-and the MNT4-753 and MNT6-753 pairings, Groth16 verification, GM17 and the
-recursion's inner proof (through the bridge to the verifier circuit) that
-run over them, under pytest, on a machine with an NVIDIA GPU:
+and the MNT4-753, MNT6-753, BLS12-377 and BLS12-381 pairings, Groth16
+verification, GM17 and the recursion's inner proof (through the bridge to
+the verifier circuit) that run over them, under pytest, on a machine with an NVIDIA GPU:
 
     python -m pytest --noconftest tests/test_torch_gpu_kernels.py -q
 
@@ -873,3 +873,97 @@ def test_affine_kernels_at_the_outer_proofs_widths(n):
     (wx, wy), winf = EK.batch_affine_add_plain(curve, a_pt, b_pt)
     assert torch.equal(gx, wx) and torch.equal(gy, wy) \
         and torch.equal(ginf, winf)
+
+
+# ---------------------------------------------------------------------------
+# BLS12-377 and BLS12-381: the Fq12 tower, the pairing, Groth16 and GM17
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", params=["bls12_377", "bls12_381"])
+def bls12_pairing(request):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the field kernels have no CPU form")
+    return getattr(CI, f"{request.param}_pairing")()
+
+
+def test_fq6_fq12_on_the_kernels_match_plain(bls12_pairing):
+    """Fq6 and Fq12 multiply, inverse, Frobenius (Fq2 coefficients), the
+    Granger-Scott square and the curve's line shape on the field kernels
+    against the same calls on the CPU's plain versions."""
+    E = bls12_pairing
+    F, P = E.fqk, E.fp.modulus
+    x = torch.from_numpy(np.stack([F.const(rand_below(P, 12, seed=s))
+                                   for s in range(5)]))
+    y = x.roll(1, 0)
+    r = F.mul(F.conjugate(x), F.inv(x))               # on the CPU
+    u = F.mul(F.frob(r, 2), r)                        # cyclotomic
+    S = F.sf
+    line = F.mul_by_014 if E.twist_type == "M" else F.mul_by_034
+    ops = {"fq6 mul": lambda x, y, u: S.mul(x[..., :6, :], y[..., 6:, :]),
+           "fq6 inv": lambda x, y, u: S.inv(x[..., :6, :]),
+           "mul": lambda x, y, u: F.mul(x, y),
+           "inv": lambda x, y, u: F.inv(x),
+           "frob1": lambda x, y, u: F.frob(x, 1),
+           "frob3": lambda x, y, u: F.frob(x, 3),
+           "cyclotomic_square": lambda x, y, u: F.cyclotomic_square(u),
+           "line": lambda x, y, u: line(x, y[..., :2, :], y[..., 2:4, :],
+                                        y[..., 8:10, :])}
+    for name, op in ops.items():
+        got = op(x.cuda(), y.cuda(), u.cuda())
+        assert torch.equal(got.cpu(), op(x, y, u)), name
+
+
+def test_bls12_pairing_matches_host_oracle(bls12_pairing):
+    """e(2P, 3Q) on the card against HostBls12Pairing; its r-th power is
+    one."""
+    from gingerlib_tpu_torch.curves import pairing_host
+    from gingerlib_tpu_torch.fields import fp, towers as T
+    from gingerlib_tpu_torch.ops import limbs
+    from gingerlib_tpu_torch.proofs.groth16_host import host_curves
+    E = bls12_pairing
+    g1, g2, fr = host_curves(E.name)
+    p2, q3 = g1.mul(g1.gen, 2), g2.mul(g2.gen, 3)
+    fp.reset_launch_counts()
+    gt = E.pairing(E.g1.affine_from_ints(*p2), E.g2.affine_from_ints(*q3))
+    assert fp.launch_counts["inv_bea"] >= 1
+    H = getattr(pairing_host, f"host_{E.name}_pairing")()
+    assert T.ext_to_ints(E.fqk, gt) == H.pairing(p2, q3)
+    r = fr.modulus
+    assert torch.equal(T.ext_pow_const(E.fqk, gt, limbs.bits_msb_first(
+        r, r.bit_length())), E.fqk.tensor("one", gt.device))
+
+
+@pytest.mark.parametrize("family", ["bls12_377", "bls12_381"])
+def test_bls12_groth16_and_gm17_on_the_gpu(family):
+    """Groth16 and GM17 over the 1-constraint circuit on the card: setup's
+    GT is the host oracle's, each proof the closed-form one, verify
+    accepts it and refuses a wrong input."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the field kernels have no CPU form")
+    from gingerlib_tpu_torch.fields import fp
+    from gingerlib_tpu_torch.proofs import gm17, gm17_host, groth16, \
+        groth16_host
+    from gingerlib_tpu_torch.relations.r1cs import compile_r1cs
+    eng = getattr(CI, f"{family}_engine")()
+    cs = one_constraint_circuit(eng.g1.scalar_field)
+    inputs = cs.input_values[1:]
+    wrong = [inputs[0] + 1] + inputs[1:]
+    toxic = dict(alpha=123, beta=456, gamma=789, delta=1011, t=314159)
+    params = groth16.generate_parameters(eng, cs, **toxic)
+    assert fp.fp_to_ints(eng.fp, params.vk.alpha_g1_beta_g2) == \
+        host_alpha_beta(123, 456, family)
+    proof = groth16.create_proof(eng, params, compile_r1cs(cs),
+                                 cs.assignment(), r=31337, s=71717)
+    assert groth16.proof_to_ints(eng, proof) == groth16_host.expected_proof(
+        family, cs, **toxic, r=31337, s=71717)
+    assert groth16.verify_proof(eng, params.vk, proof, inputs)
+    assert not groth16.verify_proof(eng, params.vk, proof, wrong)
+    g_toxic, rand = dict(alpha=123, beta=456, t=314159), dict(d1=11, d2=22,
+                                                              r=333)
+    params = gm17.generate_parameters(eng, cs, **g_toxic)
+    proof = gm17.create_proof(eng, params, gm17.compile_circuit(cs),
+                              cs.assignment(), **rand)
+    assert groth16.proof_to_ints(eng, proof) == \
+        gm17_host.expected_gm17_proof(family, cs, **g_toxic, **rand)
+    assert gm17.verify_proof(eng, params.vk, proof, inputs)
+    assert not gm17.verify_proof(eng, params.vk, proof, wrong)

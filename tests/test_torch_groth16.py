@@ -4,7 +4,7 @@ package's python-int oracle (gingerlib_tpu.proofs.groth16_host), with the
 same toxic waste and blinding on both sides.
 
 Fast tier: BLS12-377 (24-digit base field, 256-step scalar loops) on the
-4-constraint benchmark circuit.  ``slow``: MNT4-753 on a 1-constraint
+4-constraint benchmark circuit, verified through the BLS12 pairing.  ``slow``: MNT4-753 on a 1-constraint
 circuit.  Integer arithmetic: tolerance 0, every coordinate must agree.
 """
 
@@ -17,13 +17,12 @@ from gingerlib_tpu.proofs import groth16_host as jhost
 from gingerlib_tpu.relations import r1cs as jr1cs
 from gingerlib_tpu_torch.circuits import benchmark_circuit
 from gingerlib_tpu_torch.curves import instances as TCI
-from gingerlib_tpu_torch.curves.pairing_mnt import MNTPairing
 from gingerlib_tpu_torch.fields import fp as tfp
 from gingerlib_tpu_torch.proofs import groth16 as tgroth16
 from gingerlib_tpu_torch.proofs import groth16_host as thost
 from gingerlib_tpu_torch.relations import r1cs as tr1cs
 from gingerlib_tpu_torch.utils.convert import params_from_numpy
-from test_torch_cases import one_constraint_circuit
+from test_torch_cases import host_alpha_beta, one_constraint_circuit
 
 torch.set_num_threads(1)
 TOXIC = dict(alpha=123, beta=456, gamma=789, delta=1011, t=314159)
@@ -90,11 +89,9 @@ def check_setup(case):
         == hp.vk["gamma_abc"]
     assert (params.num_inputs, params.domain_size) \
         == (hp.num_inputs, hp.domain_size)
-    gt = params.vk.alpha_g1_beta_g2
-    if isinstance(eng, MNTPairing):       # the engine has a pairing
-        assert tfp.fp_to_ints(eng.fp, gt) == hp.vk["alpha_g1_beta_g2"]
-    else:
-        assert gt is None
+    # every engine is a pairing: the GT element is the host oracle's
+    assert tfp.fp_to_ints(eng.fp, params.vk.alpha_g1_beta_g2) == \
+        hp.vk["alpha_g1_beta_g2"]
 
 
 def check_carried_params(case):
@@ -181,11 +178,17 @@ def test_assignment_tensor_and_blinding(bls):
 
 
 def test_verify_is_not_ported_yet(bls):
-    """BLS12-377's engine has no pairing (its Fq12 pairing is not ported):
-    its verifying key holds no GT element and verify_proof refuses to
-    run."""
-    with pytest.raises(NotImplementedError, match="BLS12 pairing"):
-        tgroth16.verify_proof(bls["eng"], bls["params"].vk, bls["proof"], [])
+    """(Named when BLS12-377 had no pairing; it has one now.)  Over
+    BLS12-377 the verifying key's GT element is e(alpha G1, beta G2) by the
+    host oracle, verify_proof accepts the proof and refuses the statement
+    with its first input 78."""
+    eng, params, proof = bls["eng"], bls["params"], bls["proof"]
+    assert tfp.fp_to_ints(eng.fp, params.vk.alpha_g1_beta_g2) == \
+        host_alpha_beta(TOXIC["alpha"], TOXIC["beta"], "bls12_377")
+    inputs = bls["cs"].input_values[1:]
+    assert tgroth16.verify_proof(eng, params.vk, proof, inputs)
+    assert not tgroth16.verify_proof(eng, params.vk, proof,
+                                     [78] + inputs[1:])
 
 
 @pytest.fixture(scope="module")

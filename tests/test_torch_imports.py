@@ -47,12 +47,35 @@ def test_sources_found():
             "towers.py", "host_ext.py", "pairing_mnt.py", "pairing_host.py",
             "anchors_gen.py", "fft.py", "r1cs.py", "serialize.py",
             "gm17.py", "gm17_host.py", "boolean.py", "ext_fields.py",
-            "groups.py", "pairing.py", "nizk.py", "circuits.py"} <= names
+            "groups.py", "pairing.py", "nizk.py", "circuits.py",
+            "pairing_bls12.py"} <= names
+    # the BLS12 pairing and its gadget, both modules of that name
+    assert len([p for p in SOURCES if p.name == "pairing_bls12.py"]) == 2
 
 
-# the public names of the MNT6-753 and GM17 slice and of the recursion's
-# (the gadgets, the host Groth16, the bridge, the circuits), module by module
+# the public names of the MNT6-753 and GM17 slice, of the recursion's (the
+# gadgets, the host Groth16, the bridge, the circuits) and of the BLS12
+# slice's, module by module
 PUBLIC = {
+    "curves.pairing_bls12": ["Bls12Pairing"],
+    "fields.towers#bls12": ["build_bls12_towers"],
+    "fields.host_ext#bls12": ["frob_table_fp6_3over2", "frob_table_fp12",
+                              "build_bls12_host_towers"],
+    "curves.instances#bls12": ["bls12_377_towers", "bls12_381_towers",
+                               "bls12_381_g1", "bls12_381_g2",
+                               "bls12_377_pairing", "bls12_381_pairing",
+                               "bls12_377_engine", "bls12_381_engine"],
+    "curves.pairing_host#bls12": ["HostBls12Pairing",
+                                  "host_bls12_377_pairing",
+                                  "host_bls12_381_pairing"],
+    "proofs.groth16": ["accumulate_inputs", "verify_proof"],
+    "proofs.groth16_host#bls12": ["host_groth16_bls12_377",
+                                  "host_groth16_bls12_381"],
+    "gadgets.std.ext_fields#bls12": ["build_bls12_tower_gadgets"],
+    "gadgets.std.pairing_bls12": ["Bls12PairingGadget",
+                                  "bls12_377_pairing_gadget",
+                                  "bls12_381_pairing_gadget"],
+    "gadgets.crypto#bls12": ["bls12_377_verifier_gadget"],
     "fields.towers": ["CubicExtOps", "QuadExtOps", "build_mnt6_towers",
                       "ext_pow_const", "ext_cyclotomic_pow_const",
                       "ext_batch_inverse_tree"],
@@ -100,7 +123,8 @@ PUBLIC = {
 @pytest.mark.parametrize("module", sorted(PUBLIC))
 def test_public_names(module):
     import importlib
-    mod = importlib.import_module(f"gingerlib_tpu_torch.{module}")
+    mod = importlib.import_module(
+        f"gingerlib_tpu_torch.{module.split('#')[0]}")
     missing = [n for n in PUBLIC[module] if not hasattr(mod, n)]
     assert not missing, f"{module} lacks {missing}"
 
@@ -140,7 +164,9 @@ ENTRY_POINTS = ["compile_r1cs", "Domain", "mnt4753_g1", "mnt4753_g2",
                 "mnt6753_g2", "mnt6753_engine", "mnt6753_pairing",
                 "gm17.generate_parameters", "gm17.create_proof",
                 "gm17.sap_at_device", "gm17_params_from_numpy",
-                "gm17.compile_circuit"]
+                "gm17.compile_circuit", "bls12_381_g1", "bls12_381_g2",
+                "bls12_377_pairing", "bls12_381_pairing",
+                "bls12_377_engine", "bls12_381_engine"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
@@ -220,6 +246,12 @@ def test_device_none_raises_without_a_gpu(entry):
         "gm17_params_from_numpy":
             lambda: convert.gm17_params_from_numpy(eng, None),
         "gm17.compile_circuit": lambda: gm17.compile_circuit(cs),
+        "bls12_381_g1": CI.bls12_381_g1,
+        "bls12_381_g2": CI.bls12_381_g2,
+        "bls12_377_pairing": CI.bls12_377_pairing,
+        "bls12_381_pairing": CI.bls12_381_pairing,
+        "bls12_377_engine": CI.bls12_377_engine,
+        "bls12_381_engine": CI.bls12_381_engine,
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

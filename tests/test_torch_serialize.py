@@ -286,8 +286,9 @@ def test_point_compression_matches_jax(name):
 
 
 def unitary(F, seed):
-    """conj(x) / x for a seeded x of Fq4 (x^(p^2 - 1)) or Fq6 (x^(p^3 -
-    1)): norm 1 over the subfield, the form of a GT element."""
+    """conj(x) / x for a seeded x of Fq4 (x^(p^2 - 1)), Fq6 (x^(p^3 - 1))
+    or Fq12 (x^(p^6 - 1)): norm 1 over the subfield, the form of a GT
+    element."""
     rng = random.Random(seed)
     k = F.sf.K
     x = [rng.randrange(F.p) for _ in range(2 * k)]
@@ -366,6 +367,62 @@ def test_mnt6753_proof_and_vk_bytes_match_jax():
         alpha_g1_beta_g2=t(gt), gamma_g2=(t(g2s[0][1]), t(g2s[1][1])),
         delta_g2=(t(g2s[0][2]), t(g2s[1][2])),
         gamma_abc_g1=(t(g1s[0][2:]), t(g1s[1][2:])))
+    raw = TS.vk_to_bytes(teng, vk)
+    assert raw == JS.vk_to_bytes(jeng, jgroth16.VerifyingKey(
+        alpha_g1_beta_g2=as_jax(gt),
+        gamma_g2=tuple(as_jax(c.numpy()) for c in vk.gamma_g2),
+        delta_g2=tuple(as_jax(c.numpy()) for c in vk.delta_g2),
+        gamma_abc_g1=tuple(as_jax(c.numpy()) for c in vk.gamma_abc_g1)))
+    back, off = TS.vk_from_bytes(teng, raw, device=CPU)
+    assert off == len(raw) and TS.vk_to_bytes(teng, back) == raw
+    assert torch.equal(back.alpha_g1_beta_g2, vk.alpha_g1_beta_g2)
+
+
+@pytest.mark.parametrize("family", ["bls12_377", "bls12_381"])
+def test_gt_compression_over_fq12_matches_jax(family):
+    """BLS12's GT (Fq12 = Fq6[W]/(W^2 - V), Fq6 = Fq2[V]/(V^3 - xi)): c1's
+    six components and the parity of c0 by its highest non-zero Fq2 part,
+    as the JAX package writes them, for e(G1, G2) and seeded unitary
+    elements, each also with c0 negated (unitary too, the other parity);
+    each decompresses to itself."""
+    from gingerlib_tpu.curves import pairing_host as JPH
+    from gingerlib_tpu_torch.curves import pairing_host as TPH
+    up = family.upper()
+    fq = getattr(TP, f"{up}_FQ")
+    JF = getattr(JPH, f"host_{family}_pairing")().F
+    F = host_ext.build_bls12_host_towers(
+        fq.modulus, getattr(TG, f"{up}_FQ2")["nonresidue"],
+        getattr(TG, f"{up}_FQ6")["nonresidue"])[3]
+    H = getattr(TPH, f"host_{family}_pairing")()
+    g1, g2, _ = thost.host_curves(family)
+    parities = set()
+    for u in [H.pairing(g1.gen, g2.gen), unitary(F, 0)]:
+        for g in (u, [(-v) % fq.modulus for v in u[:6]] + u[6:]):
+            bits = TS.gt_compress(F, g)
+            assert bits == JS.gt_compress(JF, g)
+            assert len(bits) == 6 * fq.modulus_bits + 1
+            assert TS.gt_decompress(F, bits) == g
+            parities.add(bits[-1])
+    assert parities == {True, False}
+
+
+def test_bls12_377_vk_bytes_match_jax():
+    """A verifying key over BLS12-377 (G2 over Fq2, the GT element in
+    Fq12) as the JAX package writes it, and back."""
+    from gingerlib_tpu_torch.curves import pairing_host as TPH
+    jeng = NS(g1=JCI.bls12_377_g1(), g2=JCI.bls12_377_g2(),
+              fqk=JCI.bls12_377_towers()[3])
+    teng = TCI.bls12_377_engine(CPU)
+    g1s = point_arrays(teng.g1, host_points("bls12_377_g1", [3, 5, 7]))
+    g2s = point_arrays(teng.g2, host_points("bls12_377_g2", [4, 6]))
+    t = lambda a: torch.from_numpy(a)                      # noqa: E731
+    g1, g2, _ = thost.host_curves("bls12_377")
+    gt = tfp.fp_from_ints(teng.fp, TPH.host_bls12_377_pairing().pairing(
+        g1.gen, g2.gen)).reshape(12, teng.fp.n_digits)
+    vk = tgroth16.VerifyingKey(
+        alpha_g1_beta_g2=t(gt), gamma_g2=(t(g2s[0][0]), t(g2s[1][0])),
+        delta_g2=(t(g2s[0][1]), t(g2s[1][1])),
+        gamma_abc_g1=(t(g1s[0]), t(g1s[1])))
     raw = TS.vk_to_bytes(teng, vk)
     assert raw == JS.vk_to_bytes(jeng, jgroth16.VerifyingKey(
         alpha_g1_beta_g2=as_jax(gt),
