@@ -113,7 +113,23 @@ What it does, in order (any failure raises, so the exit code is non-zero):
    K2, add/sub/neg, K4, K5 and K6 at 24 digits against their plain
    versions at the BLS12-381 rung's and the pairings' widest layouts and
    widths (``bls12_curve_kernels``, ``field_kernels_at_bls12``; rows
-   ``*_d24`` of the kernels line);
+   ``*_d24`` of the kernels line); then the twisted-Edwards curves, on
+   each of Jubjub, Edwards-BLS12 and Edwards-SW6 the generator on the
+   curve, the group laws on 2^10 seeded points and one full-width scalar
+   multiply with its seconds and launches (``twisted_edwards`` lines);
+   Pedersen over Edwards-BLS12 at the window of the reference's benches,
+   250 x 8: the commitment's setup, a 250-byte evaluate, a commit and the
+   compressor, and the Bowe-Hopwood group hash of the VRF over MNT6-753 G1
+   set up on the card (``pedersen``); Schnorr keygen, sign, verify and
+   keyverify and the VRF's keygen, prove and proof_to_hash over MNT6-753
+   G1 with MNT4-753-Fr Poseidon, each call's seconds, launches and the
+   rejection loops' tries (``signatures``); Groth16 over MNT4-753 of the
+   19,292-constraint Schnorr verification circuit of that signature and
+   over BLS12-377 of the opening of that commitment (12,387 constraints),
+   setup, prove and verify by phase (``rung`` lines with ``"circuit"``);
+   and K1, add/sub/neg and K2 at 16 digits at the widest layouts of the
+   16-digit lines (``field_kernels_at_te``; rows ``*_d16`` of the
+   kernels line);
 5. checks the results: each device proof equals the closed-form python-int
    oracle coordinate for coordinate, a repeat gives the same proof, a proof
    with another ``s`` differs; setup's device QAP equals ``qap_at`` (every
@@ -140,7 +156,17 @@ What it does, in order (any failure raises, so the exit code is non-zero):
    permutation builds on the device, sixteen sampled paths verify and hash
    to its root in python ints, a wrong leaf is refused, a 2^10-leaf tree
    equals the python-int tree node for node, and the phantom root holds;
-   the field API launches K3 once a call (4); and the launch counters, set
+   the field API launches K3 once a call (4); the twisted-Edwards group
+   laws hold and [k] G and four seeded points equal python ints (the TE
+   gadget's host helpers), [r] G = 0 on all three curves; the Pedersen
+   generators, hash, commitment and x, and a short input's Bowe-Hopwood
+   hash, equal python ints and ``BoweHopwoodHost``; Schnorr's (pk, e, s)
+   equal ``HostSchnorr``'s, verify accepts and refuses message + 1,
+   keyverify accepts; the VRF's (gamma, c, s) and output equal
+   ``HostVrf``'s and a wrong message is refused; both circuits' proofs
+   equal the closed form, their QAPs ``qap_at``, and verify accepts them
+   and refuses a wrong public input and an altered C; and the launch
+   counters, set
    to zero before each path, show that every kernel was launched on the path
    that reaches it (K7 and K8 on the RNS path), and K1 and K2 on the
    verifier's, and K1, K2, add/sub and K4-K6 on the MNT6-753 2^15 rung,
@@ -220,8 +246,11 @@ def main():
     from gingerlib_tpu_torch import params as PP
     from gingerlib_tpu_torch.circuits import (benchmark_circuit,
                                               groth16_verifier_circuit,
-                                              mul_circuit)
+                                              mul_circuit,
+                                              pedersen_commitment_circuit,
+                                              schnorr_verification_circuit)
     from gingerlib_tpu_torch.curves import instances as CI
+    from gingerlib_tpu_torch.curves.points import affine_ints, mul_ints
     from gingerlib_tpu_torch.curves import pairing_host
     from gingerlib_tpu_torch.fields import fp
     from gingerlib_tpu_torch.fields import host_ext as HE
@@ -236,7 +265,19 @@ def main():
     from gingerlib_tpu_torch.params._gen import towers_gen as TG
     from gingerlib_tpu_torch.params._gen.merkle_gen import \
         MNT4753_PHANTOM_MERKLE_ROOT
+    from gingerlib_tpu_torch.gadgets.std.te_groups import TEGroupGadget
+    from gingerlib_tpu_torch.primitives import pedersen as ped_mod
+    from gingerlib_tpu_torch.primitives.commitment import (
+        PedersenCommitment, PedersenCRHCompressor)
+    from gingerlib_tpu_torch.primitives.group_hash_host import \
+        mnt6753_g1_group_hash
     from gingerlib_tpu_torch.primitives.merkle import FieldBasedMerkleTree
+    from gingerlib_tpu_torch.primitives.pedersen import (BoweHopwoodCRH,
+                                                         PedersenWindow)
+    from gingerlib_tpu_torch.primitives.schnorr import FieldBasedSchnorr
+    from gingerlib_tpu_torch.primitives.signatures_host import (HostSchnorr,
+                                                                HostVrf)
+    from gingerlib_tpu_torch.primitives.vrf import FieldBasedEcVrf
     from gingerlib_tpu_torch.primitives.poseidon import (PoseidonHash,
                                                          PoseidonParams)
     from gingerlib_tpu_torch.primitives.poseidon_host import PoseidonHost
@@ -2101,21 +2142,29 @@ def main():
             self.calls = []
             return out
 
-    def rung(log2, phases=None, family="mnt4753", constraints=None):
+    def rung(log2, phases=None, family="mnt4753", constraints=None,
+             circuit=None):
         """Setup and prove at 2^log2 constraints (or ``constraints``) over
-        ``family``; ``phases``: True to time the calls inside with a
-        ``phase_clock``."""
+        ``family``, on the benchmark circuit or on ``circuit`` (its name
+        and constraint system); ``phases``: True to time the calls inside
+        with a ``phase_clock``."""
         engine = engines[family]
         if phases is True:
             with phase_clock(phase_clock.prover(engine)) as clock:
-                return rung(log2, clock, family, constraints)
+                return rung(log2, clock, family, constraints, circuit)
         fr_ = engine.g1.scalar_field
-        cs, _ = benchmark_circuit(fr_, NUM_INPUTS, constraints or 1 << log2)
+        if circuit is None:
+            cs, _ = benchmark_circuit(fr_, NUM_INPUTS,
+                                      constraints or 1 << log2)
+        else:
+            _, cs = circuit
         if not cs.is_satisfied():
-            raise AssertionError("benchmark circuit is not satisfied")
+            raise AssertionError("the rung's circuit is not satisfied")
         out = {"log2_constraints": log2}
-        if family != "mnt4753":
+        if family != "mnt4753" or circuit is not None:
             out.update(family=family, constraints=cs.num_constraints)
+        if circuit is not None:
+            out.update(circuit=circuit[0], inputs=cs.num_inputs)
         # every rung builds its fixed-base tables, as a first setup in a
         # process does (later setups on the same curve reuse them)
         groth16.setup_table.cache_clear()
@@ -2180,14 +2229,15 @@ def main():
     setup_layouts = {}     # {(family, log2): the field kernels' layouts
     #                          in setup}
 
-    def verify(params, proof, inputs, label, engine=None):
+    def verify(params, proof, inputs, label, engine=None, checks=None):
         """One call of ``verify_proof`` (its bool is on the host, so the
-        call is complete), timed by the host's clock."""
+        call is complete), timed by the host's clock; its result goes into
+        ``checks`` (by default the verify line's) under ``label``."""
         torch.cuda.synchronize()
         t = time.perf_counter()
         ok = groth16.verify_proof(engine or eng, params.vk, proof, inputs)
         secs = time.perf_counter() - t
-        verify_line["checks"][label] = ok
+        (verify_line["checks"] if checks is None else checks)[label] = ok
         return ok, secs
 
     def verify_rung(log2, cs, params, proof, engine=None, line=None):
@@ -2529,10 +2579,14 @@ def main():
         if params_.domain_size != 1 << (n_c + NUM_INPUTS).bit_length():
             raise AssertionError(f"mnt6753 {n_c}: domain "
                                  f"{params_.domain_size}")
-        again, line["prove_steady_s"], _ = prove(params_, compiled_, cs_,
-                                                 engine=eng6)
-        if again != proof_:
-            raise AssertionError("mnt6753: the same inputs gave two proofs")
+        # the 2^15 rung proves again (steady seconds, the same proof); the
+        # 2^6 rung's repeat is left out to keep the run within its time
+        if log2 == 15:
+            again, line["prove_steady_s"], _ = prove(params_, compiled_, cs_,
+                                                     engine=eng6)
+            if again != proof_:
+                raise AssertionError("mnt6753: the same inputs gave two "
+                                     "proofs")
         add_widths(line["curve_launches_by_width"])
         print("rung " + json.dumps(line), flush=True)
         verify_rung(log2, cs_, params_, dev_, eng6, verify6_line)
@@ -3548,6 +3602,406 @@ def main():
     k9_by_width = poseidon_by_width(merkle["poseidon_launches_by_width"])
     print("poseidon_by_width " + json.dumps(k9_by_width), flush=True)
 
+    # ------------------------------------------------------------------
+    # 4g. the twisted-Edwards curves, Pedersen and the signatures: the TE
+    #     group laws on all three curves, Pedersen over Edwards-BLS12 at
+    #     the reference benches' window, Schnorr and the VRF over MNT6-753
+    #     G1, and two Groth16 proofs of circuits built from their gadgets
+    # ------------------------------------------------------------------
+    t_te = time.perf_counter()
+    te_paths = {}         # the new paths whose launches are checked
+    te_launches16 = {}    # the 16-digit lines' launches, by kernel
+
+    def add_launches(into, launches):
+        for k, v in launches.items():
+            into[k] = into.get(k, 0) + v
+
+    def host_te_mul(gg, P, k):
+        """[k] P in python ints through the TE gadget's ``_host_add`` and
+        ``_host_double``."""
+        acc = (0, 1)
+        for bit in bin(k)[2:]:
+            acc = gg._host_double(acc)
+            if bit == "1":
+                acc = gg._host_add(acc, P)
+        return acc
+
+    def te_pairs(curve, P):
+        return list(zip(*affine_ints(curve, P)))
+
+    def twisted_edwards_line(name, seed):
+        """The generator on the curve; the group laws on 2^10 seeded
+        points ([k_i] G, one loop of 2^10 lanes), four of them against
+        python ints; one scalar multiply [k] G of a full-width k, timed,
+        launches counted, against python ints; [r] G = 0."""
+        te = getattr(CI, name)()
+        gg = TEGroupGadget.for_curve(te)
+        rng = random.Random(seed)
+        r = te.scalar_field.modulus
+        out = {"curve": name, "field": te.fp.name,
+               "field_digits": te.fp.n_digits, "lanes": 1 << 10}
+        fp.reset_launch_counts()
+        G = te.generator(())
+        checks = {"generator on the curve": bool(te.on_curve(
+            *te.generator_affine))}
+        ks = [rng.randrange(1, r) for _ in range(1 << 10)]
+        P, out["points_2p10_s"], _ = phase(lambda: mul_ints(te, G, ks))
+        Q = tuple(c.roll(1, 0) for c in P)
+        R = tuple(c.roll(2, 0) for c in P)
+        checks["2^10 points on the curve"] = bool(te.on_curve(
+            *te.to_affine(P)).all())
+        checks["four points equal python ints"] = \
+            te_pairs(te, tuple(c[:4] for c in P)) == [
+                host_te_mul(gg, te.generator_host, k) for k in ks[:4]]
+        laws, out["laws_s"], _ = phase(lambda: {
+            "dbl = add": te.eq(te.double(P), te.add(P, P)),
+            "associativity": te.eq(te.add(te.add(P, Q), R),
+                                   te.add(P, te.add(Q, R))),
+            "P + (-P) = 0": te.is_zero(te.add(P, te.neg(P))),
+            "P + 0 = P": te.eq(te.add(P, te.zero((1 << 10,))), P)})
+        checks.update({k: bool(v.all()) for k, v in laws.items()})
+        k = rng.randrange(1 << (r.bit_length() - 1), r)   # full width
+        kG, out["mul_s"], out["mul_launches"] = phase(
+            lambda: mul_ints(te, G, [k]))
+        out["mul_scalar_bits"] = k.bit_length()
+        checks["[k]G equals python ints"] = te_pairs(te, kG) == [
+            host_te_mul(gg, te.generator_host, k)]
+        rG, out["mul_r_s"], _ = phase(lambda: mul_ints(te, G, [r]))
+        checks["[r]G = 0"] = bool(te.is_zero(rG).all())
+        out["path_launches"] = dict(fp.launch_counts)
+        out["checks"] = checks
+        if not all(checks.values()):
+            raise AssertionError(f"twisted_edwards {name}: {checks}")
+        return out
+
+    def pedersen_line():
+        """Pedersen over Edwards-BLS12 at window 250 x 8 (2,000 bits, 250
+        input bytes): the commitment's setup (the CRH's 8 generators and
+        the randomness generator as lanes of one loop, their chains side
+        by side), timed with launches, its generators against python ints;
+        a seeded 250-byte evaluate, a commit with a seeded randomness of
+        Fr and the compressor's x, each against python ints; then the
+        Bowe-Hopwood group hash over MNT6-753 G1 (the VRF's: 64 x 4,
+        ``random.Random(9174123)``) set up on the card and on the host,
+        its generators and a short input's hash equal."""
+        te = CI.edwards_bls12()
+        gg = TEGroupGadget.for_curve(te)
+        window = PedersenWindow(250, 8)
+        r = te.scalar_field.modulus
+        out = {"curve": "edwards_bls12", "window_size": 250,
+               "num_windows": 8, "input_bytes": 250}
+        fp.reset_launch_counts()
+        comm, out["setup_s"], out["setup_launches"] = phase(
+            lambda: PedersenCommitment(te, window).setup(
+                random.Random(2000)))
+        draw = random.Random(2000)
+        gens = [host_te_mul(gg, te.generator_host, draw.randrange(1, r))
+                for _ in range(9)]
+        checks = {"generators equal python ints":
+                  comm.crh.generators_host == gens[:8]
+                  and comm.rand_base_host == gens[8]}
+        rng = random.Random(250)
+        data = bytes(rng.randrange(256) for _ in range(250))
+        rnd = rng.randrange(r)
+        pt, out["evaluate_s"], out["evaluate_launches"] = phase(
+            lambda: comm.crh.evaluate(data))
+        bits = ped_mod._bytes_to_bits(data)
+        want = (0, 1)
+        for w in range(8):
+            chunk = bits[250 * w:250 * w + 250]
+            m = sum(b << i for i, b in enumerate(chunk))
+            want = gg._host_add(want, host_te_mul(gg, gens[w], m))
+        checks["evaluate equals python ints"] = te_pairs(te, pt) == [want]
+        cpt, out["commit_s"], out["commit_launches"] = phase(
+            lambda: comm.commit(data, rnd))
+        commitment = gg._host_add(want, host_te_mul(gg, gens[8], rnd))
+        checks["commit equals python ints"] = \
+            te_pairs(te, cpt) == [commitment]
+        comp = PedersenCRHCompressor(te, window)
+        comp.crh = comm.crh
+        x, out["compressor_s"], out["compressor_launches"] = phase(
+            lambda: comp.evaluate(data))
+        checks["compressor x equals python ints"] = \
+            fp.fp_to_int(te.fp, x[0].cpu()) == want[0]
+        out["path_launches"] = dict(fp.launch_counts)
+        # the Bowe-Hopwood group hash over MNT6-753 G1
+        g6 = CI.mnt6753_g1()
+        bh = {"curve": "mnt6753_g1", "window_size": 64, "num_windows": 4}
+        rng_h, rng_d = random.Random(9174123), random.Random(9174123)
+        fp.reset_launch_counts()
+        gh_host = mnt6753_g1_group_hash(64, 4).setup(rng_h)
+        gh_dev, bh["setup_s"], bh["setup_launches"] = phase(
+            lambda: BoweHopwoodCRH(g6, PedersenWindow(64, 4)).setup(rng_d))
+        checks["group hash generators equal the host's"] = \
+            list(zip(*affine_ints(g6, gh_dev.params))) == [
+                (x[0], y[0]) for row in gh_host.generators
+                for x, y in row]
+        short = bytes(rng.randrange(256) for _ in range(20))
+        hpt, bh["short_input_s"], bh["short_input_launches"] = phase(
+            lambda: gh_dev.evaluate(short))
+        bh["short_input_bytes"] = len(short)
+        want_h = gh_host.evaluate(short)
+        checks["Bowe-Hopwood of a short input equals BoweHopwoodHost"] = \
+            te_pairs(g6, hpt) == [(want_h[0][0], want_h[1][0])]
+        bh["path_launches"] = dict(fp.launch_counts)
+        out["bowe_hopwood"] = bh
+        out["checks"] = checks
+        if not all(checks.values()):
+            raise AssertionError(f"pedersen: {checks}")
+        return out, (comm, data, rnd, commitment, gens[:8]), \
+            (gh_host, gh_dev, rng_h, rng_d)
+
+    class CountingRandom(random.Random):
+        """random.Random that counts its draws: one a try of a rejection
+        loop.  Its state carries the count, so the draws that a loop gives
+        back (``schnorr._tries``) are not counted."""
+        draws = 0
+
+        def randrange(self, *a, **k):
+            self.draws += 1
+            return super().randrange(*a, **k)
+
+        def getstate(self):
+            return super().getstate(), self.draws
+
+        def setstate(self, state):
+            super().setstate(state[0])
+            self.draws = state[1]
+
+    def signatures_line(gh_host, gh_dev, rng_h, rng_d):
+        """Field-based Schnorr and the VRF over MNT6-753 G1 with
+        MNT4-753-Fr Poseidon on the card, every call timed with its
+        launches and the rejection loops' tries, against ``HostSchnorr``
+        and ``HostVrf`` on the JAX tests' seeds."""
+        g6 = CI.mnt6753_g1()
+        h = PoseidonHash(PoseidonParams.mnt4753())
+        out = {"curve": "mnt6753_g1", "hash": "poseidon_mnt4753",
+               "schnorr": {}, "vrf": {}}
+        sch_line, vrf_line = out["schnorr"], out["vrf"]
+        msg = [424242]
+        hs = HostSchnorr()
+        t = time.perf_counter()
+        rng = random.Random(1231275789)
+        pk_h, sk_h = hs.keygen(rng)
+        sig_h = hs.sign(pk_h, sk_h, msg, rng)
+        sch_line["host_oracle_s"] = time.perf_counter() - t
+        sch = FieldBasedSchnorr(g6, h)
+        rng = CountingRandom(1231275789)
+        fp.reset_launch_counts()
+        (pk, sk), *calls = phase(lambda: sch.keygen(rng))
+        sch_line["keygen"] = dict(zip(("s", "launches"), calls))
+        before = rng.draws
+        sig, *calls = phase(lambda: sch.sign(pk, sk, msg, rng))
+        sch_line["sign"] = dict(zip(("s", "launches"), calls),
+                                tries=rng.draws - before)
+        ok, *calls = phase(lambda: sch.verify(pk, msg, sig))
+        sch_line["verify"] = dict(zip(("s", "launches"), calls))
+        bad, *calls = phase(lambda: sch.verify(pk, [msg[0] + 1], sig))
+        sch_line["verify_message_plus_one"] = dict(zip(("s", "launches"),
+                                                       calls))
+        kv, *calls = phase(lambda: sch.keyverify(pk))
+        sch_line["keyverify"] = dict(zip(("s", "launches"), calls))
+        sch_line["path_launches"] = dict(fp.launch_counts)
+        checks = {"schnorr (pk, e, s) equal HostSchnorr's":
+                  te_pairs(g6, pk) == [(pk_h[0][0], pk_h[1][0])]
+                  and (sig.e, sig.s) == sig_h and sk == sk_h,
+                  "verify accepts": ok, "verify refuses message + 1":
+                  not bad, "keyverify accepts": kv}
+        # the VRF: the group hash of the pedersen line, its rng's draws
+        # continued on both sides
+        vmsg = [987654321]
+        hv = HostVrf(gh_host)
+        t = time.perf_counter()
+        vpk_h, vsk_h = hv.keygen(rng_h)
+        proof_h = hv.prove(vpk_h, vsk_h, vmsg, rng_h)
+        out_h = hv.proof_to_hash(vpk_h, vmsg, proof_h)
+        vrf_line["host_oracle_s"] = time.perf_counter() - t
+        vrf = FieldBasedEcVrf(g6, h, gh_dev)
+        rng = CountingRandom()
+        rng.setstate((rng_d.getstate(), 0))
+        fp.reset_launch_counts()
+        (vpk, vsk), *calls = phase(lambda: vrf.keygen(rng))
+        vrf_line["keygen"] = dict(zip(("s", "launches"), calls))
+        before = rng.draws
+        proof, *calls = phase(lambda: vrf.prove(vpk, vsk, vmsg, rng))
+        vrf_line["prove"] = dict(zip(("s", "launches"), calls),
+                                 tries=rng.draws - before)
+        output, *calls = phase(lambda: vrf.proof_to_hash(vpk, vmsg, proof))
+        vrf_line["proof_to_hash"] = dict(zip(("s", "launches"), calls))
+        vrf_line["path_launches"] = dict(fp.launch_counts)
+        try:
+            vrf.proof_to_hash(vpk, [vmsg[0] + 1], proof)
+        except ValueError:
+            refused = True
+        else:
+            refused = False
+        checks.update({
+            "vrf (gamma, c, s) equal HostVrf's":
+                te_pairs(g6, vpk) == [(vpk_h[0][0], vpk_h[1][0])]
+                and ((proof.gamma[0],), (proof.gamma[1],), proof.c,
+                     proof.s) == (tuple(proof_h[0][0]),
+                                  tuple(proof_h[0][1]), proof_h[1],
+                                  proof_h[2]),
+            "vrf output equals HostVrf's": output == out_h,
+            "vrf refuses a wrong message": refused})
+        out["checks"] = checks
+        if not all(checks.values()):
+            raise AssertionError(f"signatures: {checks}")
+        return out, (pk, sig, msg)
+
+    def circuit_rung(family, name, cs, wrong_inputs):
+        """A rung on a circuit of the gadgets: setup and prove with
+        phases (``rung``: the proof against ``expected_proof``, the QAP
+        against ``qap_at``), one verify by phase with its launches, and
+        the refusals of a wrong public input and of C + G1's generator."""
+        engine = engines[family]
+        log2 = (cs.num_constraints - 1).bit_length()
+        line, (cs_, _, params_, _, dev_, _) = rung(
+            log2, phases=True, family=family, circuit=(name, cs))
+        # the engines' common entry points: the Miller loops (with the
+        # G2 side and the product of the Miller values) are the product
+        # of pairings less its final exponentiation
+        targets = ((groth16, "accumulate_inputs"),
+                   (engine, "product_of_pairings"),
+                   (engine, "final_exponentiation"))
+        inputs = cs_.input_values[1:]
+        checks = line["verify_checks"] = {}
+        fp.reset_launch_counts()
+        with phase_clock(targets) as clock:
+            ok, total = verify(params_, dev_, inputs, "accepts", engine,
+                               checks)
+        phases = {k: sum(v) for k, v in clock.take().items()}
+        phases["miller_loop"] = phases.pop("product_of_pairings") - \
+            phases["final_exponentiation"]
+        phases["other"] = total - sum(phases.values())
+        line["verify_s"] = total
+        line["verify_phases_s"] = phases
+        line["verify_launches"] = dict(fp.launch_counts)
+        g1_ = engine.g1
+        altered = groth16.Proof(a=dev_.a, b=dev_.b, c=g1_.to_affine(
+            g1_.add_mixed(g1_.from_affine(*dev_.c), g1_.generator_affine)))
+        for label, proof_inputs in (("wrong public input",
+                                     (dev_, wrong_inputs)),
+                                    ("altered C", (altered, inputs))):
+            checks[f"refuses {label}"] = not verify(
+                params_, *proof_inputs, label, engine, {})[0]
+        if not all(checks.values()):
+            raise AssertionError(f"{name}: verify checks {checks}")
+        del params_, dev_, altered
+        return line
+
+    with layout_log() as te_layouts:
+        for name, seed in (("jubjub", 161), ("edwards_bls12", 162),
+                           ("edwards_sw6", 163)):
+            line = twisted_edwards_line(name, seed)
+            te_paths[f"twisted_edwards_{name}"] = line
+            if line["field_digits"] == 16:
+                add_launches(te_launches16, line["path_launches"])
+            print("twisted_edwards " + json.dumps(line), flush=True)
+        ped_line, ped_case, gh_case = pedersen_line()
+    te_paths["pedersen"] = ped_line
+    te_paths["bowe_hopwood"] = ped_line["bowe_hopwood"]
+    add_launches(te_launches16, ped_line["path_launches"])
+    print("pedersen " + json.dumps(ped_line), flush=True)
+    sig_line, (s_pk, s_sig, s_msg) = signatures_line(*gh_case)
+    te_paths["schnorr"] = sig_line["schnorr"]
+    te_paths["vrf"] = sig_line["vrf"]
+    print("signatures " + json.dumps(sig_line), flush=True)
+
+    # the two Groth16 rungs on the gadgets' circuits
+    pk_xy = affine_ints(CI.mnt6753_g1(), s_pk)
+    s_cs = schnorr_verification_circuit(
+        (pk_xy[0], pk_xy[1]), (s_sig.e, s_sig.s), s_msg)
+    # (``rung`` checks that each circuit is satisfied)
+    if (s_cs.num_constraints, s_cs.num_inputs) != (19292, 4):
+        raise AssertionError(f"schnorr circuit: {s_cs.num_constraints} "
+                             f"constraints, {s_cs.num_inputs} inputs")
+    wrong = [s_msg[0] + 1, pk_xy[0][0], pk_xy[1][0]]
+    line = circuit_rung("mnt4753", "schnorr_verification", s_cs, wrong)
+    te_paths["groth16_schnorr_verification"] = line
+    print("rung " + json.dumps(line), flush=True)
+    del s_cs
+    comm, data, rnd, commitment, _ = ped_case
+    p_cs = pedersen_commitment_circuit(comm, data, rnd, commitment)
+    te_g = TEGroupGadget.for_curve(comm.g)
+    moved = te_g._host_add(commitment, comm.g.generator_host)
+    line = circuit_rung("bls12_377", "pedersen_commitment", p_cs,
+                        list(moved))
+    te_paths["groth16_pedersen_commitment"] = line
+    print("rung " + json.dumps(line), flush=True)
+    del p_cs, comm, ped_case
+
+    def te_kernel_rows(seen, launches):
+        """K1, add/sub/neg and K2 at 16 digits against their plain
+        versions, tolerance 0: K1 and add/sub/neg at the widest layout of
+        each class the 16-digit twisted_edwards and pedersen lines
+        launched (``field_kernels_at_setup``), K2 on one element of both
+        16-digit fields (as every ``to_affine`` calls it), each timed
+        beside its plain version and its bound.  Returns the kernels
+        line's ``*_d16`` rows and the field kernels' rows by layout."""
+        seen16 = {key: n for key, n in seen.items()
+                  if key[1] in ("jubjub_fq", "bls12_377_fr")}
+        errs, field_rows, timed = field_kernels_at_setup(seen16)
+        rows = {}
+        for name, row in timed.items():
+            rows[name] = dict(max_abs_err=errs[name], case=row["case"],
+                              **{k: row[k] for k in (
+                                  "ms", "device_ms", "plain_ms", "bound_ms",
+                                  "bound_by")})
+        err = 0
+        for F in (PP.JUBJUB_FQ, PP.EDWARDS_BLS12_FQ):
+            x1 = torch.from_numpy(limbs.to_digits_batch(
+                [random.Random(16).randrange(1, F.modulus)],
+                F.n_digits)).to(dev)
+            err = max(err, compare(f"inv_bea [1,16] {F.name}",
+                                   fp.inv_bea(F, x1),
+                                   fp.inv_bea_plain(F, x1)))
+        passes = divsteps_model.inverse(
+            limbs.from_digits_batch(x1.cpu())[0], F.modulus).passes
+        b_ms, b_by = bound(2 * 2 * F.n_digits,
+                           passes * (31 * 12 + 24 * (F.n_digits // 2)))
+        rows["inv_bea"] = dict(
+            max_abs_err=err, case=f"[1, 16] {F.name}",
+            ms=time_ms(lambda: fp.inv_bea(F, x1), 20),
+            device_ms=graph_ms(lambda: fp.inv_bea(F, x1), 20),
+            plain_ms=time_ms(lambda: fp.inv_bea_plain(F, x1), 2),
+            bound_ms=b_ms, bound_by=b_by)
+        meta = {k["name"]: k for k in kernels}
+        out = []
+        for name, row in rows.items():
+            if launches.get(name, 0) <= 0:
+                raise AssertionError(f"the 16-digit lines never launched "
+                                     f"{name}")
+            out.append({
+                "name": f"{name}_d16", "route": "cuda",
+                "source": meta[name]["source"],
+                "replaces": meta[name]["replaces"],
+                "launches": launches[name], **row,
+                # no PyTorch call computes a modular product or inverse
+                "library_ms": None,
+                "path": "twisted_edwards_and_pedersen_16_digits",
+                "kernel": name})
+        return out, field_rows
+
+    te_rows, te_field_rows = te_kernel_rows(te_layouts.seen, te_launches16)
+    print("field_kernels_at_te " + json.dumps(te_field_rows), flush=True)
+    # every new path launched K1, add/sub and K2; the TE and Pedersen
+    # lines neg too (a = -1), the signatures K9, the rungs K4-K6
+    for name, line in te_paths.items():
+        need = ["mont_mul", "fp_add", "fp_sub", "inv_bea"]
+        if name.startswith(("twisted_edwards", "pedersen")):
+            need.append("fp_neg")
+        if name in ("schnorr", "vrf"):
+            need.append("poseidon_permute")
+        if name.startswith("groth16"):
+            need += ["ec_proj_add", "ec_affine_pre", "ec_affine_post",
+                     "inv_tree_up", "inv_tree_tail", "inv_tree_down"]
+        for k in need:
+            if line["path_launches"].get(k, 0) <= 0:
+                raise AssertionError(f"{name} never launched {k}")
+    print(f"te_and_signatures_section_s {time.perf_counter() - t_te:.1f}",
+          flush=True)
+
     if args.time_plain_addsub:
         cs6, _ = benchmark_circuit(fr, NUM_INPUTS, 1 << 6)
         compiled6 = compile_r1cs(cs6)
@@ -3624,8 +4078,10 @@ def main():
             raise AssertionError(f"the main path never launched {name}")
 
     # the 24-digit rows, made on the BLS12-381 rung (their launches are
-    # that rung's, checked where they were made)
+    # that rung's, checked where they were made), and the 16-digit rows of
+    # the twisted-Edwards and Pedersen lines
     kernels.extend(bls_rows)
+    kernels.extend(te_rows)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

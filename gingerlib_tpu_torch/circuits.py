@@ -8,6 +8,10 @@ verifies, and ``groth16_verifier_circuit`` the recursion's outer circuit:
 an MNT4-753 Groth16 verifier over MNT4-753's Fq (= MNT6-753's Fr), one step
 of the MNT4/MNT6 cycle (nizk/groth16/mod.rs:517), or a BLS12-377 Groth16
 verifier over BLS12-377's Fq (= SW6's Fr; nizk/groth16/mod.rs:431).
+``schnorr_verification_circuit`` verifies a field-based Schnorr signature
+over MNT6-753 G1 in a circuit over MNT4-753 Fr, and
+``pedersen_commitment_circuit`` opens a Pedersen commitment over
+Edwards-BLS12 in a circuit over BLS12-377 Fr.
 """
 
 from __future__ import annotations
@@ -17,7 +21,12 @@ import random
 from . import params as PP
 from .gadgets.crypto.nizk import (bls12_377_verifier_gadget,
                                   mnt4753_verifier_gadget)
+from .gadgets.crypto.pedersen import (PedersenCommitmentGadget,
+                                      bytes_to_bit_gadgets)
+from .gadgets.crypto.schnorr import mnt4753_schnorr_gadget
 from .gadgets.std.boolean import Boolean
+from .gadgets.std.fp import FpG
+from .gadgets.std.te_groups import TEGroupGadget, TEPointG
 from .relations.r1cs import ConstraintSystem, LinearCombination
 
 
@@ -85,4 +94,46 @@ def groth16_verifier_circuit(vk_host: dict, proof_host: dict, inputs,
     vk = vg.alloc_vk(cs, vk_host)
     proof = vg.alloc_proof(cs, proof_host)
     vg.check_verify(cs, vk, bits, proof)
+    return cs
+
+
+def schnorr_verification_circuit(pk, sig, message) -> ConstraintSystem:
+    """The circuit over MNT4-753 Fr (= MNT6-753 Fq) that a Schnorr
+    signature ``sig`` = (e, s) on ``message`` (field elements) verifies
+    under ``pk`` (affine ([x], [y]) over MNT6-753 G1): the message's
+    elements, then pk's coordinates, are the public inputs (pk checked on
+    the curve, as ``alloc_checked`` does); e and s are witnesses, and
+    ``enforce_signature_verification`` holds e to Poseidon(m || R'.x ||
+    R'.y || pk.x)."""
+    vg = mnt4753_schnorr_gadget()
+    cs = ConstraintSystem(PP.MNT4753_FR)
+    msg = [FpG.alloc_input(cs, m, f"m{i}") for i, m in enumerate(message)]
+    pkg = vg.g.alloc_input(cs, pk, "pk")
+    vg.g.enforce_on_curve(cs, pkg, "pk/on_curve")
+    vg.enforce_signature_verification(cs, pkg, vg.alloc_signature(cs, sig),
+                                      msg)
+    return cs
+
+
+def pedersen_commitment_circuit(comm, data: bytes, randomness: int,
+                                commitment) -> ConstraintSystem:
+    """The opening of a Pedersen commitment over the twisted-Edwards curve
+    of ``comm`` (a ``primitives/commitment.PedersenCommitment`` after setup;
+    only its host values are read), in a circuit over the curve's base
+    field: the commitment's affine (x, y) are the public inputs, enforced
+    equal to ``check_commitment`` of the data's bits and the randomness's
+    ``modulus_bits`` bits (LSB first), both witnesses."""
+    g = comm.g
+    gg = TEGroupGadget.for_curve(g)
+    cs = ConstraintSystem(g.fp)
+    out = TEPointG(FpG.alloc_input(cs, commitment[0], "commitment/x"),
+                   FpG.alloc_input(cs, commitment[1], "commitment/y"))
+    gadget = PedersenCommitmentGadget(gg, comm.crh.w,
+                                      comm.crh.generators_host,
+                                      comm.rand_base_host)
+    bits = bytes_to_bit_gadgets(cs, data)
+    rbits = [Boolean.alloc(cs, bool((randomness >> i) & 1), f"r{i}")
+             for i in range(g.scalar_field.modulus_bits)]
+    gg.enforce_equal(cs, gadget.check_commitment(cs, bits, rbits), out,
+                     "opening")
     return cs

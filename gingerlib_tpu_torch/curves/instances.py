@@ -1,6 +1,7 @@
 """Concrete curve instantiations of the port: the MNT4-753/MNT6-753 cycle,
 BLS12-377 and BLS12-381 (Groth16 and GM17 setup, prove and verify over
-each curve).
+each curve), and the twisted-Edwards curves over BLS12-381 Fr (Jubjub),
+BLS12-377 Fr (Edwards-BLS12) and BLS12-377 Fq = SW6 Fr (Edwards-SW6).
 
 Each constructor takes ``device`` under the package's device rule and caches
 one object per device (and, for G1, per choice of ``ec_rns``: the RNS
@@ -23,6 +24,7 @@ from ..fields import towers as T
 from .pairing_bls12 import Bls12Pairing
 from .pairing_mnt import MNTPairing
 from .sw import SWCurveOps
+from .twisted_edwards import TECurveOps
 
 
 @functools.lru_cache()
@@ -183,3 +185,38 @@ def bls12_377_engine(device=None) -> Bls12Pairing:
 def bls12_381_engine(device=None) -> Bls12Pairing:
     """BLS12-381's engine: its pairing, with ``g1`` and ``g2``."""
     return bls12_381_pairing(device)
+
+
+# (base field, scalar field, curve constants)
+_TE = {
+    "jubjub": (PP.JUBJUB_FQ, PP.JUBJUB_FR, CG.JUBJUB),
+    "edwards_bls12": (PP.EDWARDS_BLS12_FQ, PP.EDWARDS_BLS12_FR,
+                      CG.EDWARDS_BLS12),
+    "edwards_sw6": (PP.EDWARDS_SW6_FQ, PP.EDWARDS_SW6_FR, CG.EDWARDS_SW6),
+}
+
+
+@functools.lru_cache()
+def _te(name: str, device) -> TECurveOps:
+    fq, fr, c = _TE[name]
+    return TECurveOps(name, T.FpOps(fq), c["a"], c["d"],
+                      generator_host=(c["g_x"], c["g_y"]),
+                      cofactor=c["cofactor"], cofactor_inv=c["cofactor_inv"],
+                      scalar_field=fr, mont_a=c["mont_a"],
+                      mont_b=c["mont_b"], device=device)
+
+
+def jubjub(device=None) -> TECurveOps:
+    """Jubjub over BLS12-381 Fr (algebra/src/curves/jubjub/mod.rs)."""
+    return _te("jubjub", resolve_device(device))
+
+
+def edwards_bls12(device=None) -> TECurveOps:
+    """The Edwards curve over BLS12-377 Fr (curves/edwards_bls12/mod.rs)."""
+    return _te("edwards_bls12", resolve_device(device))
+
+
+def edwards_sw6(device=None) -> TECurveOps:
+    """The Edwards curve over SW6 Fr = BLS12-377 Fq
+    (curves/edwards_sw6/mod.rs)."""
+    return _te("edwards_sw6", resolve_device(device))

@@ -21,6 +21,14 @@ affine batch ``((x, y), inf)`` or a projective triple ``(X, Y, Z)`` of numpy
 arrays becomes the same nesting of tensors (digits int64, flags bool) and
 back, so that one set of seeded inputs can go through both packages.
 
+``pedersen_crh_from_numpy``, ``bowe_hopwood_from_numpy`` and
+``pedersen_commitment_from_numpy`` carry a Pedersen CRH's generator powers
+(``params``, and its windows' affine generators), a Bowe-Hopwood hash's and
+a commitment's (the CRH's and ``rand_powers``) across onto a port curve, so
+that both packages hash and commit with the same generators; a single
+point (a Schnorr or VRF key) is a projective triple for
+``points_from_numpy``.
+
 ``poseidon_params_from_numpy`` carries a Poseidon parameter set across (the
 JAX package's ``PoseidonParams``, its arrays read as numpy), reduced-round
 sets included, so that both packages hash with the same constants.
@@ -47,6 +55,9 @@ from ..fields import fp as fpmod
 from ..ops.limbs import NP_DTYPE
 from ..ops.rns_kernels import LANES as RNS_LANES
 from ..params import ALL_FIELDS
+from ..primitives.commitment import PedersenCommitment
+from ..primitives.pedersen import (BoweHopwoodCRH, PedersenCRH,
+                                   PedersenWindow)
 from ..primitives.poseidon import PoseidonParams
 from ..proofs.gm17 import GM17Parameters, GM17VerifyingKey
 from ..proofs.groth16 import (Parameters, VerifyingKey,
@@ -101,6 +112,51 @@ def points_to_numpy(pt, dtype=np.uint32):
         return tuple(points_to_numpy(c, dtype) for c in pt)
     a = pt.detach().cpu().numpy()
     return a if a.dtype == np.bool_ else a.astype(dtype)
+
+
+def _powers(curve, triple):
+    """A projective triple of digit arrays [N, 1, nd] -> tensors on the
+    curve's device."""
+    return points_from_numpy(tuple(np.asarray(c) for c in triple),
+                             curve.device)
+
+
+def _window(src) -> PedersenWindow:
+    return PedersenWindow(src.w.window_size, src.w.num_windows)
+
+
+def _host_pairs(pairs):
+    return None if pairs is None else [(int(x), int(y)) for x, y in pairs]
+
+
+def pedersen_crh_from_numpy(curve, src) -> PedersenCRH:
+    """A Pedersen CRH (``w``, ``params`` as numpy digit arrays,
+    ``generators_host``) -> the port's ``PedersenCRH`` over ``curve`` with
+    the same generators."""
+    crh = PedersenCRH(curve, _window(src))
+    crh.params = _powers(curve, src.params)
+    crh.generators_host = _host_pairs(getattr(src, "generators_host", None))
+    return crh
+
+
+def bowe_hopwood_from_numpy(curve, src) -> BoweHopwoodCRH:
+    """A Bowe-Hopwood CRH (``w``, ``params``) -> the port's over
+    ``curve``."""
+    crh = BoweHopwoodCRH(curve, _window(src))
+    crh.params = _powers(curve, src.params)
+    return crh
+
+
+def pedersen_commitment_from_numpy(curve, src) -> PedersenCommitment:
+    """A Pedersen commitment (its ``crh``, ``rand_powers``,
+    ``rand_base_host``) -> the port's over ``curve``."""
+    comm = PedersenCommitment(curve, _window(src.crh))
+    comm.crh = pedersen_crh_from_numpy(curve, src.crh)
+    comm.rand_powers = _powers(curve, src.rand_powers)
+    base = getattr(src, "rand_base_host", None)
+    comm.rand_base_host = None if base is None else tuple(int(v)
+                                                          for v in base)
+    return comm
 
 
 def params_from_numpy(engine, src, device=None) -> Parameters:

@@ -2,7 +2,9 @@
 plain PyTorch versions (the curve kernels also at MNT6-753 G1's constant),
 and the MNT4-753, MNT6-753, BLS12-377 and BLS12-381 pairings, Groth16
 verification, GM17 and the recursion's inner proof (through the bridge to
-the verifier circuit) that run over them, under pytest, on a machine with an NVIDIA GPU:
+the verifier circuit), the twisted-Edwards curves, Pedersen, Schnorr and
+the VRF (against their python-int oracles) and the field kernels at 16
+digits that run over them, under pytest, on a machine with an NVIDIA GPU:
 
     python -m pytest --noconftest tests/test_torch_gpu_kernels.py -q
 
@@ -967,3 +969,156 @@ def test_bls12_groth16_and_gm17_on_the_gpu(family):
         gm17_host.expected_gm17_proof(family, cs, **g_toxic, **rand)
     assert gm17.verify_proof(eng, params.vk, proof, inputs)
     assert not gm17.verify_proof(eng, params.vk, proof, wrong)
+
+
+# ---------------------------------------------------------------------------
+# the twisted-Edwards curves, Pedersen and the signatures (the 16-digit rows)
+# ---------------------------------------------------------------------------
+
+def _te_host_mul(gg, P, k):
+    """[k] P in python ints through the TE gadget's host helpers."""
+    acc = (0, 1)
+    for bit in bin(k)[2:]:
+        acc = gg._host_double(acc)
+        if bit == "1":
+            acc = gg._host_add(acc, P)
+    return acc
+
+
+@pytest.mark.parametrize("name", ["jubjub", "edwards_bls12", "edwards_sw6"])
+def test_te_group_laws_on_the_gpu(name):
+    """64 seeded multiples as lanes of one loop, four against python ints;
+    dbl = add, associativity, P + (-P) = 0, P + 0 = P; [r] G = 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the field kernels have no CPU form")
+    import random
+    from gingerlib_tpu_torch.curves import points
+    from gingerlib_tpu_torch.gadgets.std.te_groups import TEGroupGadget
+    from gingerlib_tpu_torch.curves.points import affine_ints
+    te = getattr(CI, name)()
+    gg = TEGroupGadget.for_curve(te)
+    r = te.scalar_field.modulus
+    rng = random.Random(64)
+    ks = [rng.randrange(1, r) for _ in range(64)]
+    P = points.mul_ints(te, te.generator(()), ks)
+    Q, R = (tuple(c.roll(s, 0) for c in P) for s in (1, 2))
+    assert list(zip(*affine_ints(te, tuple(c[:4] for c in P)))) == \
+        [_te_host_mul(gg, te.generator_host, k) for k in ks[:4]]
+    assert bool(te.eq(te.double(P), te.add(P, P)).all())
+    assert bool(te.eq(te.add(te.add(P, Q), R),
+                      te.add(P, te.add(Q, R))).all())
+    assert bool(te.is_zero(te.add(P, te.neg(P))).all())
+    assert bool(te.eq(te.add(P, te.zero((64,))), P).all())
+    assert bool(te.is_zero(points.mul_ints(te, te.generator(()), [r])).all())
+
+
+def test_pedersen_and_bowe_hopwood_on_the_gpu():
+    """Pedersen over Edwards-BLS12 at window 4 x 8: the seeded setup's
+    generators, an evaluation and a commitment against python ints; the
+    Bowe-Hopwood hash over MNT6-753 G1 (2 x 2) of a short input against
+    ``BoweHopwoodHost``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the field kernels have no CPU form")
+    import random
+    from gingerlib_tpu_torch.gadgets.std.te_groups import TEGroupGadget
+    from gingerlib_tpu_torch.primitives.commitment import PedersenCommitment
+    from gingerlib_tpu_torch.primitives.group_hash_host import \
+        mnt6753_g1_group_hash
+    from gingerlib_tpu_torch.curves.points import affine_host
+    from gingerlib_tpu_torch.primitives.pedersen import (BoweHopwoodCRH,
+                                                         PedersenWindow)
+    te = CI.edwards_bls12()
+    gg = TEGroupGadget.for_curve(te)
+    r = te.scalar_field.modulus
+    comm = PedersenCommitment(te, PedersenWindow(4, 8)).setup(
+        random.Random(7))
+    rng = random.Random(7)
+    gens = [_te_host_mul(gg, te.generator_host, rng.randrange(1, r))
+            for _ in range(9)]
+    assert comm.crh.generators_host == gens[:8]
+    assert comm.rand_base_host == gens[8]
+    data, rnd = b"m!\x05", 123456789
+    bits = [(b >> i) & 1 for b in data for i in range(8)]
+    want = (0, 1)
+    for w in range(8):
+        m = sum(b << i for i, b in enumerate(bits[4 * w:4 * w + 4]))
+        want = gg._host_add(want, _te_host_mul(gg, gens[w], m))
+    assert affine_host(te, comm.crh.evaluate(data)) == want
+    assert affine_host(te, comm.commit(data, rnd)) == gg._host_add(
+        want, _te_host_mul(gg, gens[8], rnd))
+    g6 = CI.mnt6753_g1()
+    host = mnt6753_g1_group_hash(2, 2).setup(random.Random(3))
+    bh = BoweHopwoodCRH(g6, PedersenWindow(2, 2)).setup(random.Random(3))
+    for bits in ([1, 1, 0, 1], [1, 0, 1, 1, 1, 0, 0, 1, 0, 1, 1, 0]):
+        x, y = affine_host(g6, bh.evaluate_bits(bits))
+        assert ([x], [y]) == tuple(host.evaluate_bits(bits))
+
+
+def test_schnorr_and_vrf_on_the_gpu():
+    """Schnorr (the JAX test's seed) and the VRF (its seed, the 64 x 4
+    group hash) on the card against ``HostSchnorr`` and ``HostVrf``; verify
+    refuses message + 1, proof_to_hash a wrong message."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the field kernels have no CPU form")
+    import random
+    from gingerlib_tpu_torch.primitives.group_hash_host import \
+        mnt6753_g1_group_hash
+    from gingerlib_tpu_torch.curves.points import affine_host
+    from gingerlib_tpu_torch.primitives.pedersen import (BoweHopwoodCRH,
+                                                         PedersenWindow)
+    from gingerlib_tpu_torch.primitives.poseidon import (PoseidonHash,
+                                                         PoseidonParams)
+    from gingerlib_tpu_torch.primitives.schnorr import FieldBasedSchnorr
+    from gingerlib_tpu_torch.primitives.signatures_host import (HostSchnorr,
+                                                                HostVrf)
+    from gingerlib_tpu_torch.primitives.vrf import FieldBasedEcVrf
+    g6 = CI.mnt6753_g1()
+    h = PoseidonHash(PoseidonParams.mnt4753())
+    hs, rng_h = HostSchnorr(), random.Random(1231275789)
+    pk_h, sk_h = hs.keygen(rng_h)
+    sig_h = hs.sign(pk_h, sk_h, [424242], rng_h)
+    sch, rng = FieldBasedSchnorr(g6, h), random.Random(1231275789)
+    pk, sk = sch.keygen(rng)
+    sig = sch.sign(pk, sk, [424242], rng)
+    x, y = affine_host(g6, pk)
+    assert ([x], [y]) == pk_h and (sig.e, sig.s) == sig_h
+    assert sch.verify(pk, [424242], sig)
+    assert not sch.verify(pk, [424243], sig)
+    assert sch.keyverify(pk)
+    rng_h, rng = random.Random(9174123), random.Random(9174123)
+    hv = HostVrf(mnt6753_g1_group_hash(64, 4).setup(rng_h))
+    vrf = FieldBasedEcVrf(g6, h, BoweHopwoodCRH(g6, PedersenWindow(
+        64, 4)).setup(rng))
+    vpk_h, vsk_h = hv.keygen(rng_h)
+    proof_h = hv.prove(vpk_h, vsk_h, [987654321], rng_h)
+    vpk, vsk = vrf.keygen(rng)
+    proof = vrf.prove(vpk, vsk, [987654321], rng)
+    assert (([proof.gamma[0]], [proof.gamma[1]]), proof.c, proof.s) == \
+        proof_h
+    assert vrf.proof_to_hash(vpk, [987654321], proof) == \
+        hv.proof_to_hash(vpk_h, [987654321], proof_h)
+    with pytest.raises(ValueError):
+        vrf.proof_to_hash(vpk, [987654322], proof)
+
+
+@pytest.mark.parametrize("name", ["JUBJUB_FQ", "BLS12_377_FR"])
+def test_field_kernels_at_16_digits(cuda, name):
+    """K1, add/sub/neg and K2 at 16 digits at the twisted-Edwards layouts:
+    a formula's stacked products [4, 1024, 1, 16], the curve constant
+    broadcast against them, a strided coordinate view, one element's
+    inverse."""
+    from gingerlib_tpu_torch.fields import fp
+    F = _field(name)
+    nd, p = F.n_digits, F.modulus
+    vals = [0, 1, p - 1] + rand_below(p, 2 * 4096 - 3, seed=16)
+    a = _digits(F, vals[:4096], cuda).reshape(4, 1024, 1, nd)
+    b = _digits(F, vals[4096:], cuda).reshape(4, 1024, 1, nd)
+    d = a[0, 7]
+    for x, y in ((a, b), (d, b), (a[:, ::2], b[:, 1::2])):
+        assert torch.equal(fp.mont_mul(F, x, y), fp.mont_mul_plain(F, x, y))
+        assert torch.equal(fp.add_mod(F, x, y), fp.add_mod_plain(F, x, y))
+        assert torch.equal(fp.sub_mod(F, x, y), fp.sub_mod_plain(F, x, y))
+    x = a[:, ::3]
+    assert torch.equal(fp.neg_mod(F, x), fp.neg_mod_plain(F, x))
+    one = a[1, 5, 0][None]
+    assert torch.equal(fp.inv_bea(F, one), fp.inv_bea_plain(F, one))

@@ -48,15 +48,52 @@ def test_sources_found():
             "anchors_gen.py", "fft.py", "r1cs.py", "serialize.py",
             "gm17.py", "gm17_host.py", "boolean.py", "ext_fields.py",
             "groups.py", "pairing.py", "nizk.py", "circuits.py",
-            "pairing_bls12.py"} <= names
-    # the BLS12 pairing and its gadget, both modules of that name
-    assert len([p for p in SOURCES if p.name == "pairing_bls12.py"]) == 2
+            "pairing_bls12.py", "twisted_edwards.py", "points.py",
+            "pedersen.py", "commitment.py", "group_hash_host.py",
+            "schnorr.py", "vrf.py", "signatures_host.py", "te_groups.py",
+            "bowe_hopwood.py"} <= names
+    # the BLS12 pairing and its gadget, both modules of that name; the
+    # Pedersen, Schnorr and VRF primitives and their gadgets, and the
+    # Poseidon primitive and gadget
+    for name in ("pairing_bls12.py", "pedersen.py", "schnorr.py", "vrf.py",
+                 "poseidon.py"):
+        assert len([p for p in SOURCES if p.name == name]) == 2, name
 
 
 # the public names of the MNT6-753 and GM17 slice, of the recursion's (the
-# gadgets, the host Groth16, the bridge, the circuits) and of the BLS12
-# slice's, module by module
+# gadgets, the host Groth16, the bridge, the circuits), of the BLS12
+# slice's and of the twisted-Edwards and signatures slice's, module by
+# module
 PUBLIC = {
+    "curves.twisted_edwards": ["TECurveOps", "products"],
+    "curves.points": ["lanes", "stack", "unstack", "mul_ints",
+                      "affine_ints", "affine_host"],
+    "curves.instances#te": ["jubjub", "edwards_bls12", "edwards_sw6"],
+    "curves.sw#te": ["SWCurveOps"],
+    "primitives.pedersen": ["PedersenWindow", "PedersenCRH",
+                            "BoweHopwoodCRH", "tree_sum"],
+    "primitives.commitment": ["PedersenCommitment", "TECompressor",
+                              "PedersenCRHCompressor"],
+    "primitives.group_hash_host": ["BoweHopwoodHost",
+                                   "mnt6753_g1_group_hash"],
+    "primitives.schnorr": ["SchnorrSignature", "FieldBasedSchnorr"],
+    "primitives.vrf": ["EcVrfProof", "FieldBasedEcVrf",
+                       "in_prime_subgroup"],
+    "primitives.signatures_host": ["HostSchnorr", "HostVrf"],
+    "gadgets.std.te_groups": ["TEPointG", "TEGroupGadget"],
+    "gadgets.crypto.pedersen": ["bytes_to_bit_gadgets", "PedersenCRHGadget",
+                                "PedersenCommitmentGadget",
+                                "PedersenCRHCompressorGadget"],
+    "gadgets.crypto.bowe_hopwood": ["BoweHopwoodGadget"],
+    "gadgets.crypto.poseidon": ["PoseidonGadget"],
+    "gadgets.crypto.schnorr": ["SchnorrVerificationGadget",
+                               "mnt4753_schnorr_gadget"],
+    "gadgets.crypto.vrf": ["EcVrfVerificationGadget", "mnt4753_vrf_gadget"],
+    "gadgets.crypto#te": ["PoseidonGadget"],
+    "utils.convert#te": ["pedersen_crh_from_numpy", "bowe_hopwood_from_numpy",
+                         "pedersen_commitment_from_numpy"],
+    "circuits#te": ["schnorr_verification_circuit",
+                    "pedersen_commitment_circuit"],
     "curves.pairing_bls12": ["Bls12Pairing"],
     "fields.towers#bls12": ["build_bls12_towers"],
     "fields.host_ext#bls12": ["frob_table_fp6_3over2", "frob_table_fp12",
@@ -166,7 +203,8 @@ ENTRY_POINTS = ["compile_r1cs", "Domain", "mnt4753_g1", "mnt4753_g2",
                 "gm17.sap_at_device", "gm17_params_from_numpy",
                 "gm17.compile_circuit", "bls12_381_g1", "bls12_381_g2",
                 "bls12_377_pairing", "bls12_381_pairing",
-                "bls12_377_engine", "bls12_381_engine"]
+                "bls12_377_engine", "bls12_381_engine", "jubjub",
+                "edwards_bls12", "edwards_sw6"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
@@ -252,6 +290,9 @@ def test_device_none_raises_without_a_gpu(entry):
         "bls12_381_pairing": CI.bls12_381_pairing,
         "bls12_377_engine": CI.bls12_377_engine,
         "bls12_381_engine": CI.bls12_381_engine,
+        "jubjub": CI.jubjub,
+        "edwards_bls12": CI.edwards_bls12,
+        "edwards_sw6": CI.edwards_sw6,
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
