@@ -80,7 +80,7 @@ What it does, in order (any failure raises, so the exit code is non-zero):
    GT in Fq6): the pairing of the reference's MNT6-753 anchor points with
    the seconds and launches of its host ladder, Miller loop and final
    exponentiation, and the launches of one multiply in each tower
-   (``pairing_mnt6``); Groth16 over MNT6-753 at 2^6 and at 32,763
+   (``pairing_mnt6``); Groth16 over MNT6-753 at 32,763
    constraints (5 inputs: the 2^15 domain, the largest radix-2 one) through
    the same rung, verify and serialization steps (lines tagged "family":
    "mnt6753"); GM17 over MNT4-753 at 2^10 (SAP domain 4,096, radix 2) and
@@ -109,11 +109,31 @@ What it does, in order (any failure raises, so the exit code is non-zero):
    curves at 2^10; the BLS12-377 recursion (``recursion_bls12``): an
    inner proof of 7 * 11 = 77 made and verified on the card, equal to
    ``HostGroth16``'s, and its 42,006-constraint verifier circuit built and
-   checked on the host (no outer proof: it would be over SW6); and K1,
+   checked on the host (its outer proof over SW6 follows below); and K1,
    K2, add/sub/neg, K4, K5 and K6 at 24 digits against their plain
    versions at the BLS12-381 rung's and the pairings' widest layouts and
    widths (``bls12_curve_kernels``, ``field_kernels_at_bls12``; rows
-   ``*_d24`` of the kernels line); then the twisted-Edwards curves, on
+   ``*_d24`` of the kernels line); then SW6 and MNT6-298, whose fields
+   have an odd digit count (49 and 19): K1 and add/sub/neg on every pair
+   of 0, 1, 2, p - 1, p - 2, (p - 1)/2 and seeded values, on halves and
+   rows, K1 with one operand up to R - 1, K2 on its host test's inputs
+   against pow, K6 at the edges of its tiles
+   (``field_kernels_at_odd_widths``); on each curve the pairing of the
+   generators against the python-int oracle (on SW6 also the pinned GT
+   of the reference's 782-bit loop), e(3P, 5Q) = e(P, Q)^15 and GT^r = 1,
+   with the seconds and launches of its phases (``pairing_odd``);
+   Groth16 over MNT6-298 at 2^10 through the same rung, verify and
+   serialization steps, and the golden bytes of the proof A = [2]G1,
+   B = G2, C = G1; GM17 over MNT6-298 at 2^10; the BLS12-377 recursion's
+   outer Groth16 proof over SW6 of the 42,006-constraint verifier circuit
+   above (254 inputs, the domain 2^16 over SW6 Fr = BLS12-377 Fq: the
+   section's main path: a ``rung`` line tagged "sw6" and the
+   ``recursion_bls12`` line's ``outer_sw6``), whose launch counts by digit
+   count must show K1, add/sub, K2 and K4-K6 at 49 digits; and K1, K2,
+   add/sub/neg and K4-K6 at 19 and 49 digits against their plain versions
+   at the widest layouts and widths of the MNT6-298 paths and of the
+   outer proof (``odd_curve_kernels``; rows ``*_d19`` and ``*_d49`` of the
+   kernels line); then the twisted-Edwards curves, on
    each of Jubjub, Edwards-BLS12 and Edwards-SW6 the generator on the
    curve, the group laws on 2^10 seeded points and one full-width scalar
    multiply with its seconds and launches (``twisted_edwards`` lines);
@@ -131,8 +151,8 @@ What it does, in order (any failure raises, so the exit code is non-zero):
    16-digit lines (``field_kernels_at_te``; rows ``*_d16`` of the
    kernels line);
 5. checks the results: each device proof equals the closed-form python-int
-   oracle coordinate for coordinate, a repeat gives the same proof, a proof
-   with another ``s`` differs; setup's device QAP equals ``qap_at`` (every
+   oracle coordinate for coordinate, a repeat gives the same proof (over
+   MNT4-753 at 2^10 and 2^16), a proof with another ``s`` differs; setup's device QAP equals ``qap_at`` (every
    a_i, b_i, c_i, Z(t) and m); the windowed queries equal the loop's
    points; proof bytes equal those written from the oracle's coordinates,
    the decoded proof verifies under the decoded vk, and the decoded 2^10
@@ -165,12 +185,20 @@ What it does, in order (any failure raises, so the exit code is non-zero):
    keyverify accepts; the VRF's (gamma, c, s) and output equal
    ``HostVrf``'s and a wrong message is refused; both circuits' proofs
    equal the closed form, their QAPs ``qap_at``, and verify accepts them
-   and refuses a wrong public input and an altered C; and the launch
+   and refuses a wrong public input and an altered C; the MNT6-298
+   pairing equals its oracle and the SW6 pairing its oracle and the pinned
+   GT; the MNT6-298 Groth16 and GM17 proofs equal their closed forms,
+   verify, and a wrong input and an altered C are refused, and the golden
+   proof bytes are written from their points and read back; the SW6
+   outer proof equals ``expected_proof("sw6", ...)``, its QAP ``qap_at``,
+   and verify accepts the bits of 77 and refuses those of 78 and C + G1's
+   generator; and the launch
    counters, set
    to zero before each path, show that every kernel was launched on the path
    that reaches it (K7 and K8 on the RNS path), and K1 and K2 on the
    verifier's, and K1, K2, add/sub and K4-K6 on the MNT6-753 2^15 rung,
-   both GM17 rungs and the recursion;
+   both GM17 rungs and the recursion, and at 49 digits on the SW6 outer
+   proof;
 6. prints the card's name and power limit, the kernel table as one JSON
    line, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -232,6 +260,41 @@ def _horner_at(point):
     return acc
 
 
+def _oracle_child(fn, send):
+    """fn() in a forked process: sends (result, seconds, error)."""
+    t = time.perf_counter()
+    try:
+        out = (fn(), time.perf_counter() - t, None)
+    except BaseException as e:      # the parent raises it
+        out = (None, 0.0, repr(e))
+    send.send(out)
+    send.close()
+
+
+class HostOracle:
+    """fn() -- python ints only, nothing of CUDA -- computed in a forked
+    process while this one drives the card; ``get()`` waits for it and
+    returns (fn(), its seconds).  The process is a daemon: it ends with
+    the script."""
+
+    def __init__(self, fn):
+        ctx = multiprocessing.get_context("fork")
+        self.recv, send = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=_oracle_child, args=(fn, send),
+                                daemon=True)
+        self.proc.start()
+        send.close()
+
+    def get(self):
+        try:
+            val, secs, err = self.recv.recv()
+        finally:
+            self.proc.join()
+        if err is not None:
+            raise AssertionError(f"host oracle failed: {err}")
+        return val, secs
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--time-plain-addsub", action="store_true",
@@ -289,8 +352,10 @@ def main():
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path[:0] = [os.path.join(root, "tests"), os.path.join(root, "tools")]
     import divsteps_model
-    from test_torch_cases import (host_alpha_beta, inv_inputs,
-                                  mnt4753_anchor, mnt6753_anchor)
+    from test_torch_cases import (GOLDEN_MNT6298_PROOF, SW6_GT_G1G2,
+                                  host_alpha_beta, inv_inputs,
+                                  mnt4753_anchor, mnt6298_golden_points,
+                                  mnt6753_anchor)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -310,7 +375,7 @@ def main():
     # 2. kernels against their plain versions, on the device
     # ------------------------------------------------------------------
     fq = PP.MNT4753_FQ
-    nd, L = fq.n_digits, fq.n_digits // 2
+    nd, L = fq.n_digits, (fq.n_digits + 1) // 2
     p, R = fq.modulus, 1 << (16 * fq.n_digits)
     gen = torch.Generator().manual_seed(2024)
     eng = CI.mnt4753_engine()
@@ -1230,7 +1295,8 @@ def main():
         # the BLS12 paths' at 24 and 16 digits
         fields = {F.name: F for F in (
             fq, fr, PP.MNT6753_FQ, PP.MNT6753_FR, PP.BLS12_377_FQ,
-            PP.BLS12_377_FR, PP.BLS12_381_FQ, PP.BLS12_381_FR)}
+            PP.BLS12_377_FR, PP.BLS12_381_FQ, PP.BLS12_381_FR, PP.SW6_FQ,
+            PP.MNT6298_FQ, PP.MNT6298_FR)}
         # (kernel, plain version, 32-bit operations an element of l limbs)
         fns = {"mont_mul": (fp.mont_mul, fp.mont_mul_plain,
                             lambda l: (2 * l * l + l) * 2),
@@ -1287,7 +1353,7 @@ def main():
             if name not in timed and timed_field in (None, F.name):
                 # sorted: the widest comes first
                 row.update(field_row(name, label, kern, plain, a, b,
-                                     ops_each(F.n_digits // 2)))
+                                     ops_each((F.n_digits + 1) // 2)))
                 timed[name] = row
             rows.append(row)
             del a, b
@@ -2160,6 +2226,18 @@ def main():
             _, cs = circuit
         if not cs.is_satisfied():
             raise AssertionError("the rung's circuit is not satisfied")
+
+        def oracles():
+            t = time.perf_counter()
+            qap = groth16_host.qap_at(cs, TOXIC["t"])
+            qap_s = time.perf_counter() - t
+            want = groth16_host.expected_proof(
+                family, cs, **TOXIC, r=R_BLIND, s=S_BLIND, qap=qap)
+            return qap, want, qap_s, time.perf_counter() - t - qap_s
+
+        # setup's QAP and the closed-form proof in python ints, in a forked
+        # process while the card sets up and proves
+        oracle = HostOracle(oracles)
         out = {"log2_constraints": log2}
         if family != "mnt4753" or circuit is not None:
             out.update(family=family, constraints=cs.num_constraints)
@@ -2193,6 +2271,8 @@ def main():
             out["prove_phase_launches"] = phases.launches
             phases.launches = {}
         out["path_launches"] = dict(fp.launch_counts)
+        out["path_launches_by_digits"] = {
+            k: dict(v) for k, v in fp.launch_digits.items() if v}
         out["prove_launches"] = {
             k: v - out["setup_launches"][k]
             for k, v in out["path_launches"].items()}
@@ -2204,18 +2284,16 @@ def main():
             for k in curve_keys}
         out["curve_launches_by_lanes"] = {
             k: ec_kernels.launches_by_class(k) for k in curve_keys}
+        # the proof against the closed form, and setup's QAP on the device
+        # against the python-int oracle, every value of a, b and c, Z(t)
+        # and m
         t = time.perf_counter()
-        want = groth16_host.expected_proof(family, cs, **TOXIC,
-                                           r=R_BLIND, s=S_BLIND)
-        out["oracle_host_s"] = time.perf_counter() - t
+        (qap, want, out["qap_host_oracle_s"], out["oracle_host_s"]), _ = \
+            oracle.get()
+        out["oracle_wait_s"] = time.perf_counter() - t
         if proof != want:
             raise AssertionError(f"2^{log2}: device proof differs from the "
                                  f"closed-form oracle")
-        # setup's QAP on the device against the python-int oracle, every
-        # value of a, b and c, Z(t) and m
-        t = time.perf_counter()
-        qap = groth16_host.qap_at(cs, TOXIC["t"])
-        out["qap_host_oracle_s"] = time.perf_counter() - t
         got = groth16.qap_at_device(cs, TOXIC["t"])
         if [fp.fp_to_ints(fr_, v) for v in got[:3]] != list(qap[:3]) \
                 or (got[3], got[4].size) != qap[3:]:
@@ -2266,9 +2344,10 @@ def main():
         coordinates."""
         engine = engine or eng
         line = line or serial_line
+        width = 8 * -(-engine.fp.modulus_bits // 64)    # u64 limbs
 
         def le(v):
-            return v.to_bytes(96, "little")
+            return v.to_bytes(width, "little")
 
         t = time.perf_counter()
         raw = serialize.proof_to_bytes(engine, proof_dev)
@@ -2459,7 +2538,14 @@ def main():
     # 2^16 constraints: every MSM of the prover is above the 2^12-point
     # threshold, so G1 goes through msm_hybrid and the curve kernels and G2
     # through msm_affine
-    full, (cs16, _, params16, proof16, dev16, _) = rung(16, phases=True)
+    full, (cs16, compiled16, params16, proof16, dev16, _) = rung(
+        16, phases=True)
+    # a repeat gives the same proof on this path too (msm_hybrid and the
+    # curve kernels; at 2^10 the MSMs run as loops)
+    again, full["prove_steady_s"], _ = prove(params16, compiled16, cs16)
+    if again != proof16:
+        raise AssertionError("2^16: the same inputs gave two different "
+                             "proofs")
     print("rung " + json.dumps(full), flush=True)
     if params10.vk.alpha_g1_beta_g2.tolist() != \
             params16.vk.alpha_g1_beta_g2.tolist():
@@ -2468,7 +2554,7 @@ def main():
     verify_rung(16, cs16, params16, dev16)
     serialization(16, cs16, params16, proof16, dev16)
     nv16, m16 = cs16.num_variables, params16.domain_size
-    del params16, dev16
+    del params16, dev16, compiled16
     print("verify " + json.dumps(verify_line), flush=True)
     print("serialization " + json.dumps(serial_line), flush=True)
     # every query scalar and single element went through the windowed
@@ -2560,7 +2646,7 @@ def main():
     mnt6_pairing = pairing_mnt6()
     print("pairing_mnt6 " + json.dumps(mnt6_pairing), flush=True)
 
-    # Groth16 over MNT6-753: 2^6 and the largest radix-2 rung, 32,763
+    # Groth16 over MNT6-753: the largest radix-2 rung, 32,763
     # constraints + 5 inputs = a 2^15 domain (two-adicity 15)
     verify6_line = {"family": "mnt6753", "rungs": {}, "checks": {}}
     serial6_line = {"family": "mnt6753", "rungs": {}}
@@ -2573,20 +2659,16 @@ def main():
                 mnt6_widths.setdefault(k, {})
                 mnt6_widths[k][w] = mnt6_widths[k].get(w, 0) + n
 
-    for log2, n_c in ((6, 1 << 6), (15, (1 << 15) - NUM_INPUTS - 1)):
+    # (the 2^6 rung, which ran the same code at a smaller depth, and the
+    # 2^15 rung's repeat proof are left out to make room for section 4g;
+    # the MNT4-753 2^16 rung checks that a repeat gives the same proof on
+    # the msm_hybrid path)
+    for log2, n_c in ((15, (1 << 15) - NUM_INPUTS - 1),):
         line, (cs_, compiled_, params_, proof_, dev_, _) = rung(
             log2, phases=True, family="mnt6753", constraints=n_c)
         if params_.domain_size != 1 << (n_c + NUM_INPUTS).bit_length():
             raise AssertionError(f"mnt6753 {n_c}: domain "
                                  f"{params_.domain_size}")
-        # the 2^15 rung proves again (steady seconds, the same proof); the
-        # 2^6 rung's repeat is left out to keep the run within its time
-        if log2 == 15:
-            again, line["prove_steady_s"], _ = prove(params_, compiled_, cs_,
-                                                     engine=eng6)
-            if again != proof_:
-                raise AssertionError("mnt6753: the same inputs gave two "
-                                     "proofs")
         add_widths(line["curve_launches_by_width"])
         print("rung " + json.dumps(line), flush=True)
         verify_rung(log2, cs_, params_, dev_, eng6, verify6_line)
@@ -2820,13 +2902,21 @@ def main():
             raise AssertionError(f"recursion: the circuit has "
                                  f"{cs.num_constraints} constraints and "
                                  f"{cs.num_inputs} inputs")
-        t = time.perf_counter()
-        circ["which_is_unsatisfied"] = cs.which_is_unsatisfied()
-        circ["check_s"] = time.perf_counter() - t
-        if circ["which_is_unsatisfied"] is not None:
-            raise AssertionError(f"recursion: the verifier circuit fails at "
-                                 f"{circ['which_is_unsatisfied']}")
 
+        def oracles():
+            t0 = time.perf_counter()
+            bad = cs.which_is_unsatisfied()
+            t1 = time.perf_counter()
+            sap = gm17_host.sap_at(cs, OUTER_TOXIC["t"])
+            t2 = time.perf_counter()
+            want = gm17_host.expected_gm17_proof(
+                "mnt6753", cs, **OUTER_TOXIC, **OUTER_RAND, sap=sap)
+            return bad, sap, want, (t1 - t0, t2 - t1,
+                                    time.perf_counter() - t2)
+
+        # the circuit's check and the outer proof's oracles in python ints,
+        # in a forked process while the card sets up and proves
+        oracle = HostOracle(oracles)
         groth16.setup_table.cache_clear()
         ec_kernels.reset_launch_widths()
         with phase_clock(phase_clock.prover(eng6, gm17)) as clock:
@@ -2869,12 +2959,13 @@ def main():
                     "MixedRadixDomain", 163840, 163840, 124321):
             raise AssertionError(f"recursion: domain {outer['domain']}")
         t = time.perf_counter()
-        sap = gm17_host.sap_at(cs, OUTER_TOXIC["t"])
-        outer["sap_host_oracle_s"] = time.perf_counter() - t
-        t = time.perf_counter()
-        want = gm17_host.expected_gm17_proof("mnt6753", cs, **OUTER_TOXIC,
-                                             **OUTER_RAND, sap=sap)
-        outer["oracle_host_s"] = time.perf_counter() - t
+        (bad, sap, want, (circ["check_s"], outer["sap_host_oracle_s"],
+                          outer["oracle_host_s"])), _ = oracle.get()
+        outer["oracle_wait_s"] = time.perf_counter() - t
+        circ["which_is_unsatisfied"] = bad
+        if bad is not None:
+            raise AssertionError(f"recursion: the verifier circuit fails at "
+                                 f"{bad}")
         if proof != want:
             raise AssertionError("recursion: the outer proof differs from "
                                  "expected_gm17_proof")
@@ -3091,10 +3182,12 @@ def main():
         bridge; verify accepts 77 and refuses 78 and an altered C; the
         verifier circuit over BLS12-377 Fq (the statement's 253 bits as
         public inputs) built and checked on the host, satisfied, and
-        unsatisfied for 78.  No outer proof: it would be over SW6."""
+        unsatisfied for 78.  Returns the line and the circuits for 77 and
+        78, whose outer proof over SW6 section 4g makes."""
         eng377 = engines["bls12_377"]
         g1_377 = eng377.g1
         out = {"inner": {}, "circuit": {}}
+        circuits = {}
         inner, circ = out["inner"], out["circuit"]
         groth16.setup_table.cache_clear()
         fp.reset_launch_counts()
@@ -3137,8 +3230,8 @@ def main():
                            **{f"refuses {k}": True for k in refusals}}
         for value, want in ((77, None), (78, "unsatisfied")):
             t = time.perf_counter()
-            cs = groth16_verifier_circuit(vk_host, proof_host, [value],
-                                          "bls12_377")
+            cs = circuits[value] = groth16_verifier_circuit(
+                vk_host, proof_host, [value], "bls12_377")
             build_s = time.perf_counter() - t
             t = time.perf_counter()
             bad = cs.which_is_unsatisfied()
@@ -3159,32 +3252,31 @@ def main():
                                  f"and {circ['num_inputs']} inputs")
         circ["checks"] = {"satisfied for 77": True,
                           "unsatisfied for 78": True}
-        return out
+        return out, circuits
 
     t = time.perf_counter()
-    rec_bls = recursion_bls12()
+    rec_bls, bls_circuits = recursion_bls12()
     rec_bls["section_s"] = time.perf_counter() - t
     bls_paths["recursion_bls12"] = rec_bls
-    print("recursion_bls12 " + json.dumps(rec_bls), flush=True)
+    # printed in section 4g, with its outer proof over SW6
 
-    def bls12_curve_kernels(widths, curve, launches):
-        """K1, K2, add/sub/neg, K4, K5 and K6 at 24 digits against their
-        plain versions, tolerance 0: K1 and add/sub/neg at the widest
-        layout of each class the BLS12-381 rung's setup and both pairings
-        launched (``field_kernels_at_setup``), K2 on the one element the
-        path inverts, K4 at the rung's widest batch (the special lanes
-        first, a doubling among them), K5 and K6 at their widest batch
-        (the windowed query's first level) and the tail at its widest;
-        each timed beside its plain version and its bound.  Returns the
-        rows of the kernels line (``launches``: the rung's counts) and
-        the field kernels' rows by layout."""
+    def curve_kernel_rows(widths, curve, launches, seen, path, suffix):
+        """K1, K2, add/sub/neg, K4, K5 and K6 at the width of ``curve``'s
+        field against their plain versions, tolerance 0: K1 and
+        add/sub/neg at the widest layout of each class in ``seen`` (as
+        ``layout_log`` records them: the path's setup and pairings;
+        ``field_kernels_at_setup``), K2 on one element (as the path inverts
+        one), K4 at the path's widest batch (the special lanes first, a
+        doubling among them), K5 and K6 at their widest batch (the
+        windowed query's first level) and the tail at its widest; each
+        timed beside its plain version and its bound.  Returns the rows of
+        the kernels line, named ``<kernel>_<suffix>`` (``launches``: the
+        path's counts at this width), and the field kernels' rows by
+        layout."""
         F = curve.fp
-        w, l24 = F.n_digits, F.n_digits // 2
-        eb, mul24 = 2 * w, (2 * l24 * l24 + l24) * 2
-        seen = dict(setup_layouts["bls12_381", 16])
-        for (fam, _), lay in bls_layouts.items():
-            for key, n in lay.items():
-                seen[key] = seen.get(key, 0) + n
+        w = F.n_digits
+        lw = (w + 1) // 2                      # 32-bit limbs
+        eb, mulw = 2 * w, (2 * lw * lw + lw) * 2
         errs, field_rows, timed = field_kernels_at_setup(seen, F.name)
         rows = {}
         for name, row in timed.items():
@@ -3200,19 +3292,19 @@ def main():
                 device_ms=graph_ms(fn, 20), plain_ms=time_ms(plain, 2),
                 bound_ms=b_ms, bound_by=b_by, **extra)
 
-        def inv24(v):
+        def invw(v):
             return divsteps_model.inverse(v, F.modulus).passes * (
-                31 * 12 + 24 * l24)
+                31 * 12 + 24 * lw)
 
         # K2 on one element, as the path calls it
         x1 = torch.from_numpy(limbs.to_digits_batch(
-            [random.Random(24).randrange(1, F.modulus)], w)).to(dev)
+            [random.Random(w).randrange(1, F.modulus)], w)).to(dev)
         timed_case("inv_bea", lambda: fp.inv_bea(F, x1),
                    lambda: fp.inv_bea_plain(F, x1),
-                   compare("inv_bea [1,24]", fp.inv_bea(F, x1),
+                   compare(f"inv_bea [1,{w}]", fp.inv_bea(F, x1),
                            fp.inv_bea_plain(F, x1)),
-                   2 * eb, inv24(limbs.from_digits_batch(x1.cpu())[0]),
-                   case="[1, 24]")
+                   2 * eb, invw(limbs.from_digits_batch(x1.cpu())[0]),
+                   case=f"[1, {w}]")
         # K4 at the widest batch
         n = max(widths["ec_proj_add"])
         proj, _, _ = multiples(curve, max(n, 16), seed=65)
@@ -3227,11 +3319,11 @@ def main():
         timed_case("ec_proj_add", lambda: ec_kernels.proj_add(curve, P, Q),
                    lambda: ec_kernels.proj_add_plain(curve, P, Q), err,
                    9 * n * eb,
-                   (2 * 5 + 2 * 17 + (n - N_SPECIAL) * 14) * mul24, lanes=n)
+                   (2 * 5 + 2 * 17 + (n - N_SPECIAL) * 14) * mulw, lanes=n)
         del P, Q, proj
         # K5 and K6 at the widest batch
         n = max(widths["ec_affine_pre"])
-        _, points, _ = multiples(curve, 1 << 18, seed=66)
+        _, points, _ = multiples(curve, min(n, 1 << 18), seed=66)
         copies = -(-n // points[0].shape[0])
         a_pt, b_pt = affine_case(curve, tuple(
             torch.cat([c] * copies) for c in points), n)
@@ -3247,19 +3339,19 @@ def main():
                                ec_kernels.affine_pre_plain(curve,
                                                            *pre_args)),
                    (6 * eb + 3) * n,
-                   n * 2 * 2 * l24 + 2 * (mul24 + 4 * 2 * l24), lanes=n)
+                   n * 2 * 2 * lw + 2 * (mulw + 4 * 2 * lw), lanes=n)
         num, den, inf3 = pre
         den2 = den.reshape(n, w)
         tree, roots = ec_kernels.inv_up_cuda(F, den2)
         want_tree, want_roots = ec_kernels.inv_up_plain(F, den2)
         err = max(compare(f"{curve.name} inv_tree_up [{n}] trees",
-                          ec_kernels.unpack_limbs(tree), want_tree),
+                          ec_kernels.unpack_limbs(tree, w), want_tree),
                   compare(f"{curve.name} inv_tree_up [{n}] products", roots,
                           want_roots))
         tiles, muls = roots.shape[0], tile_muls(den2)
         timed_case("inv_tree_up", lambda: ec_kernels.inv_up_cuda(F, den2),
                    lambda: ec_kernels.inv_up_plain(F, den2), err,
-                   (n + tiles * 2 * B) * eb, muls * mul24, lanes=n)
+                   (n + tiles * 2 * B) * eb, muls * mulw, lanes=n)
         rinv = ec_kernels.batch_inverse(F, roots)
         timed_case("inv_tree_down",
                    lambda: ec_kernels.inv_down_cuda(F, tree, rinv, n),
@@ -3267,7 +3359,7 @@ def main():
                    compare(f"{curve.name} inv_tree_down [{n}]",
                            ec_kernels.inv_down_cuda(F, tree, rinv, n),
                            ec_kernels.inv_down_plain(F, want_tree, rinv, n)),
-                   (tiles * (2 * B - 1) + n) * eb, 2 * muls * mul24, lanes=n)
+                   (tiles * (2 * B - 1) + n) * eb, 2 * muls * mulw, lanes=n)
         del tree, want_tree, want_roots, rinv
         dinv = ec_kernels.batch_inverse(F, den2).reshape(den.shape)
         post_args = (num, dinv, *pre_args, inf3)
@@ -3279,7 +3371,7 @@ def main():
                                ec_kernels.affine_post(curve, *post_args),
                                ec_kernels.affine_post_plain(curve,
                                                             *post_args)),
-                   (8 * eb + 3) * n, live * (3 * mul24 + 4 * 2 * l24),
+                   (8 * eb + 3) * n, live * (3 * mulw + 4 * 2 * lw),
                    lanes=n)
         del a_pt, b_pt, pre, num, den, den2, dinv, post_args, pre_args
         # the tail at its widest (the products of up to 512 tiles)
@@ -3294,29 +3386,33 @@ def main():
                    compare(f"{curve.name} inv_tree_tail [{m}]",
                            ec_kernels.inv_tail_cuda(F, xt),
                            ec_kernels.inv_tail_plain(F, xt)),
-                   2 * m * eb, 3 * tile_muls(xt) * mul24 + inv24(root),
+                   2 * m * eb, 3 * tile_muls(xt) * mulw + invw(root),
                    lanes=m)
         meta = {k["name"]: k for k in kernels}
         out = []
         for name, row in rows.items():
             if launches.get(name, 0) <= 0:
-                raise AssertionError(f"the BLS12-381 rung never launched "
-                                     f"{name}")
+                raise AssertionError(f"{path} never launched {name} at "
+                                     f"{w} digits")
             out.append({
-                "name": f"{name}_d24", "route": "cuda",
+                "name": f"{name}_{suffix}", "route": "cuda",
                 "source": meta[name]["source"],
                 "replaces": meta[name]["replaces"],
                 "launches": launches.get(name, 0), **row,
                 # no PyTorch call computes a modular product, a curve
                 # addition or an inverse
                 "library_ms": None,
-                "path": "groth16_bls12_381_2p16", "kernel": name,
-                "field": F.name})
+                "path": path, "kernel": name, "field": F.name})
         return out, field_rows
 
-    bls_rows, bls_field_rows = bls12_curve_kernels(
+    seen381 = dict(setup_layouts["bls12_381", 16])
+    for lay in bls_layouts.values():
+        for key, n in lay.items():
+            seen381[key] = seen381.get(key, 0) + n
+    bls_rows, bls_field_rows = curve_kernel_rows(
         bls381_rung["curve_launches_by_width"], g1_381,
-        bls381_rung["path_launches"])
+        bls381_rung["path_launches"], seen381, "groth16_bls12_381_2p16",
+        "d24")
     print("field_kernels_at_bls12 " + json.dumps(bls_field_rows), flush=True)
     print("bls12_curve_kernels " + json.dumps(bls_rows), flush=True)
     # every BLS12 path launched K1, K2 and add/sub; the rung K4-K6 as well
@@ -3329,6 +3425,315 @@ def main():
             if line["path_launches"].get(k, 0) <= 0:
                 raise AssertionError(f"{name} never launched {k}")
     print(f"bls12_section_s {time.perf_counter() - t_bls:.1f}", flush=True)
+
+    # ------------------------------------------------------------------
+    # 4g. SW6 and MNT6-298, the fields of an odd digit count (49 and 19
+    #     digits): the field kernels and K6 there on their edge values,
+    #     both pairings, Groth16 and GM17 over MNT6-298 at 2^10 with its
+    #     golden proof bytes, the BLS12-377 recursion's outer Groth16
+    #     proof over SW6, and the rows *_d19 and *_d49 of the kernels line
+    # ------------------------------------------------------------------
+    t_odd = time.perf_counter()
+    for family in ("mnt6298", "sw6"):
+        engines[family] = getattr(CI, f"{family}_engine")()
+    eng298, eng_sw6 = engines["mnt6298"], engines["sw6"]
+    odd_paths = {}        # the paths whose launches are checked
+    odd_layouts = {}      # K1 and add/sub/neg layouts by path
+
+    def odd_field_edges(F):
+        """K1 and add/sub/neg at F's odd width on every pair of 0, 1, 2,
+        p - 1, p - 2, (p - 1) / 2 and seeded values, K1 also with one
+        operand R - 1 and p; even and odd halves (row stride 2 nd), a
+        broadcast row and a constant row; K2 on its host test's inputs
+        against python's pow (and on the seeded and edge ones against the
+        plain version); K6 at the edges of its tiles (zeros at their ends,
+        a whole tile of zeros), its launches checked."""
+        p_, w = F.modulus, F.n_digits
+        R_ = 1 << (16 * w)
+        rng = random.Random(w)
+        vals = [0, 1, 2, p_ - 1, p_ - 2, (p_ - 1) // 2] + [
+            rng.randrange(p_) for _ in range(26)]
+
+        def dig(vs):
+            return torch.from_numpy(limbs.to_digits_batch(vs, w)).to(dev)
+
+        a = dig([u for u in vals for _ in vals])
+        b = dig([v for _ in vals for v in vals])
+        err = {}
+        for name, kern, plain in (
+                ("mont_mul", fp.mont_mul, fp.mont_mul_plain),
+                ("fp_add", fp.add_mod, fp.add_mod_plain),
+                ("fp_sub", fp.sub_mod, fp.sub_mod_plain)):
+            err[name] = max(
+                compare(f"{name} {F.name} pairs", kern(F, a, b),
+                        plain(F, a, b)),
+                compare(f"{name} {F.name} halves", kern(F, a[0::2], b[1::2]),
+                        plain(F, a[0::2], b[1::2])),
+                compare(f"{name} {F.name} a row", kern(F, a, b[37]),
+                        plain(F, a, b[37])))
+        err["fp_neg"] = max(
+            compare(f"fp_neg {F.name}", fp.neg_mod(F, a),
+                    fp.neg_mod_plain(F, a)),
+            compare(f"fp_neg {F.name} halves", fp.neg_mod(F, a[1::2]),
+                    fp.neg_mod_plain(F, a[1::2])))
+        wide = dig([R_ - 1, p_, R_ - 2] + [rng.randrange(p_, R_)
+                                           for _ in range(29)])
+        err["mont_mul"] = max(err["mont_mul"], compare(
+            f"mont_mul {F.name} wide operand",
+            fp.mont_mul(F, wide, b[:32]), fp.mont_mul_plain(F, wide, b[:32])),
+            compare(f"mont_mul {F.name} to_mont", fp.to_mont(F, a),
+                    fp.mont_mul_plain(F, a, F.tensor("r2_digits", dev))))
+        cases = inv_inputs(p_, F.name)
+        xs = dig([v for kind in cases.values() for v in kind])
+        got = fp.inv_bea(F, xs)
+        if limbs.from_digits_batch(got.cpu()) != [
+                pow(v, -1, p_) if v else 0
+                for kind in cases.values() for v in kind]:
+            raise AssertionError(f"inv_bea {F.name} disagrees with pow")
+        few = xs[:len(cases["random"]) + len(cases["edges"])]
+        err["inv_bea"] = compare(f"inv_bea {F.name}", fp.inv_bea(F, few),
+                                 fp.inv_bea_plain(F, few))
+        for n in (1, 2, B - 1, B, B + 1, 2 * B + 3, 3 * B + 5):
+            x = dig([rng.randrange(p_) for _ in range(n)])
+            x[0] = x[n - 1] = 0
+            for i in range(B - 1, n, B):
+                x[i:i + 2] = 0
+            if n >= 3 * B:
+                x[B:2 * B] = 0
+            before = dict(fp.launch_counts)
+            inv = ec_kernels.batch_inverse(F, x)
+            launched = {k: v - before[k] for k, v in fp.launch_counts.items()
+                        if v != before[k]}
+            want = {"inv_tree_tail": 1} if n <= B else {
+                "inv_tree_up": 1, "inv_tree_tail": 1, "inv_tree_down": 1}
+            if launched != want:
+                raise AssertionError(f"batch_inverse {F.name} [{n}] "
+                                     f"launched {launched}, not {want}")
+            err["batch_inverse"] = max(err.get("batch_inverse", 0), compare(
+                f"batch_inverse {F.name} [{n}]", inv,
+                ec_kernels.batch_inverse_plain(F, x)))
+            if n > B:
+                tree, roots = ec_kernels.inv_up_cuda(F, x)
+                want_tree, want_roots = ec_kernels.inv_up_plain(F, x)
+                compare(f"inv_tree_up {F.name} [{n}]",
+                        ec_kernels.unpack_limbs(tree, w), want_tree)
+                compare(f"inv_tree_up {F.name} [{n}] products", roots,
+                        want_roots)
+            if fp.fp_to_ints(F, inv) != [pow(v, -1, p_) if v else 0
+                                         for v in fp.fp_to_ints(F, x)]:
+                raise AssertionError(f"batch_inverse {F.name} [{n}] "
+                                     f"disagrees with pow")
+        return err
+
+    odd_edges = {F.name: odd_field_edges(F)
+                 for F in (PP.MNT6298_FQ, PP.SW6_FQ)}
+    print("field_kernels_at_odd_widths " + json.dumps(odd_edges), flush=True)
+
+    def pairing_odd(family):
+        """GT of (G1, G2) against the python-int oracle (and, on SW6, the
+        pinned vector of the reference's 782-bit loop); e(3P, 5Q) =
+        e(P, Q)^15 and GT^r = 1 on the card; the seconds and launches of
+        the host ladder, the prepared Miller loop and the final
+        exponentiation."""
+        E = engines[family]
+        H = getattr(pairing_host, f"host_{family}_pairing")()
+        hg1, hg2, fr_ = groth16_host.host_curves(family)
+        P, Q = E.g1.generator_affine, E.g2.generator_affine
+        out = {"family": family, "loop_digits": len(E.wnaf)}
+        with layout_log() as layouts:
+            prep, out["prepare_g2_s"], _ = counted(lambda: E.prepare_g2(Q))
+            f, out["miller_loop_s"], out["miller_loop_launches"] = counted(
+                lambda: E.miller_loop_prepared(P, prep))
+            gt, out["final_exponentiation_s"], \
+                out["final_exponentiation_launches"] = counted(
+                    lambda: E.final_exponentiation(f))
+        odd_layouts[family, "pairing"] = layouts.seen
+        want = H.pairing(hg1.gen, hg2.gen)
+        if fp.fp_to_ints(E.fp, gt) != want:
+            raise AssertionError(f"{family}: e(G1, G2) differs from the "
+                                 f"python-int oracle")
+        out["checks"] = {"e(G1, G2) equals the python-int oracle": True}
+        if family == "sw6":
+            if want != SW6_GT_G1G2:
+                raise AssertionError("sw6: e(G1, G2) differs from the "
+                                     "pinned vector")
+            out["checks"]["e(G1, G2) equals the pinned vector"] = True
+        p3, q5 = hg1.mul(hg1.gen, 3), hg2.mul(hg2.gen, 5)
+        gt35 = E.pairing(E.g1.affine_from_ints(*p3),
+                         E.g2.affine_from_ints(*q5))
+        F = E.fqk
+        if not torch.equal(gt35, T.ext_pow_const(
+                F, gt, limbs.bits_msb_first(15, 4))):
+            raise AssertionError(f"{family}: e(3P, 5Q) != e(P, Q)^15")
+        r = fr_.modulus
+        if not torch.equal(T.ext_pow_const(
+                F, gt, limbs.bits_msb_first(r, r.bit_length())),
+                F.tensor("one", dev)) or torch.equal(
+                    gt, F.tensor("one", dev)):
+            raise AssertionError(f"{family}: GT^r != 1 or GT = 1")
+        out["checks"].update({"e(3P, 5Q) = e(P, Q)^15": True,
+                              "GT^r = 1 and GT != 1": True})
+        return out
+
+    def refusals(engine, params, proof, inputs, wrong, line):
+        """verify_proof refuses the wrong inputs and C + G1's generator."""
+        g = engine.g1
+        altered = groth16.Proof(a=proof.a, b=proof.b, c=g.to_affine(
+            g.add_mixed(g.from_affine(*proof.c), g.generator_affine)))
+        for label, args in (("wrong input", (proof, wrong)),
+                            ("altered C", (altered, inputs))):
+            if verify(params, *args, label, engine, line["checks"])[0] \
+                    is not False:
+                raise AssertionError(f"{engine.name} verify_proof: {label} "
+                                     f"accepted")
+
+    # MNT6-298: the pairing, Groth16 and GM17 at 2^10, the golden bytes
+    line = pairing_odd("mnt6298")
+    odd_paths["pairing_mnt6298"] = {"path_launches": {
+        k: line["miller_loop_launches"].get(k, 0) +
+        line["final_exponentiation_launches"].get(k, 0)
+        for k in fp.launch_counts}}
+    print("pairing_odd " + json.dumps(line), flush=True)
+    line, (cs_, compiled_, params_, proof_, dev_, _) = rung(
+        10, phases=True, family="mnt6298")
+    odd_paths["groth16_mnt6298_2p10"] = r298 = line
+    print("rung " + json.dumps(line), flush=True)
+    verify298 = {"family": "mnt6298", "rungs": {}, "checks": {}}
+    verify_rung(10, cs_, params_, dev_, eng298, verify298)
+    if fp.fp_to_ints(eng298.fp, params_.vk.alpha_g1_beta_g2) != \
+            host_alpha_beta(TOXIC["alpha"], TOXIC["beta"], "mnt6298"):
+        raise AssertionError("mnt6298: vk.alpha_g1_beta_g2 differs from the "
+                             "python-int oracle")
+    verify298["checks"]["alpha_g1_beta_g2 equals the oracle"] = True
+    inputs_ = cs_.input_values[1:]
+    refusals(eng298, params_, dev_, inputs_,
+             [inputs_[0] + 1] + inputs_[1:], verify298)
+    print("verify " + json.dumps(verify298), flush=True)
+    serial298 = {"family": "mnt6298", "rungs": {}}
+    serialization(10, cs_, params_, proof_, dev_, eng298, serial298)
+    # the golden proof A = [2]G1, B = G2, C = G1, written from its points
+    ga, gb, gc = mnt6298_golden_points()
+    golden = groth16.Proof(a=eng298.g1.affine_from_ints(*ga),
+                           b=eng298.g2.affine_from_ints(*gb),
+                           c=eng298.g1.affine_from_ints(*gc))
+    raw = serialize.proof_to_bytes(eng298, golden)
+    back, used = serialize.proof_from_bytes(eng298, raw)
+    if raw != bytes.fromhex(GOLDEN_MNT6298_PROOF) or used != len(raw) or \
+            groth16.proof_to_ints(eng298, back) != {
+                "a": ga, "b": gb, "c": gc}:
+        raise AssertionError("mnt6298: the golden proof bytes differ")
+    serial298["golden_proof_bytes"] = {"bytes": len(raw), "equal": True,
+                                       "round_trip": True}
+    print("serialization " + json.dumps(serial298), flush=True)
+    del params_, dev_, compiled_
+    line = gm17_rung("mnt6298", 10, "Domain", 4096)
+    odd_paths["gm17_mnt6298_2p10"] = g298 = line
+    print("gm17 " + json.dumps(line), flush=True)
+
+    # SW6: the pairing, then the outer Groth16 proof of the BLS12-377
+    # verifier circuit (42,006 constraints, 254 inputs: domain 2^16 over
+    # SW6 Fr = BLS12-377 Fq) -- the section's main path
+    line = pairing_odd("sw6")
+    odd_paths["pairing_sw6"] = {"path_launches": {
+        k: line["miller_loop_launches"].get(k, 0) +
+        line["final_exponentiation_launches"].get(k, 0)
+        for k in fp.launch_counts}}
+    print("pairing_odd " + json.dumps(line), flush=True)
+    cs77, cs78 = bls_circuits[77], bls_circuits[78]
+    t = time.perf_counter()
+    line, (cs_, compiled_, params_, proof_, dev_, _) = rung(
+        16, phases=True, family="sw6",
+        circuit=("bls12_377_groth16_verifier", cs77))
+    if (params_.domain_size, cs_.num_constraints, cs_.num_inputs) != (
+            1 << 16, 42006, 254):
+        raise AssertionError(f"sw6: domain {params_.domain_size} for "
+                             f"{cs_.num_constraints} constraints")
+    outer_sw6 = line
+    odd_paths["groth16_sw6_outer"] = line
+    print("rung " + json.dumps(line), flush=True)
+    verify_sw6 = {"family": "sw6", "rungs": {}, "checks": {}}
+    verify_rung(16, cs_, params_, dev_, eng_sw6, verify_sw6)
+    if fp.fp_to_ints(eng_sw6.fp, params_.vk.alpha_g1_beta_g2) != \
+            host_alpha_beta(TOXIC["alpha"], TOXIC["beta"], "sw6"):
+        raise AssertionError("sw6: vk.alpha_g1_beta_g2 differs from the "
+                             "python-int oracle")
+    verify_sw6["checks"]["alpha_g1_beta_g2 equals the oracle"] = True
+    refusals(eng_sw6, params_, dev_, cs77.input_values[1:],
+             cs78.input_values[1:], verify_sw6)
+    verify_sw6["checks"]["accepts the bits of 77"] = True
+    print("verify " + json.dumps(verify_sw6), flush=True)
+    # the BLS12-377 recursion's line with its outer proof: seconds by
+    # phase, launches by kind and by digit count, K4-K6 widths, peak memory
+    rec_bls["outer_sw6"] = {
+        **{k: line[k] for k in (
+            "constraints", "inputs", "setup_s", "setup_phases_s",
+            "prove_first_s", "prove_phases_s", "path_launches",
+            "path_launches_by_digits", "curve_launches_by_lanes",
+            "peak_device_gib", "qap_equals_host_oracle")},
+        "verify_s": verify_sw6["rungs"]["2^16"],
+        "domain_size": params_.domain_size,
+        "checks": {"equals expected_proof('sw6', ...)": True,
+                   **verify_sw6["checks"]},
+        "section_s": time.perf_counter() - t}
+    print("recursion_bls12 " + json.dumps(rec_bls), flush=True)
+    del params_, dev_, compiled_
+
+    # the launches at 49 digits on the outer proof's path: K1, add/sub, K2
+    # and K4-K6 (its scalar field, BLS12-377 Fq, runs at 24)
+    at49 = {k: v.get(49, 0)
+            for k, v in outer_sw6["path_launches_by_digits"].items()}
+    for k in ("mont_mul", "fp_add", "fp_sub", "inv_bea", "ec_proj_add",
+              "ec_affine_pre", "ec_affine_post", "inv_tree_up",
+              "inv_tree_tail", "inv_tree_down"):
+        if at49.get(k, 0) <= 0:
+            raise AssertionError(f"the SW6 outer proof never launched {k} "
+                                 f"at 49 digits")
+
+    def merged(*layouts):
+        out = {}
+        for lay in layouts:
+            for key, n in lay.items():
+                out[key] = out.get(key, 0) + n
+        return out
+
+    # the rows at 19 digits: the MNT6-298 paths (K4 runs in GM17's prove),
+    # at 49: the SW6 outer proof (its SW6 Fq layouts)
+    w19 = {}
+    for ln in (r298, g298):
+        for k, by_w in ln["curve_launches_by_width"].items():
+            for wd, n in by_w.items():
+                w19.setdefault(k, {})
+                w19[k][wd] = w19[k].get(wd, 0) + n
+    l19 = {k: r298["path_launches"].get(k, 0) +
+           g298["path_launches"].get(k, 0) for k in fp.launch_counts}
+    rows19, field19 = curve_kernel_rows(
+        w19, eng298.g1, l19, merged(setup_layouts["mnt6298", 10],
+                                    odd_layouts["mnt6298", "pairing"]),
+        "groth16_and_gm17_mnt6298_2p10", "d19")
+    seen49 = {key: n for key, n in merged(
+        setup_layouts["sw6", 16], odd_layouts["sw6", "pairing"]).items()
+        if key[1] == PP.SW6_FQ.name}
+    rows49, field49 = curve_kernel_rows(
+        outer_sw6["curve_launches_by_width"], eng_sw6.g1, at49, seen49,
+        "groth16_sw6_outer", "d49")
+    for row in rows19 + rows49:
+        edge = odd_edges[row["field"]]
+        name = row["kernel"]
+        key = "batch_inverse" if name.startswith("inv_tree") else name
+        row["max_abs_err"] = max(row["max_abs_err"], edge.get(key, 0))
+    print("field_kernels_at_odd_widths_layouts " + json.dumps(
+        {"d19": field19, "d49": field49}), flush=True)
+    print("odd_curve_kernels " + json.dumps(rows19 + rows49), flush=True)
+    # every path launched K1, K2 and add/sub; the rungs K5 and K6 too
+    for name, line in odd_paths.items():
+        need = ["mont_mul", "inv_bea", "fp_add", "fp_sub"]
+        if not name.startswith("pairing"):
+            need += ["ec_affine_pre", "ec_affine_post", "inv_tree_tail"]
+        for k in need:
+            if line["path_launches"].get(k, 0) <= 0:
+                raise AssertionError(f"{name} never launched {k}")
+    print(f"odd_widths_section_s {time.perf_counter() - t_odd:.1f}",
+          flush=True)
 
     # ------------------------------------------------------------------
     # 4a. FFT: 2^20 radix-2 over MNT4-753 Fr, mixed radix over MNT6-753 Fr
@@ -3959,7 +4364,7 @@ def main():
         passes = divsteps_model.inverse(
             limbs.from_digits_batch(x1.cpu())[0], F.modulus).passes
         b_ms, b_by = bound(2 * 2 * F.n_digits,
-                           passes * (31 * 12 + 24 * (F.n_digits // 2)))
+                           passes * (31 * 12 + 24 * ((F.n_digits + 1) // 2)))
         rows["inv_bea"] = dict(
             max_abs_err=err, case=f"[1, 16] {F.name}",
             ms=time_ms(lambda: fp.inv_bea(F, x1), 20),
@@ -4082,6 +4487,7 @@ def main():
     # the twisted-Edwards and Pedersen lines
     kernels.extend(bls_rows)
     kernels.extend(te_rows)
+    kernels.extend(rows19 + rows49)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -29,6 +29,10 @@
 // dependent chain about G-fold (plus three shuffles a row) and gives a batch
 // G times the warps.  G is 8 at 48 digits and 4 at 16 and 24 digits: at 48
 // digits a group of 4 was slower at 1, 2^10 and 16,376 lanes (PERF.md).
+// At the odd digit counts G is 8 at 49 (SW6: 25 limbs padded to 32, so
+// four a thread) and 4 at 19 (MNT6-298: 10 limbs padded to 12); the padded
+// limbs are zero in every value and in p (fp_group.cuh), the multiply's
+// rows follow the digits, and the constants are staged padded.
 // chip_smoke.py holds it against the plain version and times it; PERF.md
 // has the numbers, with registers and stack frame as ptxas reports them.
 #include <cuda_runtime.h>
@@ -41,7 +45,7 @@ namespace {
 constexpr int THREADS = 128;  // a block: THREADS / G lanes
 
 template <int ND>
-constexpr int group_size() { return ND == 48 ? 8 : 4; }
+constexpr int group_size() { return ND >= 48 ? 8 : 4; }
 
 struct In6 {
   const long long* ptr[6];  // X1 Y1 Z1 X2 Y2 Z2
@@ -55,12 +59,18 @@ struct Out3 {
 template <int ND, int G>
 __global__ void __launch_bounds__(THREADS)
 proj_add_kernel(const In6 in, const Out3 out, int n,
-                const gl::CurveConst<ND / 2> K) {
-  constexpr int L = ND / 2;
+                const gl::CurveConst<gl::limbs_of<ND>> K) {
+  constexpr int NL = gl::limbs_of<ND>;   // the element's limbs
+  constexpr int L = gl::group_limbs<ND, G>;  // the group's, zero-padded
   using Grp = gl::Grp<L, G>;
   constexpr int M = Grp::M;
+  // [p | a | one], L words each
   __shared__ uint32_t C[3 * L];
-  gl::stage_consts<L>(K, C);
+  for (int k = threadIdx.x; k < 3 * L; k += THREADS) {
+    const int j = k % L;
+    C[k] = j >= NL ? 0u : k < L ? K.p[j] : k < 2 * L ? K.a[j] : K.one[j];
+  }
+  __syncthreads();
 
   const int i = (int)(((long long)blockIdx.x * THREADS + threadIdx.x) / G);
   if (i >= n) return;  // the whole group: its threads share i
@@ -73,7 +83,7 @@ proj_add_kernel(const In6 in, const Out3 out, int n,
 
   auto mul = [&](const uint32_t (&a)[M], const uint32_t (&b)[M],
                  uint32_t (&r)[M]) {
-    gl::grp_mont_mul<L, G>(g, a, b, P, inv, r);
+    gl::grp_mont_mul<L, G, ND>(g, a, b, P, inv, r);
   };
   auto add = [&](const uint32_t (&a)[M], const uint32_t (&b)[M],
                  uint32_t (&r)[M]) { gl::grp_add_mod<L, G>(g, a, b, P, r); };
@@ -83,7 +93,7 @@ proj_add_kernel(const In6 in, const Out3 out, int n,
     return gl::grp_is_zero<L, G>(g, a);
   };
   auto load = [&](int k, uint32_t (&x)[M]) {
-    gl::grp_load<L, G>(g, in.ptr[k] + (size_t)i * in.stride[k], x);
+    gl::grp_load<L, G, ND>(g, in.ptr[k] + (size_t)i * in.stride[k], x);
   };
   auto copy = [](const uint32_t (&a)[M], uint32_t (&r)[M]) {
 #pragma unroll
@@ -189,9 +199,9 @@ proj_add_kernel(const In6 in, const Out3 out, int n,
       }
     }
   }
-  gl::grp_store<L, G>(g, out.ptr[0] + (size_t)i * ND, RX);
-  gl::grp_store<L, G>(g, out.ptr[1] + (size_t)i * ND, RY);
-  gl::grp_store<L, G>(g, out.ptr[2] + (size_t)i * ND, RZ);
+  gl::grp_store<L, G, ND>(g, out.ptr[0] + (size_t)i * ND, RX);
+  gl::grp_store<L, G, ND>(g, out.ptr[1] + (size_t)i * ND, RY);
+  gl::grp_store<L, G, ND>(g, out.ptr[2] + (size_t)i * ND, RZ);
 }
 
 template <int ND>
@@ -209,14 +219,14 @@ int launch(const void* const* in, const long long* in_stride,
   long long blocks = ((long long)n * G + THREADS - 1) / THREADS;
   proj_add_kernel<ND, G><<<(unsigned)blocks, THREADS, 0,
                             (cudaStream_t)stream>>>(
-      a, o, n, gl::make_curve_const<ND / 2>(consts, inv, a_is_zero));
+      a, o, n, gl::make_curve_const<gl::limbs_of<ND>>(consts, inv, a_is_zero));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // in: six row pointers X1 Y1 Z1 X2 Y2 Z2 with their row strides in digits;
-// out: three dense [n, nd] results; consts: 3*nd/2 limbs [p | a | one].
+// out: three dense [n, nd] results; consts: 3 ceil(nd/2) limbs [p | a | one].
 // Returns cudaGetLastError() of the launch, or -1 for a digit count that was
 // not built.
 extern "C" int gl_ec_proj_add(int nd, const void* const* in,
@@ -226,8 +236,10 @@ extern "C" int gl_ec_proj_add(int nd, const void* const* in,
   if (n <= 0) return 0;
   switch (nd) {
     case 16: return launch<16>(in, in_stride, out, n, consts, inv, a_is_zero, stream);
+    case 19: return launch<19>(in, in_stride, out, n, consts, inv, a_is_zero, stream);
     case 24: return launch<24>(in, in_stride, out, n, consts, inv, a_is_zero, stream);
     case 48: return launch<48>(in, in_stride, out, n, consts, inv, a_is_zero, stream);
+    case 49: return launch<49>(in, in_stride, out, n, consts, inv, a_is_zero, stream);
     default: return -1;
   }
 }

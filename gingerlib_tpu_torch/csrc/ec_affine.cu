@@ -90,26 +90,33 @@ __host__ __device__ __forceinline__ int post_bytes(int n) {
 
 // Batch rows base .. base+cnt-1 of x (rows `stride` digits apart) into s as
 // packed limbs, row r at s + r*(L+1): the block's threads on consecutive
-// 16-byte digit pairs, several loads in flight each.
-template <int L>
+// 16-byte digit pairs (at an odd ND, on consecutive limbs, digit by
+// digit), several loads in flight each.
+template <int L, int ND>
 __device__ __forceinline__ void load_rows(const long long* __restrict__ x,
                                           long long stride, int base, int cnt,
                                           uint32_t* s) {
 #pragma unroll 8
   for (int k = threadIdx.x; k < cnt * L; k += T) {
     const int r = k / L, j = k - r * L;
-    const longlong2 d =
-        reinterpret_cast<const longlong2*>(x + (size_t)(base + r) * stride)[j];
-    s[r * (L + 1) + j] = ((uint32_t)d.x & 0xFFFFu) | ((uint32_t)d.y << 16);
+    const long long* row = x + (size_t)(base + r) * stride;
+    if constexpr (ND == 2 * L) {
+      const longlong2 d = reinterpret_cast<const longlong2*>(row)[j];
+      s[r * (L + 1) + j] = ((uint32_t)d.x & 0xFFFFu) | ((uint32_t)d.y << 16);
+    } else {
+      uint32_t w = (uint32_t)row[2 * j] & 0xFFFFu;
+      if (2 * j + 1 < ND) w |= (uint32_t)row[2 * j + 1] << 16;
+      s[r * (L + 1) + j] = w;
+    }
   }
 }
 
 // The limbs of this thread's row of operand k, fetched (pre) or packed
 // (post).
-template <int L>
+template <int L, int ND>
 __device__ __forceinline__ void operand(const uint32_t* s, int k, int rows,
                                         uint32_t (&x)[L]) {
-  gl::fetched_limbs<L>(s + (k * rows + threadIdx.x) * (2 * L + 1), x);
+  gl::fetched_limbs<L, ND>(s + (k * rows + threadIdx.x) * (2 * L + 1), x);
 }
 
 template <int L>
@@ -125,14 +132,14 @@ __global__ void __launch_bounds__(T)
 affine_pre_kernel(const Coords4 in, const Flags2 fl,
                   long long* __restrict__ num, long long* __restrict__ den,
                   unsigned char* __restrict__ inf3, int n,
-                  const gl::CurveConst<ND / 2> K) {
-  constexpr int L = ND / 2;
+                  const gl::CurveConst<gl::limbs_of<ND>> K) {
+  constexpr int L = gl::limbs_of<ND>;
   extern __shared__ uint32_t smem[];
   const int rows = gl::tile_rows<T>(n), t = threadIdx.x;
   const int base = blockIdx.x * T, cnt = min(T, n - base);
   for (int k = 0; k < 4; k++)
-    gl::fetch_rows<L, T>(in.ptr[k], n, in.stride[k], base, cnt,
-                         smem + k * rows * (2 * L + 1));
+    gl::fetch_rows<L, T, ND>(in.ptr[k], n, in.stride[k], base, cnt,
+                             smem + k * rows * (2 * L + 1));
   gl::cp_async_commit();
   uint32_t* out_num = smem + 4 * rows * (2 * L + 1);
   uint32_t* out_den = out_num + rows * (L + 1);
@@ -145,11 +152,11 @@ affine_pre_kernel(const Coords4 in, const Flags2 fl,
   __syncthreads();
   if (t < cnt) {
     uint32_t a[L], b[L], dx[L], dy[L];
-    operand<L>(smem, 0, rows, a);
-    operand<L>(smem, 2, rows, b);
+    operand<L, ND>(smem, 0, rows, a);
+    operand<L, ND>(smem, 2, rows, b);
     gl::sub_mod<L>(b, a, K.p, dx);
-    operand<L>(smem, 1, rows, a);
-    operand<L>(smem, 3, rows, b);
+    operand<L, ND>(smem, 1, rows, a);
+    operand<L, ND>(smem, 3, rows, b);
     gl::sub_mod<L>(b, a, K.p, dy);
     const bool same_x = gl::is_zero<L>(dx), same_y = gl::is_zero<L>(dy);
     const bool ninf = !i1 && !i2;
@@ -160,8 +167,8 @@ affine_pre_kernel(const Coords4 in, const Flags2 fl,
       // numerator 3 x1^2 + a, denominator 2 y1
       y_zero = gl::is_zero<L>(a);
       gl::add_mod<L>(a, a, K.p, dx);
-      operand<L>(smem, 0, rows, a);
-      gl::mont_mul<L>(a, a, K.p, K.inv, b);
+      operand<L, ND>(smem, 0, rows, a);
+      gl::mont_mul<L, ND>(a, a, K.p, K.inv, b);
       gl::add_mod<L>(b, b, K.p, dy);
       gl::add_mod<L>(dy, b, K.p, dy);
       gl::add_mod<L>(dy, K.a, K.p, dy);
@@ -174,8 +181,8 @@ affine_pre_kernel(const Coords4 in, const Flags2 fl,
     inf3[base + t] = ((i1 && i2) || anti || y_zero) ? 1 : 0;
   }
   __syncthreads();
-  gl::unstage_rows<L, T>(out_num, num, base, cnt);
-  gl::unstage_rows<L, T>(out_den, den, base, cnt);
+  gl::unstage_rows<L, T, ND>(out_num, num, base, cnt);
+  gl::unstage_rows<L, T, ND>(out_den, den, base, cnt);
 }
 
 template <int ND>
@@ -184,17 +191,17 @@ affine_post_kernel(const long long* __restrict__ num,
                    const long long* __restrict__ dinv, const Coords4 in,
                    const Flags3 fl, long long* __restrict__ x3,
                    long long* __restrict__ y3, int n,
-                   const gl::CurveConst<ND / 2> K) {
-  constexpr int L = ND / 2, RW = L + 1;
+                   const gl::CurveConst<gl::limbs_of<ND>> K) {
+  constexpr int L = gl::limbs_of<ND>, RW = L + 1;
   extern __shared__ uint32_t smem[];
   const int rows = gl::tile_rows<T>(n), t = threadIdx.x;
   const int base = blockIdx.x * T, cnt = min(T, n - base);
   // rows 0-3: x1 y1 x2 y2; 4, 5: num and dinv, then x3 and y3 (a lane's
   // rows are its thread's alone until the block writes the results out)
   for (int k = 0; k < 4; k++)
-    load_rows<L>(in.ptr[k], in.stride[k], base, cnt, smem + k * rows * RW);
-  load_rows<L>(num, ND, base, cnt, smem + 4 * rows * RW);
-  load_rows<L>(dinv, ND, base, cnt, smem + 5 * rows * RW);
+    load_rows<L, ND>(in.ptr[k], in.stride[k], base, cnt, smem + k * rows * RW);
+  load_rows<L, ND>(num, ND, base, cnt, smem + 4 * rows * RW);
+  load_rows<L, ND>(dinv, ND, base, cnt, smem + 5 * rows * RW);
   bool m1 = false, m2 = false, m3 = false;
   if (t < cnt) {
     m1 = fl.ptr[0][(size_t)(base + t) * fl.stride[0]] != 0;
@@ -224,7 +231,7 @@ affine_post_kernel(const long long* __restrict__ num,
       packed<L>(smem, 5, rows, b);
 #pragma unroll 1
       for (int k = 0; k < 3; k++) {
-        gl::mont_mul<L>(a, b, K.p, K.inv, u);
+        gl::mont_mul<L, ND>(a, b, K.p, K.inv, u);
         if (k == 0) {  // u = lambda: square it
 #pragma unroll
           for (int j = 0; j < L; j++) a[j] = b[j] = u[j];
@@ -245,8 +252,8 @@ affine_post_kernel(const long long* __restrict__ num,
     }
   }
   __syncthreads();
-  gl::unstage_rows<L, T>(smem + 4 * rows * RW, x3, base, cnt);
-  gl::unstage_rows<L, T>(smem + 5 * rows * RW, y3, base, cnt);
+  gl::unstage_rows<L, T, ND>(smem + 4 * rows * RW, x3, base, cnt);
+  gl::unstage_rows<L, T, ND>(smem + 5 * rows * RW, y3, base, cnt);
 }
 
 Coords4 make_coords(const void* const* in, const long long* in_stride) {
@@ -269,12 +276,13 @@ int launch_pre(const void* const* in, const long long* in_stride,
     f.ptr[k] = (const unsigned char*)flags[k];
     f.stride[k] = flag_stride[k];
   }
-  const int bytes = pre_bytes<ND / 2>(n);
+  const int bytes = pre_bytes<gl::limbs_of<ND>>(n);
   cudaError_t e = gl::open_smem(affine_pre_kernel<ND>, bytes, opened);
   if (e != cudaSuccess) return (int)e;
   affine_pre_kernel<ND><<<(n + T - 1) / T, T, bytes, (cudaStream_t)stream>>>(
       make_coords(in, in_stride), f, (long long*)num, (long long*)den,
-      (unsigned char*)inf3, n, gl::make_curve_const<ND / 2>(consts, inv, 0));
+      (unsigned char*)inf3, n,
+      gl::make_curve_const<gl::limbs_of<ND>>(consts, inv, 0));
   return (int)cudaGetLastError();
 }
 
@@ -289,13 +297,13 @@ int launch_post(const void* num, const void* dinv, const void* const* in,
     f.ptr[k] = (const unsigned char*)flags[k];
     f.stride[k] = flag_stride[k];
   }
-  const int bytes = post_bytes<ND / 2>(n);
+  const int bytes = post_bytes<gl::limbs_of<ND>>(n);
   cudaError_t e = gl::open_smem(affine_post_kernel<ND>, bytes, opened);
   if (e != cudaSuccess) return (int)e;
   affine_post_kernel<ND><<<(n + T - 1) / T, T, bytes, (cudaStream_t)stream>>>(
       (const long long*)num, (const long long*)dinv,
       make_coords(in, in_stride), f, (long long*)x3, (long long*)y3, n,
-      gl::make_curve_const<ND / 2>(consts, inv, 0));
+      gl::make_curve_const<gl::limbs_of<ND>>(consts, inv, 0));
   return (int)cudaGetLastError();
 }
 
@@ -303,8 +311,9 @@ int launch_post(const void* num, const void* dinv, const void* const* in,
 
 // in: four row pointers x1 y1 x2 y2 with row strides in digits; flags: bool
 // bytes inf1 inf2 with strides in bytes; num, den [n, nd] and inf3 [n] dense
-// outputs; consts: 3*nd/2 limbs [p | a | one].  Returns cudaGetLastError()
-// of the launch, or -1 for a digit count that was not built.
+// outputs; consts: 3 ceil(nd/2) limbs [p | a | one].  Returns
+// cudaGetLastError() of the launch, or -1 for a digit count that was not
+// built.
 extern "C" int gl_ec_affine_pre(int nd, const void* const* in,
                                 const long long* in_stride,
                                 const void* const* flags,
@@ -315,8 +324,10 @@ extern "C" int gl_ec_affine_pre(int nd, const void* const* in,
   if (n <= 0) return 0;
   switch (nd) {
     case 16: return launch_pre<16>(in, in_stride, flags, flag_stride, num, den, inf3, n, consts, inv, stream);
+    case 19: return launch_pre<19>(in, in_stride, flags, flag_stride, num, den, inf3, n, consts, inv, stream);
     case 24: return launch_pre<24>(in, in_stride, flags, flag_stride, num, den, inf3, n, consts, inv, stream);
     case 48: return launch_pre<48>(in, in_stride, flags, flag_stride, num, den, inf3, n, consts, inv, stream);
+    case 49: return launch_pre<49>(in, in_stride, flags, flag_stride, num, den, inf3, n, consts, inv, stream);
     default: return -1;
   }
 }
@@ -333,8 +344,10 @@ extern "C" int gl_ec_affine_post(int nd, const void* num, const void* dinv,
   if (n <= 0) return 0;
   switch (nd) {
     case 16: return launch_post<16>(num, dinv, in, in_stride, flags, flag_stride, x3, y3, n, consts, inv, stream);
+    case 19: return launch_post<19>(num, dinv, in, in_stride, flags, flag_stride, x3, y3, n, consts, inv, stream);
     case 24: return launch_post<24>(num, dinv, in, in_stride, flags, flag_stride, x3, y3, n, consts, inv, stream);
     case 48: return launch_post<48>(num, dinv, in, in_stride, flags, flag_stride, x3, y3, n, consts, inv, stream);
+    case 49: return launch_post<49>(num, dinv, in, in_stride, flags, flag_stride, x3, y3, n, consts, inv, stream);
     default: return -1;
   }
 }

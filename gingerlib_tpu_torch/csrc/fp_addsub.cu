@@ -13,7 +13,8 @@
 // flight while the current one is added.
 //
 // Row addressing as in mont_mul.cu: element i reads row i % x_rows of x,
-// rows x_stride digits apart.
+// rows x_stride digits apart.  Built at 16, 19, 24, 48 and 49 digits (at
+// an odd count the top limb is one digit; add and subtract need no R).
 #include <cuda_runtime.h>
 #include <string.h>
 
@@ -30,10 +31,10 @@ __global__ void __launch_bounds__(T)
 addsub_kernel(const long long* __restrict__ a, int a_rows, long long a_stride,
               const long long* __restrict__ b, int b_rows, long long b_stride,
               long long* __restrict__ out, int n,
-              const gl::FpConst<ND / 2> K) {
-  constexpr int L = ND / 2;
+              const gl::FpConst<gl::limbs_of<ND>> K) {
+  constexpr int L = gl::limbs_of<ND>;
   extern __shared__ uint32_t smem[];
-  gl::tile_loop<L, T, OP == OP_NEG ? 1 : 2>(
+  gl::tile_loop<L, T, OP == OP_NEG ? 1 : 2, ND>(
       a, a_rows, a_stride, b, b_rows, b_stride, out, n, smem,
       [&](const uint32_t (&x)[L], const uint32_t (&y)[L], uint32_t (&r)[L]) {
         if constexpr (OP == OP_NEG) {
@@ -55,11 +56,12 @@ addsub_kernel(const long long* __restrict__ a, int a_rows, long long a_stride,
 template <int ND, int OP>
 int launch_op(const long long* a, int a_rows, long long a_stride,
               const long long* b, int b_rows, long long b_stride,
-              long long* out, int n, const gl::FpConst<ND / 2>& K,
+              long long* out, int n, const gl::FpConst<gl::limbs_of<ND>>& K,
               cudaStream_t s) {
   static int resident[gl::MAX_DEVICES] = {};
   int blocks, bytes;
-  cudaError_t e = gl::tile_loop_launch<ND / 2, T, OP == OP_NEG ? 1 : 2>(
+  cudaError_t e = gl::tile_loop_launch<gl::limbs_of<ND>, T,
+                                       OP == OP_NEG ? 1 : 2>(
       addsub_kernel<ND, OP>, n, resident, blocks, bytes);
   if (e != cudaSuccess) return (int)e;
   addsub_kernel<ND, OP><<<blocks, T, bytes, s>>>(a, a_rows, a_stride, b,
@@ -71,7 +73,7 @@ template <int ND>
 int launch(int op, const void* a, int a_rows, long long a_stride,
            const void* b, int b_rows, long long b_stride, void* out, int n,
            const uint32_t* p_limbs, void* stream) {
-  gl::FpConst<ND / 2> K;
+  gl::FpConst<gl::limbs_of<ND>> K;
   memcpy(K.p, p_limbs, sizeof(K.p));
   K.inv = 0;
   cudaStream_t s = (cudaStream_t)stream;
@@ -102,8 +104,10 @@ extern "C" int gl_fp_addsub(int nd, int op, const void* a, int a_rows,
   if (n <= 0) return 0;
   switch (nd) {
     case 16: return launch<16>(op, a, a_rows, a_stride, b, b_rows, b_stride, out, n, p_limbs, stream);
+    case 19: return launch<19>(op, a, a_rows, a_stride, b, b_rows, b_stride, out, n, p_limbs, stream);
     case 24: return launch<24>(op, a, a_rows, a_stride, b, b_rows, b_stride, out, n, p_limbs, stream);
     case 48: return launch<48>(op, a, a_rows, a_stride, b, b_rows, b_stride, out, n, p_limbs, stream);
+    case 49: return launch<49>(op, a, a_rows, a_stride, b, b_rows, b_stride, out, n, p_limbs, stream);
     default: return -1;
   }
 }

@@ -1,6 +1,11 @@
 // Prime-field arithmetic with one field element spread over a group of G
 // threads of a warp (G a power of two, G | L): the thread of rank g holds
-// limbs [g*M, g*M + M), M = L / G, of every value, in registers.  Used by
+// limbs [g*M, g*M + M), M = L / G, of every value, in registers.  Where G
+// does not divide an element's ceil(ND/2) limbs (SW6's 25, MNT6-298's 10),
+// the group's L is the next multiple of G and the limbs above are zero in
+// every value and in p: the sums and differences carry through them as
+// through any limb, the multiply's rows follow ND (grp_mont_mul), and
+// loads and stores touch the ND digits only.  Used by
 // the projective addition (ec_add.cu), whose one-thread form was bound by
 // the latency of its serial carry chains: a lane's dependent chain of
 // multiply-adds is about 2L/G long a Montgomery row here instead of 2L, and
@@ -27,6 +32,11 @@
 #include "fp_limbs.cuh"
 
 namespace gl {
+
+// The limbs of a group of G threads over an element of ND digits:
+// ceil(ND / 2) rounded up to a multiple of G, the limbs above zero.
+template <int ND, int G>
+constexpr int group_limbs = (limbs_of<ND> + G - 1) / G * G;
 
 template <int L, int G>
 struct Grp {
@@ -182,29 +192,38 @@ __device__ __forceinline__ bool grp_is_zero(const Grp<L, G>& g,
   return g.all(part_zero<Grp<L, G>::M>(x));
 }
 
-// Montgomery product a*b*R^-1 mod p by CIOS over the group: for each limb
-// b_i (broadcast by its owner) every thread adds a_j*b_i over its part; the
-// lowest thread forms m = t_0 * inv and broadcasts it; every thread adds
-// m*p_j; the shift by one limb takes the lowest word of the thread above.
-// Each thread keeps the carry out of its part as a deferred word C at the
-// position of the next part (C <= 3 after every row), and folds it into its
-// own top limb at the shift.  After the last row each part adds the C of
-// the part below, and the lookahead resolves the one-bit carries left.  The
-// result is canonical whenever a*b < R*p, and equal to mont_mul's of
-// fp_limbs.cuh on every input.
-template <int L, int G>
+// Montgomery product a*b*R^-1 mod p, R = 2^(16*ND), by CIOS over the group:
+// for each limb b_i (broadcast by its owner) every thread adds a_j*b_i over
+// its part; the lowest thread forms m = t_0 * inv and broadcasts it; every
+// thread adds m*p_j; the shift by one limb takes the lowest word of the
+// thread above.  Each thread keeps the carry out of its part as a deferred
+// word C at the position of the next part (C <= 3 after every full row),
+// and folds it into its own top limb at the shift.  The rows follow the
+// ND digits, ceil(ND/2) of them, whatever the group's (padded) L; at an odd
+// ND the last reduces by 16 bits (m mod 2^16), as mont_mul's of
+// fp_limbs.cuh: every part shifts down by half a limb, the low half of the
+// lowest word of the part above comes in at its top, and C takes what is
+// left of its top word (below 2^18).  After the last row each part adds
+// the C of the part below (a part that then carries holds less than C, so
+// it passes no carry-in on), and the lookahead resolves the one-bit carries
+// left.  The result is canonical whenever a*b < R*p, and equal to
+// mont_mul's of fp_limbs.cuh on every input.
+template <int L, int G, int ND = 2 * L>
 __device__ __forceinline__ void grp_mont_mul(
     const Grp<L, G>& g, const uint32_t (&a)[Grp<L, G>::M],
     const uint32_t (&b)[Grp<L, G>::M], const uint32_t (&p)[Grp<L, G>::M],
     uint32_t inv, uint32_t (&r)[Grp<L, G>::M]) {
   constexpr int M = Grp<L, G>::M;
+  constexpr int ROWS = limbs_of<ND>;
+  static_assert(ROWS <= L && ROWS > L - G, "ND fills the group's limbs");
+  constexpr bool HALF = ND & 1;
   uint32_t t[M];
 #pragma unroll
   for (int j = 0; j < M; j++) t[j] = 0;
   uint32_t C = 0;
 
 #pragma unroll
-  for (int i = 0; i < L; i++) {
+  for (int i = 0; i < ROWS; i++) {
     const uint32_t bi = g.shfl(b[i % M], i / M);
     uint64_t c = 0;
 #pragma unroll
@@ -214,7 +233,8 @@ __device__ __forceinline__ void grp_mont_mul(
       c = s >> 32;
     }
     uint64_t top = c + C;
-    const uint32_t m = g.shfl(t[0] * inv, 0);
+    const bool half = HALF && i == ROWS - 1;
+    const uint32_t m = g.shfl(half ? (t[0] * inv) & 0xFFFFu : t[0] * inv, 0);
     c = 0;
 #pragma unroll
     for (int j = 0; j < M; j++) {
@@ -223,6 +243,16 @@ __device__ __forceinline__ void grp_mont_mul(
       c = s >> 32;
     }
     top += c;
+    if (half) {
+      // rank 0's low half-word is now 0; every part moves down 16 bits
+      const uint32_t below = g.from_above(t[0]) & 0xFFFFu;
+#pragma unroll
+      for (int j = 0; j < M - 1; j++) t[j] = (t[j] >> 16) | (t[j + 1] << 16);
+      top += below;
+      t[M - 1] = (t[M - 1] >> 16) | ((uint32_t)top << 16);
+      C = (uint32_t)(top >> 16);
+      break;
+    }
     // rank 0's lowest word is now 0; every other lowest word moves down
     const uint32_t below = g.from_above(t[0]);
 #pragma unroll
@@ -234,7 +264,7 @@ __device__ __forceinline__ void grp_mont_mul(
 
   // the deferred carries: C of rank g sits at limb (g + 1) * M, rank G-1's
   // is the top word.  Adding C of the rank below leaves one-bit carries e;
-  // a part that carries holds less than 4, so it passes no carry-in on.
+  // a part that carries holds less than C, so it passes no carry-in on.
   const uint32_t top_c = g.shfl(C, G - 1);
   const uint32_t e = part_add_word<M>(t, g.from_below(C));
   uint32_t out;
@@ -326,18 +356,41 @@ __device__ __forceinline__ void grp_mont_sum3(
 
 // Rows of the boundary layout: the thread of rank g reads and writes the
 // digits of its own limbs, a contiguous 16*M bytes; the group covers the row.
-template <int L, int G>
+// At an odd ND, or where L is padded past ceil(ND/2), digit by digit, and
+// only the row's ND digits (the limbs above read as zero).
+template <int L, int G, int ND = 2 * L>
 __device__ __forceinline__ void grp_load(const Grp<L, G>& g,
                                          const long long* __restrict__ row,
                                          uint32_t (&x)[Grp<L, G>::M]) {
-  load_digits<Grp<L, G>::M>(row + 2 * Grp<L, G>::M * g.rank, x);
+  constexpr int M = Grp<L, G>::M;
+  if constexpr (ND == 2 * L) {
+    load_digits<M>(row + 2 * M * g.rank, x);
+  } else {
+#pragma unroll
+    for (int j = 0; j < M; j++) {
+      const int d = 2 * (g.rank * M + j);
+      uint32_t w = d < ND ? (uint32_t)row[d] & 0xFFFFu : 0u;
+      if (d + 1 < ND) w |= (uint32_t)row[d + 1] << 16;
+      x[j] = w;
+    }
+  }
 }
 
-template <int L, int G>
+template <int L, int G, int ND = 2 * L>
 __device__ __forceinline__ void grp_store(const Grp<L, G>& g,
                                           long long* __restrict__ row,
                                           const uint32_t (&x)[Grp<L, G>::M]) {
-  store_digits<Grp<L, G>::M>(row + 2 * Grp<L, G>::M * g.rank, x);
+  constexpr int M = Grp<L, G>::M;
+  if constexpr (ND == 2 * L) {
+    store_digits<M>(row + 2 * M * g.rank, x);
+  } else {
+#pragma unroll
+    for (int j = 0; j < M; j++) {
+      const int d = 2 * (g.rank * M + j);
+      if (d < ND) row[d] = (long long)(x[j] & 0xFFFFu);
+      if (d + 1 < ND) row[d + 1] = (long long)(x[j] >> 16);
+    }
+  }
 }
 
 // Parts in shared memory: value e of an array of L-limb values at word

@@ -8,8 +8,15 @@
 //
 // Boundary layout (see gingerlib_tpu_torch/fields/fp.py): an element is ND
 // little-endian 16-bit digits, each stored in an int64, so R = 2^(16*ND).
-// Two digits make one limb: L = ND/2 limbs of 32 bits share the same R, which
-// is why only even ND is built.
+// Two digits make one limb: L = ceil(ND/2) limbs of 32 bits.  At an odd ND
+// (19: MNT6-298, 49: SW6) the top limb holds one digit, and R stays the
+// reference's 2^(16*ND) rather than 2^(32L): the Montgomery multiply runs
+// L - 1 rows that reduce by 32 bits and a last one that reduces by 16
+// (mont_mul below; fp_group.cuh's group form does the same), so the
+// digits of every result are the JAX package's, and no conversion is
+// needed on load or store.  Rows of an odd ND are 8-byte aligned only, so
+// their digits move one at a time (load_digits, store_digits,
+// unstage_rows), and a store writes exactly ND digits.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,27 +34,50 @@ struct FpConst {
   uint32_t inv;    // -p^-1 mod 2^32
 };
 
-template <int L>
+// Limbs of an element of ND digits.
+template <int ND>
+constexpr int limbs_of = (ND + 1) / 2;
+
+template <int L, int ND = 2 * L>
 __device__ __forceinline__ void load_digits(const long long* __restrict__ src,
                                             uint32_t (&x)[L]) {
-  const longlong2* s2 = reinterpret_cast<const longlong2*>(src);
+  static_assert(limbs_of<ND> == L, "L = ceil(ND / 2) limbs");
+  if constexpr (ND == 2 * L) {
+    const longlong2* s2 = reinterpret_cast<const longlong2*>(src);
 #pragma unroll
-  for (int i = 0; i < L; i++) {
-    longlong2 d = s2[i];  // rows are 16-byte aligned: ND even, 8-byte digits
-    x[i] = ((uint32_t)d.x & 0xFFFFu) | ((uint32_t)d.y << 16);
+    for (int i = 0; i < L; i++) {
+      longlong2 d = s2[i];  // rows are 16-byte aligned: ND even
+      x[i] = ((uint32_t)d.x & 0xFFFFu) | ((uint32_t)d.y << 16);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < L; i++) {
+      uint32_t w = (uint32_t)src[2 * i] & 0xFFFFu;
+      if (2 * i + 1 < ND) w |= (uint32_t)src[2 * i + 1] << 16;
+      x[i] = w;
+    }
   }
 }
 
-template <int L>
+template <int L, int ND = 2 * L>
 __device__ __forceinline__ void store_digits(long long* __restrict__ dst,
                                              const uint32_t (&x)[L]) {
-  longlong2* d2 = reinterpret_cast<longlong2*>(dst);
+  static_assert(limbs_of<ND> == L, "L = ceil(ND / 2) limbs");
+  if constexpr (ND == 2 * L) {
+    longlong2* d2 = reinterpret_cast<longlong2*>(dst);
 #pragma unroll
-  for (int i = 0; i < L; i++) {
-    longlong2 d;
-    d.x = (long long)(x[i] & 0xFFFFu);
-    d.y = (long long)(x[i] >> 16);
-    d2[i] = d;
+    for (int i = 0; i < L; i++) {
+      longlong2 d;
+      d.x = (long long)(x[i] & 0xFFFFu);
+      d.y = (long long)(x[i] >> 16);
+      d2[i] = d;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < L; i++) {
+      dst[2 * i] = (long long)(x[i] & 0xFFFFu);
+      if (2 * i + 1 < ND) dst[2 * i + 1] = (long long)(x[i] >> 16);
+    }
   }
 }
 
@@ -64,14 +94,15 @@ __device__ __forceinline__ void store_digits(long long* __restrict__ dst,
 //
 // Operands come in by cp.async, straight from global to shared memory with
 // no registers held: the low 32-bit word of each int64 digit (a digit is
-// below 2^16), ND + 1 words a row (the odd row stride puts thread t's reads
-// of its own row, word t*(ND+1) + j, in 32 different banks).  A thread
+// below 2^16), 2L + 1 words a row (the odd row stride puts thread t's reads
+// of its own row, word t*(2L+1) + j, in 32 different banks; at an odd ND
+// the row's last word is not written and not read).  A thread
 // packs its row's digit pairs into limbs as it reads them.  So a block can
 // ask for its next tile while it computes on the current one: the operands
 // are in registers by then, and their shared memory is free (tile_loop).
 // Results leave through shared memory as L + 1 packed words a row and are
 // written out as 16-byte digit pairs, consecutive threads on consecutive
-// chunks.
+// chunks (at an odd ND, as single digits: its rows are 8-byte aligned).
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void cp_async4(uint32_t* dst, const void* src) {
@@ -92,48 +123,66 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // each warp takes whole rows, its lanes consecutive digits.  Batch row i is
 // row i % rows of x, rows `stride` digits apart; a one-row operand is
 // fetched once, to row 0 (its readers take row step 0).
-template <int L, int T>
+template <int L, int T, int ND = 2 * L>
 __device__ __forceinline__ void fetch_rows(const long long* __restrict__ x,
                                            int rows, long long stride,
                                            int base, int cnt, uint32_t* s) {
-  constexpr int ND = 2 * L;
+  static_assert(limbs_of<ND> == L, "L = ceil(ND / 2) limbs");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nrows = rows == 1 ? 1 : cnt;
   for (int r = warp; r < nrows; r += T / 32) {
     int row = base + r;
     if (row >= rows) row %= rows;
     const long long* src = x + (size_t)row * stride;
-    uint32_t* dst = s + r * (ND + 1);
+    uint32_t* dst = s + r * (2 * L + 1);
 #pragma unroll
     for (int d = lane; d < ND; d += 32) cp_async4(dst + d, src + d);
   }
 }
 
-// The limbs of a fetched row.
-template <int L>
+// The limbs of a fetched row (at an odd ND the top limb is one digit).
+template <int L, int ND = 2 * L>
 __device__ __forceinline__ void fetched_limbs(const uint32_t* s,
                                               uint32_t (&x)[L]) {
 #pragma unroll
   for (int j = 0; j < L; j++)
-    x[j] = (s[2 * j] & 0xFFFFu) | (s[2 * j + 1] << 16);
+    x[j] = (s[2 * j] & 0xFFFFu) |
+           (2 * j + 1 < ND ? s[2 * j + 1] << 16 : 0u);
 }
 
-// s (rows of L + 1 packed words) -> the dense output rows base .. base+cnt-1.
-template <int L, int T>
+// s (rows of L + 1 packed words) -> the dense output rows base .. base+cnt-1:
+// 16-byte digit pairs at an even ND, single digits at an odd one (exactly
+// ND a row), consecutive threads on consecutive addresses either way.
+template <int L, int T, int ND = 2 * L>
 __device__ __forceinline__ void unstage_rows(const uint32_t* s,
                                              long long* __restrict__ out,
                                              int base, int cnt) {
-  longlong2* o = reinterpret_cast<longlong2*>(out + (size_t)base * 2 * L);
-  const int total = cnt * L;
+  static_assert(limbs_of<ND> == L, "L = ceil(ND / 2) limbs");
+  if constexpr (ND == 2 * L) {
+    longlong2* o = reinterpret_cast<longlong2*>(out + (size_t)base * 2 * L);
+    const int total = cnt * L;
 #pragma unroll 8
-  for (int it = 0; it < L; it++) {
-    int k = it * T + (int)threadIdx.x;
-    if (k < total) {
-      uint32_t w = s[k + k / L];
-      longlong2 d;
-      d.x = (long long)(w & 0xFFFFu);
-      d.y = (long long)(w >> 16);
-      o[k] = d;
+    for (int it = 0; it < L; it++) {
+      int k = it * T + (int)threadIdx.x;
+      if (k < total) {
+        uint32_t w = s[k + k / L];
+        longlong2 d;
+        d.x = (long long)(w & 0xFFFFu);
+        d.y = (long long)(w >> 16);
+        o[k] = d;
+      }
+    }
+  } else {
+    long long* o = out + (size_t)base * ND;
+    const int total = cnt * ND;
+#pragma unroll 8
+    for (int it = 0; it < ND; it++) {
+      int k = it * T + (int)threadIdx.x;
+      if (k < total) {
+        const int r = k / ND, d = k - r * ND;
+        const uint32_t w = s[r * (L + 1) + (d >> 1)];
+        o[k] = (long long)((d & 1) ? w >> 16 : w & 0xFFFFu);
+      }
     }
   }
 }
@@ -216,7 +265,7 @@ inline cudaError_t open_smem(Kernel kernel, int bytes,
 // blockIdx.x + gridDim.x, ...; the next tile's operands are fetched while
 // the current one computes.  Row addressing as fetch_rows; the output is
 // dense.  smem: tile_loop_bytes<L, T, NOPS>(n) bytes.
-template <int L, int T, int NOPS, typename Op>
+template <int L, int T, int NOPS, int ND = 2 * L, typename Op>
 __device__ __forceinline__ void tile_loop(
     const long long* __restrict__ a, int a_rows, long long a_stride,
     const long long* __restrict__ b, int b_rows, long long b_stride,
@@ -231,9 +280,9 @@ __device__ __forceinline__ void tile_loop(
   int tile = blockIdx.x;
   auto fetch = [&](int k) {
     const int base = k * T, cnt = min(T, n - base);
-    fetch_rows<L, T>(a, a_rows, a_stride, base, cnt, sa);
+    fetch_rows<L, T, ND>(a, a_rows, a_stride, base, cnt, sa);
     if constexpr (NOPS == 2)
-      fetch_rows<L, T>(b, b_rows, b_stride, base, cnt, sb);
+      fetch_rows<L, T, ND>(b, b_rows, b_stride, base, cnt, sb);
     cp_async_commit();
   };
   if (tile < tiles) fetch(tile);
@@ -243,9 +292,9 @@ __device__ __forceinline__ void tile_loop(
     __syncthreads();  // the tile's operands have landed
     uint32_t x[L], y[L], r[L];
     if (t < cnt) {
-      fetched_limbs<L>(sa + (a_rows == 1 ? 0 : t * RW), x);
+      fetched_limbs<L, ND>(sa + (a_rows == 1 ? 0 : t * RW), x);
       if constexpr (NOPS == 2)
-        fetched_limbs<L>(sb + (b_rows == 1 ? 0 : t * RW), y);
+        fetched_limbs<L, ND>(sb + (b_rows == 1 ? 0 : t * RW), y);
     }
     __syncthreads();  // operands in registers: fetch the next tile
     if (tile + (int)gridDim.x < tiles) fetch(tile + gridDim.x);
@@ -255,7 +304,7 @@ __device__ __forceinline__ void tile_loop(
       for (int j = 0; j < L; j++) so[t * (L + 1) + j] = r[j];
     }
     __syncthreads();
-    unstage_rows<L, T>(so, out, base, cnt);
+    unstage_rows<L, T, ND>(so, out, base, cnt);
   }
 }
 
@@ -331,16 +380,22 @@ __device__ __forceinline__ bool is_zero(const uint32_t (&a)[L]) {
   return acc == 0;
 }
 
-// Montgomery product a*b*R^-1 mod p, R = 2^(32L), by coarsely integrated
+// Montgomery product a*b*R^-1 mod p, R = 2^(16*ND), by coarsely integrated
 // operand scanning (CIOS): for each limb of b, one row of the product and
-// one row of the reduction, carried in 64-bit accumulators.  The result is
-// canonical (< p) whenever a*b < R*p, i.e. one operand may be any value
-// below R as long as the other is below p.
-template <int L>
+// one row of the reduction, carried in 64-bit accumulators.  At an even ND
+// every reduction row divides by 2^32; at an odd one the last divides by
+// 2^16 (m = t_0 * inv mod 2^16, the low half of -p^-1 mod 2^32, then t is
+// shifted right by half a limb), so L - 1 full rows and one half row make
+// R = 2^(32L - 16).  The result is canonical (< p) whenever a*b < R*p,
+// i.e. one operand may be any value below R as long as the other is below
+// p.
+template <int L, int ND = 2 * L>
 __device__ __forceinline__ void mont_mul(const uint32_t (&a)[L],
                                          const uint32_t (&b)[L],
                                          const uint32_t (&p)[L], uint32_t inv,
                                          uint32_t (&r)[L]) {
+  static_assert(limbs_of<ND> == L, "L = ceil(ND / 2) limbs");
+  constexpr bool HALF = ND & 1;
   uint32_t t[L + 2];
 #pragma unroll
   for (int i = 0; i < L + 2; i++) t[i] = 0;
@@ -358,6 +413,23 @@ __device__ __forceinline__ void mont_mul(const uint32_t (&a)[L],
     t[L] = (uint32_t)s;
     t[L + 1] = (uint32_t)(s >> 32);
 
+    if (HALF && i == L - 1) {
+      // the half row: t + m p is a multiple of 2^16; shift it down
+      const uint32_t m = (t[0] * inv) & 0xFFFFu;
+      c = 0;
+#pragma unroll
+      for (int j = 0; j < L; j++) {
+        s = (uint64_t)m * p[j] + t[j] + c;
+        t[j] = (uint32_t)s;
+        c = s >> 32;
+      }
+      s = (uint64_t)t[L] + c;
+      t[L] = (uint32_t)s;
+      t[L + 1] += (uint32_t)(s >> 32);
+#pragma unroll
+      for (int j = 0; j <= L; j++) t[j] = (t[j] >> 16) | (t[j + 1] << 16);
+      break;
+    }
     uint32_t m = t[0] * inv;
     s = (uint64_t)m * p[0] + t[0];
     c = s >> 32;
@@ -427,7 +499,7 @@ __device__ __forceinline__ void stage_consts(const CurveConst<L>& K,
   __syncthreads();
 }
 
-template <int L>
+template <int L, int ND = 2 * L>
 __device__ __noinline__ void mont_mul_mem(const uint32_t* a, const uint32_t* b,
                                           const uint32_t* p, uint32_t inv,
                                           uint32_t* r) {
@@ -438,7 +510,7 @@ __device__ __noinline__ void mont_mul_mem(const uint32_t* a, const uint32_t* b,
     y[i] = b[i];
     m[i] = p[i];
   }
-  mont_mul<L>(x, y, m, inv, o);
+  mont_mul<L, ND>(x, y, m, inv, o);
 #pragma unroll
   for (int i = 0; i < L; i++) r[i] = o[i];
 }

@@ -34,23 +34,23 @@ namespace {
 template <int ND>
 __global__ void __launch_bounds__(64)
 inv_bea_kernel(const long long* __restrict__ a, long long* __restrict__ out,
-               int n, const gl::FpConst<ND / 2> K) {
-  constexpr int L = ND / 2;
+               int n, const gl::FpConst<gl::limbs_of<ND>> K) {
+  constexpr int L = gl::limbs_of<ND>;
   __shared__ uint32_t P[L];
   if (threadIdx.x < L) P[threadIdx.x] = K.p[threadIdx.x];
   __syncthreads();
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   uint32_t x[L];
-  gl::load_digits<L>(a + (size_t)i * ND, x);
+  gl::load_digits<L, ND>(a + (size_t)i * ND, x);
   gl::inv_divsteps<L>(x, P, K.inv, x);
-  gl::store_digits<L>(out + (size_t)i * ND, x);
+  gl::store_digits<L, ND>(out + (size_t)i * ND, x);
 }
 
 template <int ND>
 int launch(const void* a, void* out, int n, const uint32_t* p_limbs,
            uint32_t inv, void* stream) {
-  gl::FpConst<ND / 2> K;
+  gl::FpConst<gl::limbs_of<ND>> K;
   memcpy(K.p, p_limbs, sizeof(K.p));
   K.inv = inv;
   const int threads = 64;
@@ -70,8 +70,10 @@ extern "C" int gl_inv_bea(int nd, const void* a, void* out, int n,
   if (n <= 0) return 0;
   switch (nd) {
     case 16: return launch<16>(a, out, n, p_limbs, inv, stream);
+    case 19: return launch<19>(a, out, n, p_limbs, inv, stream);
     case 24: return launch<24>(a, out, n, p_limbs, inv, stream);
     case 48: return launch<48>(a, out, n, p_limbs, inv, stream);
+    case 49: return launch<49>(a, out, n, p_limbs, inv, stream);
     default: return -1;
   }
 }

@@ -50,6 +50,13 @@
 // Multiplies run on register limbs (gl::mont_mul, inlined), B/2 = 256
 // threads a block, one node pair each at the widest level.
 //
+// At the odd digit counts (19, 49): rows are read and written digit by
+// digit (8-byte aligned only), the multiplies' last row reduces by 16 bits
+// (fp_limbs.cuh), and the narrow levels' groups pad the limbs with zeros
+// to a multiple of G (10 -> 12 at G = 4, 25 -> 32 at G = 8; fp_group.cuh).
+// At 49 digits a tile's tree is 1023 rows x 26 words, 106,392 bytes, still
+// two blocks an SM.
+//
 // What bounds it on an H100: at wide batches the multiplies (one up, two
 // down an element, 2*L*L + L multiply-adds each); at a narrow level, one
 // block's chain of log2(W) dependent multiplies up and as many pairs down,
@@ -108,7 +115,7 @@ __device__ __forceinline__ bool one_if_zero(uint32_t (&x)[L],
 // Rows 0 .. W-1 of the tree <- elements base .. base+cnt-1 of x (n rows,
 // dense) as limbs, zero past cnt.  Staged by cp.async half a tree at a
 // time through the rows above the leaves.
-template <int L>
+template <int L, int ND>
 __device__ void stage_leaves(const long long* __restrict__ x, int n, int base,
                              int cnt, int W, uint32_t* tree) {
   constexpr int RW = L + 1, SW = 2 * L + 1;
@@ -116,13 +123,13 @@ __device__ void stage_leaves(const long long* __restrict__ x, int n, int base,
   uint32_t* stage = tree + W * RW;
   for (int c = 0; c < cnt; c += chunk) {
     const int k = min(chunk, cnt - c);
-    gl::fetch_rows<L, T>(x, n, 2 * L, base + c, k, stage);
+    gl::fetch_rows<L, T, ND>(x, n, ND, base + c, k, stage);
     gl::cp_async_commit();
     gl::cp_async_wait_all();
     __syncthreads();
     for (int r = threadIdx.x; r < k; r += T) {
       uint32_t v[L];
-      gl::fetched_limbs<L>(stage + r * SW, v);
+      gl::fetched_limbs<L, ND>(stage + r * SW, v);
       store_row<L>(v, tree + (c + r) * RW);
     }
     __syncthreads();  // the staging rows are free again
@@ -140,40 +147,49 @@ __device__ void stage_leaves(const long long* __restrict__ x, int n, int base,
 // wait until its sibling has been read, so a group could keep only one).
 // Each sweep holds ONE copy of each multiply: a 48-digit multiply unrolled
 // is some 56 KB of instructions, and copies that run in turn do not stay
-// in the instruction cache.
-template <int L>
-constexpr int GROUP = L == 24 ? 8 : 4;
+// in the instruction cache.  G is 8 from 48 digits, 4 below; the group's
+// limbs LP are L rounded up to a multiple of G, the limbs above L zero.
+template <int ND>
+constexpr int GROUP = ND >= 48 ? 8 : 4;
 
-// The group's part of a shared-memory row (rank r: limbs r*M .. r*M+M-1).
-template <int L, int G>
-__device__ __forceinline__ void load_part(const gl::Grp<L, G>& g,
+// The group's part of a shared-memory row of L limbs (rank r: limbs r*M ..
+// r*M+M-1 of LP, those at L and above zero, and not stored).
+template <int L, int LP, int G>
+__device__ __forceinline__ void load_part(const gl::Grp<LP, G>& g,
                                           const uint32_t* row,
-                                          uint32_t (&x)[L / G]) {
+                                          uint32_t (&x)[LP / G]) {
 #pragma unroll
-  for (int j = 0; j < L / G; j++) x[j] = row[g.rank * (L / G) + j];
+  for (int j = 0; j < LP / G; j++) {
+    const int k = g.rank * (LP / G) + j;
+    x[j] = LP == L || k < L ? row[k] : 0u;
+  }
 }
 
-template <int L, int G>
-__device__ __forceinline__ void store_part(const gl::Grp<L, G>& g,
-                                           const uint32_t (&x)[L / G],
+template <int L, int LP, int G>
+__device__ __forceinline__ void store_part(const gl::Grp<LP, G>& g,
+                                           const uint32_t (&x)[LP / G],
                                            uint32_t* row) {
 #pragma unroll
-  for (int j = 0; j < L / G; j++) row[g.rank * (L / G) + j] = x[j];
+  for (int j = 0; j < LP / G; j++) {
+    const int k = g.rank * (LP / G) + j;
+    if (LP == L || k < L) row[k] = x[j];
+  }
 }
 
 // Levels 1 .. log2(W): node i of a level of width w/2 = node i times node
 // i + w/2 of the level below, a zero leaf counting as one.  C: [p | one]
 // in shared memory.
-template <int L>
+template <int ND>
 __device__ __forceinline__ void sweep_up(uint32_t* tree, int W,
-                                         const InvConst<L>& K,
+                                         const InvConst<gl::limbs_of<ND>>& K,
                                          const uint32_t* C) {
-  constexpr int RW = L + 1, G = GROUP<L>, M = L / G;
-  const gl::Grp<L, G> g = gl::Grp<L, G>::of_thread();
+  constexpr int L = gl::limbs_of<ND>, RW = L + 1, G = GROUP<ND>;
+  constexpr int LP = gl::group_limbs<ND, G>, M = LP / G;
+  const gl::Grp<LP, G> g = gl::Grp<LP, G>::of_thread();
   const int q = threadIdx.x / G;
   uint32_t pp[M], one[M];
-  load_part<L, G>(g, C, pp);
-  load_part<L, G>(g, C + L, one);
+  load_part<L, LP, G>(g, C, pp);
+  load_part<L, LP, G>(g, C + L, one);
   int lo = 0;
   for (int w = W; w > 1; w >>= 1) {
     const int h = w / 2, hi = lo + w;
@@ -184,23 +200,23 @@ __device__ __forceinline__ void sweep_up(uint32_t* tree, int W,
         load_row<L>(tree + (lo + t + h) * RW, b);
         one_if_zero<L>(a, K.one);  // only a leaf can be zero
         one_if_zero<L>(b, K.one);
-        gl::mont_mul<L>(a, b, K.p, K.inv, r);
+        gl::mont_mul<L, ND>(a, b, K.p, K.inv, r);
         store_row<L>(r, tree + (hi + t) * RW);
       }
     } else {
       for (int c = q; c < h; c += T / G) {
         uint32_t a[M], b[M], r[M];
-        load_part<L, G>(g, tree + (lo + c) * RW, a);
-        load_part<L, G>(g, tree + (lo + c + h) * RW, b);
-        const bool az = gl::grp_is_zero<L, G>(g, a);
-        const bool bz = gl::grp_is_zero<L, G>(g, b);
+        load_part<L, LP, G>(g, tree + (lo + c) * RW, a);
+        load_part<L, LP, G>(g, tree + (lo + c + h) * RW, b);
+        const bool az = gl::grp_is_zero<LP, G>(g, a);
+        const bool bz = gl::grp_is_zero<LP, G>(g, b);
 #pragma unroll
         for (int j = 0; j < M; j++) {
           a[j] = az ? one[j] : a[j];
           b[j] = bz ? one[j] : b[j];
         }
-        gl::grp_mont_mul<L, G>(g, a, b, pp, K.inv, r);
-        store_part<L, G>(g, r, tree + (hi + c) * RW);
+        gl::grp_mont_mul<LP, G, ND>(g, a, b, pp, K.inv, r);
+        store_part<L, LP, G>(g, r, tree + (hi + c) * RW);
       }
     }
     __syncthreads();
@@ -215,16 +231,17 @@ __device__ __forceinline__ void sweep_up(uint32_t* tree, int W,
 // overwritten.  One multiply a thread (children t and t + T: two, siblings
 // of one another, so the second may be written at once) while w > T / G,
 // one a group above.
-template <int L>
+template <int ND>
 __device__ __forceinline__ void sweep_down(uint32_t* tree, int W,
-                                           const InvConst<L>& K,
+                                           const InvConst<gl::limbs_of<ND>>& K,
                                            const uint32_t* C) {
-  constexpr int RW = L + 1, G = GROUP<L>, M = L / G;
-  const gl::Grp<L, G> g = gl::Grp<L, G>::of_thread();
+  constexpr int L = gl::limbs_of<ND>, RW = L + 1, G = GROUP<ND>;
+  constexpr int LP = gl::group_limbs<ND, G>, M = LP / G;
+  const gl::Grp<LP, G> g = gl::Grp<LP, G>::of_thread();
   const int q = threadIdx.x / G;
   uint32_t pp[M], one[M];
-  load_part<L, G>(g, C, pp);
-  load_part<L, G>(g, C + L, one);
+  load_part<L, LP, G>(g, C, pp);
+  load_part<L, LP, G>(g, C + L, one);
   for (int w = 2; w <= W; w <<= 1) {
     const int h = w / 2, lo = 2 * W - 2 * w, hi = lo + w;
     if (w > T / G) {
@@ -236,7 +253,7 @@ __device__ __forceinline__ void sweep_down(uint32_t* tree, int W,
         load_row<L>(tree + (hi + (c < h ? c : sib)) * RW, r);
         load_row<L>(tree + (lo + sib) * RW, s);
         one_if_zero<L>(s, K.one);
-        gl::mont_mul<L>(r, s, K.p, K.inv, s);
+        gl::mont_mul<L, ND>(r, s, K.p, K.inv, s);
         load_row<L>(tree + (lo + c) * RW, r);
         if (gl::is_zero<L>(r)) gl::zero_limbs<L>(s);
         if (c == (int)threadIdx.x) {
@@ -254,33 +271,33 @@ __device__ __forceinline__ void sweep_down(uint32_t* tree, int W,
       if (q < w) {
         const int sib = q < h ? q + h : q - h;
         uint32_t r[M], s[M];
-        load_part<L, G>(g, tree + (hi + (q < h ? q : sib)) * RW, r);
-        load_part<L, G>(g, tree + (lo + sib) * RW, s);
-        const bool sz = gl::grp_is_zero<L, G>(g, s);
+        load_part<L, LP, G>(g, tree + (hi + (q < h ? q : sib)) * RW, r);
+        load_part<L, LP, G>(g, tree + (lo + sib) * RW, s);
+        const bool sz = gl::grp_is_zero<LP, G>(g, s);
 #pragma unroll
         for (int j = 0; j < M; j++) s[j] = sz ? one[j] : s[j];
-        gl::grp_mont_mul<L, G>(g, r, s, pp, K.inv, o);
-        load_part<L, G>(g, tree + (lo + q) * RW, r);
-        if (gl::grp_is_zero<L, G>(g, r)) {
+        gl::grp_mont_mul<LP, G, ND>(g, r, s, pp, K.inv, o);
+        load_part<L, LP, G>(g, tree + (lo + q) * RW, r);
+        if (gl::grp_is_zero<LP, G>(g, r)) {
 #pragma unroll
           for (int j = 0; j < M; j++) o[j] = 0;
         }
       }
       __syncthreads();
-      if (q < w) store_part<L, G>(g, o, tree + (lo + q) * RW);
+      if (q < w) store_part<L, LP, G>(g, o, tree + (lo + q) * RW);
     }
     __syncthreads();
   }
 }
 
 // Leaves 0 .. cnt-1 of the tree -> dense output rows base .. base+cnt-1.
-template <int L>
+template <int L, int ND>
 __device__ __forceinline__ void unstage_leaves(const uint32_t* tree,
                                                long long* __restrict__ out,
                                                int base, int cnt) {
   for (int r = 0; r < cnt; r += T)
-    gl::unstage_rows<L, T>(tree + r * (L + 1), out, base + r,
-                           min(T, cnt - r));
+    gl::unstage_rows<L, T, ND>(tree + r * (L + 1), out, base + r,
+                               min(T, cnt - r));
 }
 
 // C <- [p | one | R^3] in shared memory (visible after the caller's next
@@ -298,20 +315,26 @@ __device__ __forceinline__ void stage_inv_consts(const InvConst<L>& K,
 template <int ND>
 __global__ void __launch_bounds__(T, 2)
 inv_up_kernel(const long long* __restrict__ x, uint32_t* __restrict__ scratch,
-              long long* __restrict__ roots, int n, const InvConst<ND / 2> K) {
-  constexpr int L = ND / 2, RW = L + 1, ROWS = 2 * B - 1;
+              long long* __restrict__ roots, int n,
+              const InvConst<gl::limbs_of<ND>> K) {
+  constexpr int L = gl::limbs_of<ND>, RW = L + 1, ROWS = 2 * B - 1;
   extern __shared__ uint32_t tree[];
   __shared__ uint32_t C[3 * L];
   stage_inv_consts<L>(K, C);
   const int base = blockIdx.x * B;
-  stage_leaves<L>(x, n, base, min(B, n - base), B, tree);
-  sweep_up<L>(tree, B, K, C);
+  stage_leaves<L, ND>(x, n, base, min(B, n - base), B, tree);
+  sweep_up<ND>(tree, B, K, C);
   uint32_t* s = scratch + (size_t)blockIdx.x * ROWS * L;
   for (int k = threadIdx.x; k < ROWS * L; k += T) s[k] = tree[k + k / L];
   if (threadIdx.x < L) {
     const uint32_t w = tree[(ROWS - 1) * RW + threadIdx.x];
-    reinterpret_cast<longlong2*>(roots + (size_t)blockIdx.x * ND)
-        [threadIdx.x] = make_longlong2(w & 0xFFFFu, w >> 16);
+    long long* d = roots + (size_t)blockIdx.x * ND + 2 * threadIdx.x;
+    if constexpr (ND == 2 * L) {
+      *reinterpret_cast<longlong2*>(d) = make_longlong2(w & 0xFFFFu, w >> 16);
+    } else {
+      d[0] = w & 0xFFFFu;
+      if (2 * (int)threadIdx.x + 1 < ND) d[1] = w >> 16;
+    }
   }
 }
 
@@ -319,8 +342,9 @@ template <int ND>
 __global__ void __launch_bounds__(T, 2)
 inv_down_kernel(const uint32_t* __restrict__ scratch,
                 const long long* __restrict__ rinv,
-                long long* __restrict__ out, int n, const InvConst<ND / 2> K) {
-  constexpr int L = ND / 2, RW = L + 1, ROWS = 2 * B - 1;
+                long long* __restrict__ out, int n,
+                const InvConst<gl::limbs_of<ND>> K) {
+  constexpr int L = gl::limbs_of<ND>, RW = L + 1, ROWS = 2 * B - 1;
   extern __shared__ uint32_t tree[];
   __shared__ uint32_t C[3 * L];
   stage_inv_consts<L>(K, C);
@@ -330,40 +354,41 @@ inv_down_kernel(const uint32_t* __restrict__ scratch,
   gl::cp_async_commit();
   if (threadIdx.x < L) {
     const long long* d = rinv + (size_t)blockIdx.x * ND + 2 * threadIdx.x;
-    tree[(ROWS - 1) * RW + threadIdx.x] =
-        ((uint32_t)d[0] & 0xFFFFu) | ((uint32_t)d[1] << 16);
+    uint32_t w = (uint32_t)d[0] & 0xFFFFu;
+    if (2 * (int)threadIdx.x + 1 < ND) w |= (uint32_t)d[1] << 16;
+    tree[(ROWS - 1) * RW + threadIdx.x] = w;
   }
   gl::cp_async_wait_all();
   __syncthreads();
-  sweep_down<L>(tree, B, K, C);
+  sweep_down<ND>(tree, B, K, C);
   const int base = blockIdx.x * B;
-  unstage_leaves<L>(tree, out, base, min(B, n - base));
+  unstage_leaves<L, ND>(tree, out, base, min(B, n - base));
 }
 
 template <int ND>
 __global__ void __launch_bounds__(T, 1)
 inv_tail_kernel(const long long* __restrict__ x, long long* __restrict__ out,
-                int n, const InvConst<ND / 2> K) {
-  constexpr int L = ND / 2, RW = L + 1;
+                int n, const InvConst<gl::limbs_of<ND>> K) {
+  constexpr int L = gl::limbs_of<ND>, RW = L + 1;
   extern __shared__ uint32_t tree[];
   __shared__ uint32_t C[3 * L];
   stage_inv_consts<L>(K, C);
   int W = 1;
   while (W < n) W <<= 1;
-  stage_leaves<L>(x, n, 0, n, W, tree);
-  sweep_up<L>(tree, W, K, C);
+  stage_leaves<L, ND>(x, n, 0, n, W, tree);
+  sweep_up<ND>(tree, W, K, C);
   if (threadIdx.x == 0) {
     // the root aR: its plain inverse (aR)^-1, times R^3 / R, is a^-1 R.
     // (A one-leaf tree's root is its leaf, which may be zero: 0 -> 0.)
     uint32_t r[L];
     load_row<L>(tree + (2 * W - 2) * RW, r);
     gl::inv_divsteps<L>(r, C, K.inv, r);
-    gl::mont_mul_mem<L>(r, C + 2 * L, C, K.inv, r);
+    gl::mont_mul_mem<L, ND>(r, C + 2 * L, C, K.inv, r);
     store_row<L>(r, tree + (2 * W - 2) * RW);
   }
   __syncthreads();
-  sweep_down<L>(tree, W, K, C);
-  unstage_leaves<L>(tree, out, 0, n);
+  sweep_down<ND>(tree, W, K, C);
+  unstage_leaves<L, ND>(tree, out, 0, n);
 }
 
 // Host side: the constants, and the kernel's dynamic shared memory opened
@@ -383,12 +408,12 @@ template <int ND>
 int launch_up(const void* x, void* scratch, void* roots, int n,
               const uint32_t* consts, uint32_t inv, void* stream) {
   static int opened[gl::MAX_DEVICES] = {};
-  const int bytes = 4 * tree_words<ND / 2>(B);
+  const int bytes = 4 * tree_words<gl::limbs_of<ND>>(B);
   cudaError_t e = gl::open_smem(inv_up_kernel<ND>, bytes, opened);
   if (e != cudaSuccess) return (int)e;
   inv_up_kernel<ND><<<(n + B - 1) / B, T, bytes, (cudaStream_t)stream>>>(
       (const long long*)x, (uint32_t*)scratch, (long long*)roots, n,
-      make_const<ND / 2>(consts, inv));
+      make_const<gl::limbs_of<ND>>(consts, inv));
   return (int)cudaGetLastError();
 }
 
@@ -396,12 +421,12 @@ template <int ND>
 int launch_down(const void* scratch, const void* rinv, void* out, int n,
                 const uint32_t* consts, uint32_t inv, void* stream) {
   static int opened[gl::MAX_DEVICES] = {};
-  const int bytes = 4 * tree_words<ND / 2>(B);
+  const int bytes = 4 * tree_words<gl::limbs_of<ND>>(B);
   cudaError_t e = gl::open_smem(inv_down_kernel<ND>, bytes, opened);
   if (e != cudaSuccess) return (int)e;
   inv_down_kernel<ND><<<(n + B - 1) / B, T, bytes, (cudaStream_t)stream>>>(
       (const uint32_t*)scratch, (const long long*)rinv, (long long*)out, n,
-      make_const<ND / 2>(consts, inv));
+      make_const<gl::limbs_of<ND>>(consts, inv));
   return (int)cudaGetLastError();
 }
 
@@ -411,24 +436,24 @@ int launch_tail(const void* x, void* out, int n, const uint32_t* consts,
   static int opened[gl::MAX_DEVICES] = {};
   int W = 1;
   while (W < n) W <<= 1;
-  const int bytes = 4 * tree_words<ND / 2>(W);
+  const int bytes = 4 * tree_words<gl::limbs_of<ND>>(W);
   cudaError_t e = gl::open_smem(inv_tail_kernel<ND>, bytes, opened);
   if (e != cudaSuccess) return (int)e;
   inv_tail_kernel<ND><<<1, T, bytes, (cudaStream_t)stream>>>(
       (const long long*)x, (long long*)out, n,
-      make_const<ND / 2>(consts, inv));
+      make_const<gl::limbs_of<ND>>(consts, inv));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Every entry point: nd digits an element; `tile` must be B (the wrapper's
-// constant, checked here); consts: 3*nd/2 limbs [p | R^3 mod p | R mod p];
-// inv: -p^-1 mod 2^32.  Returns cudaGetLastError() of the launch (or the
-// error of its set-up), -1 for a digit count that was not built, -2 for
+// constant, checked here); consts: 3 ceil(nd/2) limbs [p | R^3 mod p |
+// R mod p]; inv: -p^-1 mod 2^32.  Returns cudaGetLastError() of the launch
+// (or the error of its set-up), -1 for a digit count that was not built, -2 for
 // another tile or a batch the kernel does not take.
 
-// x: dense [n, nd], n > 0; scratch: [ceil(n / B), 2B - 1, nd / 2] 32-bit
+// x: dense [n, nd], n > 0; scratch: [ceil(n / B), 2B - 1, ceil(nd / 2)] 32-bit
 // words, the tiles' trees; roots: dense [ceil(n / B), nd], the tiles'
 // products.
 extern "C" int gl_inv_tree_up(int nd, const void* x, void* scratch,
@@ -439,8 +464,10 @@ extern "C" int gl_inv_tree_up(int nd, const void* x, void* scratch,
   if (tile != B) return -2;
   switch (nd) {
     case 16: return launch_up<16>(x, scratch, roots, n, consts, inv, stream);
+    case 19: return launch_up<19>(x, scratch, roots, n, consts, inv, stream);
     case 24: return launch_up<24>(x, scratch, roots, n, consts, inv, stream);
     case 48: return launch_up<48>(x, scratch, roots, n, consts, inv, stream);
+    case 49: return launch_up<49>(x, scratch, roots, n, consts, inv, stream);
     default: return -1;
   }
 }
@@ -456,8 +483,10 @@ extern "C" int gl_inv_tree_down(int nd, const void* scratch, const void* rinv,
   if (tile != B) return -2;
   switch (nd) {
     case 16: return launch_down<16>(scratch, rinv, out, n, consts, inv, stream);
+    case 19: return launch_down<19>(scratch, rinv, out, n, consts, inv, stream);
     case 24: return launch_down<24>(scratch, rinv, out, n, consts, inv, stream);
     case 48: return launch_down<48>(scratch, rinv, out, n, consts, inv, stream);
+    case 49: return launch_down<49>(scratch, rinv, out, n, consts, inv, stream);
     default: return -1;
   }
 }
@@ -471,8 +500,10 @@ extern "C" int gl_inv_tree_tail(int nd, const void* x, void* out, int n,
   if (tile != B || n > B) return -2;
   switch (nd) {
     case 16: return launch_tail<16>(x, out, n, consts, inv, stream);
+    case 19: return launch_tail<19>(x, out, n, consts, inv, stream);
     case 24: return launch_tail<24>(x, out, n, consts, inv, stream);
     case 48: return launch_tail<48>(x, out, n, consts, inv, stream);
+    case 49: return launch_tail<49>(x, out, n, consts, inv, stream);
     default: return -1;
   }
 }

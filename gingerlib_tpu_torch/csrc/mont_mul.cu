@@ -7,7 +7,10 @@
 // wide multiply and no carry flag.  A CUDA thread has both, so here one
 // thread owns one field element: 24 limbs of 32 bits in registers (for the
 // 48-digit fields), a fully unrolled CIOS loop of 2*L*L + L 32x32->64
-// multiply-adds, and a final conditional subtraction.
+// multiply-adds, and a final conditional subtraction.  At the odd digit
+// counts (19 and 49: MNT6-298 and SW6) L = (ND + 1)/2 limbs, the top one
+// half full, and the last row of the reduction divides by 2^16
+// (fp_limbs.cuh), so R stays 2^(16 ND) at no extra multiply.
 //
 // What bounds it on an H100: the function's own bytes (3 * ND * 2 of
 // information per element) take less time at the card's memory rate than
@@ -45,13 +48,13 @@ __global__ void __launch_bounds__(T)
 mont_mul_kernel(const long long* __restrict__ a, int a_rows, long long a_stride,
                 const long long* __restrict__ b, int b_rows, long long b_stride,
                 long long* __restrict__ out, int n,
-                const gl::FpConst<ND / 2> K) {
-  constexpr int L = ND / 2;
+                const gl::FpConst<gl::limbs_of<ND>> K) {
+  constexpr int L = gl::limbs_of<ND>;
   extern __shared__ uint32_t smem[];
-  gl::tile_loop<L, T, 2>(
+  gl::tile_loop<L, T, 2, ND>(
       a, a_rows, a_stride, b, b_rows, b_stride, out, n, smem,
       [&](const uint32_t (&x)[L], const uint32_t (&y)[L], uint32_t (&r)[L]) {
-        gl::mont_mul<L>(x, y, K.p, K.inv, r);
+        gl::mont_mul<L, ND>(x, y, K.p, K.inv, r);
       });
 }
 
@@ -59,12 +62,12 @@ template <int ND>
 int launch(const void* a, int a_rows, long long a_stride, const void* b,
            int b_rows, long long b_stride, void* out, int n,
            const uint32_t* p_limbs, uint32_t inv, void* stream) {
-  gl::FpConst<ND / 2> K;
+  gl::FpConst<gl::limbs_of<ND>> K;
   memcpy(K.p, p_limbs, sizeof(K.p));
   K.inv = inv;
   static int resident[gl::MAX_DEVICES] = {};
   int blocks, bytes;
-  cudaError_t e = gl::tile_loop_launch<ND / 2, T, 2>(
+  cudaError_t e = gl::tile_loop_launch<gl::limbs_of<ND>, T, 2>(
       mont_mul_kernel<ND>, n, resident, blocks, bytes);
   if (e != cudaSuccess) return (int)e;
   mont_mul_kernel<ND><<<blocks, T, bytes, (cudaStream_t)stream>>>(
@@ -85,8 +88,10 @@ extern "C" int gl_mont_mul(int nd, const void* a, int a_rows,
   if (n <= 0) return 0;
   switch (nd) {
     case 16: return launch<16>(a, a_rows, a_stride, b, b_rows, b_stride, out, n, p_limbs, inv, stream);
+    case 19: return launch<19>(a, a_rows, a_stride, b, b_rows, b_stride, out, n, p_limbs, inv, stream);
     case 24: return launch<24>(a, a_rows, a_stride, b, b_rows, b_stride, out, n, p_limbs, inv, stream);
     case 48: return launch<48>(a, a_rows, a_stride, b, b_rows, b_stride, out, n, p_limbs, inv, stream);
+    case 49: return launch<49>(a, a_rows, a_stride, b, b_rows, b_stride, out, n, p_limbs, inv, stream);
     default: return -1;
   }
 }

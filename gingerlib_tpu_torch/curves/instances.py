@@ -1,7 +1,9 @@
 """Concrete curve instantiations of the port: the MNT4-753/MNT6-753 cycle,
-BLS12-377 and BLS12-381 (Groth16 and GM17 setup, prove and verify over
-each curve), and the twisted-Edwards curves over BLS12-381 Fr (Jubjub),
-BLS12-377 Fr (Edwards-BLS12) and BLS12-377 Fq = SW6 Fr (Edwards-SW6).
+BLS12-377 and BLS12-381, SW6 (CP6-782, whose Fr is BLS12-377's Fq: the
+BLS12-377 recursion's outer curve) and MNT6-298 (Groth16 and GM17 setup,
+prove and verify over each curve), and the twisted-Edwards curves over
+BLS12-381 Fr (Jubjub), BLS12-377 Fr (Edwards-BLS12) and BLS12-377 Fq = SW6
+Fr (Edwards-SW6).
 
 Each constructor takes ``device`` under the package's device rule and caches
 one object per device (and, for G1, per choice of ``ec_rns``: the RNS
@@ -22,6 +24,7 @@ from ..device import resolve_device
 from ..params._gen import curves_gen as CG, towers_gen as TG
 from ..fields import towers as T
 from .pairing_bls12 import Bls12Pairing
+from .pairing_host import SW6_W1
 from .pairing_mnt import MNTPairing
 from .sw import SWCurveOps
 from .twisted_edwards import TECurveOps
@@ -56,6 +59,18 @@ def bls12_381_towers():
 
 
 @functools.lru_cache()
+def sw6_towers():
+    """(Fq, Fq3, Fq6) of SW6: MNT6-shaped, 782 bits (49 digits)."""
+    return T.build_mnt6_towers(PP.SW6_FQ, TG.SW6_FQ3["nonresidue"])
+
+
+@functools.lru_cache()
+def mnt6298_towers():
+    """(Fq, Fq3, Fq6) of MNT6-298 (19 digits)."""
+    return T.build_mnt6_towers(PP.MNT6298_FQ, TG.MNT6298_FQ3["nonresidue"])
+
+
+@functools.lru_cache()
 def _curve(family: str, group: str, device, ec_rns: bool = False
            ) -> SWCurveOps:
     towers, c, fr = {
@@ -63,6 +78,8 @@ def _curve(family: str, group: str, device, ec_rns: bool = False
         "mnt6753": (mnt6753_towers, CG.MNT6753, PP.MNT6753_FR),
         "bls12_377": (bls12_377_towers, CG.BLS12_377, PP.BLS12_377_FR),
         "bls12_381": (bls12_381_towers, CG.BLS12_381, PP.BLS12_381_FR),
+        "sw6": (sw6_towers, CG.SW6, PP.SW6_FR),
+        "mnt6298": (mnt6298_towers, CG.MNT6298, PP.MNT6298_FR),
     }[family]
     if group == "g1":
         return SWCurveOps(f"{family}_g1", towers()[0], c["a"], c["b"],
@@ -110,21 +127,63 @@ def bls12_381_g2(device=None) -> SWCurveOps:
     return _curve("bls12_381", "g2", resolve_device(device))
 
 
+def sw6_g1(device=None, ec_rns: bool = False) -> SWCurveOps:
+    """G1 of SW6, a = 5, over the 782-bit Fq."""
+    return _curve("sw6", "g1", resolve_device(device), ec_rns)
+
+
+def sw6_g2(device=None) -> SWCurveOps:
+    """G2 of SW6, over Fq3."""
+    return _curve("sw6", "g2", resolve_device(device))
+
+
+def mnt6298_g1(device=None, ec_rns: bool = False) -> SWCurveOps:
+    return _curve("mnt6298", "g1", resolve_device(device), ec_rns)
+
+
+def mnt6298_g2(device=None) -> SWCurveOps:
+    """G2 of MNT6-298, over Fq3."""
+    return _curve("mnt6298", "g2", resolve_device(device))
+
+
+def find_wnaf(n: int):
+    """NAF of n, LSB first, the top digit (1) trimmed: the loop digits of a
+    pairing whose constants give only the loop count (biginteger/mod.rs
+    find_wnaf and the trimming of mnt4753/mod.rs:42)."""
+    out = []
+    while n > 0:
+        if n & 1:
+            z = 2 - (n % 4)
+            n -= z
+        else:
+            z = 0
+        out.append(z)
+        n >>= 1
+    if out[-1] != 1:
+        raise ValueError("the NAF's top digit is not 1")
+    return out[:-1]
+
+
 # (curve constants, G1, G2, GT's tower, easy part: the Frobenius power and
 # whether the (q + 1) factor follows)
 _MNT = {
     "mnt4753": (CG.MNT4753, mnt4753_g1, mnt4753_g2, mnt4753_towers, 2, False),
     "mnt6753": (CG.MNT6753, mnt6753_g1, mnt6753_g2, mnt6753_towers, 3, True),
+    "sw6": (CG.SW6, sw6_g1, sw6_g2, sw6_towers, 3, True),
+    "mnt6298": (CG.MNT6298, mnt6298_g1, mnt6298_g2, mnt6298_towers, 3, True),
 }
 
 
 @functools.lru_cache()
 def _mnt_pairing(family: str, device) -> MNTPairing:
     c, g1, g2, towers, easy_frob, q_plus_1 = _MNT[family]
+    # SW6's W1 is not among the extracted constants (curves/sw6/mod.rs:
+    # 227-239); SW6 and MNT6-298 give the loop count, not its digits
+    w1 = SW6_W1 if family == "sw6" else c["final_exponent_last_chunk_1"]
+    wnaf = c["wnaf"] if "wnaf" in c else find_wnaf(c["ate_loop_count"])
     return MNTPairing(
-        family, g1(device), g2(device), towers()[2], wnaf=c["wnaf"],
-        ate_is_neg=c["ate_is_loop_count_neg"],
-        w1=c["final_exponent_last_chunk_1"],
+        family, g1(device), g2(device), towers()[2], wnaf=wnaf,
+        ate_is_neg=c["ate_is_loop_count_neg"], w1=w1,
         w0_abs=c["final_exponent_last_chunk_abs_of_w0"],
         w0_is_neg=c["final_exponent_last_chunk_w0_is_neg"],
         easy_frob=easy_frob, easy_mul_q_plus_1=q_plus_1)
@@ -148,6 +207,29 @@ def mnt4753_engine(device=None) -> MNTPairing:
 def mnt6753_engine(device=None) -> MNTPairing:
     """MNT6-753's engine: its pairing, with ``g1`` and ``g2``."""
     return mnt6753_pairing(device)
+
+
+def sw6_pairing(device=None) -> MNTPairing:
+    """SW6's ate pairing (curves/sw6/mod.rs:64-269): MNT6-shaped (Fq3
+    twist, GT in Fq6, easy part (q^3 - 1)(q + 1), hard part w1 q + w0),
+    over the 782-bit loop count of the reference's limbs in NAF form
+    (``pairing_host.host_sw6_pairing`` says why 782 and not 388 bits)."""
+    return _mnt_pairing("sw6", resolve_device(device))
+
+
+def mnt6298_pairing(device=None) -> MNTPairing:
+    """MNT6-298's ate pairing: GT in Fq6, as MNT6-753's."""
+    return _mnt_pairing("mnt6298", resolve_device(device))
+
+
+def sw6_engine(device=None) -> MNTPairing:
+    """SW6's engine: its pairing, with ``g1`` and ``g2``."""
+    return sw6_pairing(device)
+
+
+def mnt6298_engine(device=None) -> MNTPairing:
+    """MNT6-298's engine: its pairing, with ``g1`` and ``g2``."""
+    return mnt6298_pairing(device)
 
 
 # (curve constants, G1, G2, GT's tower, twist type)

@@ -2,7 +2,8 @@
 port's pairings.
 
 Counterpart of ``gingerlib_tpu/curves/pairing_host.py`` (``HostMNTPairing``,
-``host_mnt4753_pairing``, ``host_mnt6753_pairing``; ``HostBls12Pairing``,
+``host_mnt4753_pairing``, ``host_mnt6753_pairing``, ``host_sw6_pairing``,
+``host_mnt6298_pairing``; ``HostBls12Pairing``,
 ``host_bls12_377_pairing``, ``host_bls12_381_pairing``): the reference's
 affine Miller ladder (mnt4/mod.rs:100-224, mnt6/mod.rs) and its BLS12 loop
 over homogeneous-projective G2 lines (bls12/g2.rs, bls12/mod.rs), both over
@@ -164,6 +165,40 @@ def host_mnt6753_pairing() -> HostMNTPairing:
         c["final_exponent_last_chunk_1"],
         c["final_exponent_last_chunk_abs_of_w0"],
         c["final_exponent_last_chunk_w0_is_neg"], 3, True)
+
+
+# FINAL_EXPONENT_LAST_CHUNK_W1 of SW6 (curves/sw6/mod.rs:227-239); w0 and
+# the rest of the curve's constants are in the extracted tables
+SW6_W1 = 86482221941698704497288378992285180119495364068003923046442785886272123124361700722982503222189455144364945735564951562986
+
+
+def _host_mnt6(fq, tw3, c, w1) -> HostMNTPairing:
+    from .instances import find_wnaf
+    p = fq.modulus
+    _, fq3, fq6 = HE.build_mnt6_host_towers(p, tw3["nonresidue"])
+    return HostMNTPairing(
+        p, fq3, fq6, c["g2_a"], find_wnaf(c["ate_loop_count"]),
+        c["ate_is_loop_count_neg"], w1,
+        c["final_exponent_last_chunk_abs_of_w0"],
+        c["final_exponent_last_chunk_w0_is_neg"], 3, True)
+
+
+def host_sw6_pairing() -> HostMNTPairing:
+    """SW6 (CP6-782): its engine is MNT6-shaped (Fq3 twist (0, 1, 0), lines
+    in Fq6 = Fq3[Y], easy part (q^3 - 1)(q + 1), hard part
+    elt^(w1 q) elt^(+-w0)), so the MNT ladder runs it, over the loop count
+    in NAF form.  The loop count is the decoded [u64; 13] limbs that the
+    reference's engine iterates, 782 bits; its doc comment (curves/sw6/
+    mod.rs:183-184) states a 388-bit value, which gives another (still
+    bilinear) pairing.  The JAX package's oracle makes the same choice and
+    pins its GT (tests/test_pairing.py::test_sw6_gt_vector)."""
+    return _host_mnt6(PP.SW6_FQ, TG.SW6_FQ3, CG.SW6, SW6_W1)
+
+
+def host_mnt6298_pairing() -> HostMNTPairing:
+    c = CG.MNT6298
+    return _host_mnt6(PP.MNT6298_FQ, TG.MNT6298_FQ3, c,
+                      c["final_exponent_last_chunk_1"])
 
 
 class HostBls12Pairing(_HostGT):

@@ -12,8 +12,12 @@ schoolbook column sum exactly, so the plain versions need no lo/hi split, and
 one dtype everywhere means no casts between the plain path and the kernels.
 A numpy array of the JAX package converts with ``astype(np.int64)``.  The
 kernel wrappers raise on any other dtype.  Inside the kernels two digits are
-packed into one 32-bit limb (same ``R``), which is why the kernels exist for
-even ``n_digits`` only.
+packed into one 32-bit limb, ``(n_digits + 1) // 2`` limbs an element, and
+``R`` stays ``2^(16*n_digits)``: at an odd count (19: MNT6-298, 49: SW6) the
+top limb holds one digit and the multiply's last reduction row divides by
+2^16 (``csrc/fp_limbs.cuh``).  The field kernels are built for
+``KERNEL_DIGITS``; K3 (``pow_const``) for ``POW_DIGITS`` only.  A width that
+is not built raises ``NotImplementedError`` on the card.
 
 Dispatch (the one place where CPU and GPU part ways): ``mont_mul``,
 ``add_mod``, ``sub_mod``, ``neg_mod``, ``inv_bea`` and ``pow_const`` look at
@@ -52,7 +56,8 @@ Kernels held here (source notes in the ``.cu`` files):
   that chain, a dependent one per element.  It carries ``legendre`` and
   ``sqrt_mod``.
 
-Each wrapper counts its launches in ``launch_counts``.
+Each wrapper counts its launches in ``launch_counts``, and by digit count
+in ``launch_digits`` (``count_launch``).
 """
 
 from __future__ import annotations
@@ -206,7 +211,10 @@ class FpParams:
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-KERNEL_DIGITS = (16, 24, 48)   # digit counts the kernels are built for
+# digit counts the kernels are built for: K1, add/sub/neg, K2 and the curve
+# kernels (ops/ec_kernels.py) at all five, K3 at three
+KERNEL_DIGITS = (16, 19, 24, 48, 49)
+POW_DIGITS = (16, 24, 48)
 launch_counts = {"mont_mul": 0, "inv_bea": 0, "fp_add": 0, "fp_sub": 0,
                  "fp_neg": 0,
                  # the curve kernels of ops/ec_kernels.py count here too
@@ -219,21 +227,35 @@ launch_counts = {"mont_mul": 0, "inv_bea": 0, "fp_add": 0, "fp_sub": 0,
                  "rns_mont": 0, "ecr_pre": 0, "ecr_post": 0}
 
 
+# the same launches by digit count: {kernel: {n_digits: launches}}
+launch_digits = {k: {} for k in launch_counts}
+
+
+def count_launch(name: str, n_digits: int | None):
+    """One launch of kernel ``name`` at ``n_digits`` (None: not counted by
+    width): what every wrapper calls where it launches."""
+    launch_counts[name] += 1
+    if n_digits is not None:
+        by_width = launch_digits[name]
+        by_width[n_digits] = by_width.get(n_digits, 0) + 1
+
+
 def reset_launch_counts():
     for k in launch_counts:
         launch_counts[k] = 0
+        launch_digits[k].clear()
 
 
-def _check_operand(params: FpParams, x, what: str):
+def _check_operand(params: FpParams, x, what: str, built=KERNEL_DIGITS):
     if x.dtype != DTYPE:
         raise TypeError(f"{what}: digits must be {DTYPE}, got {x.dtype}")
     if x.shape[-1] != params.n_digits:
         raise ValueError(f"{what}: last axis must hold {params.n_digits} "
                          f"digits, got {x.shape[-1]}")
-    if params.n_digits not in KERNEL_DIGITS:
+    if params.n_digits not in built:
         raise NotImplementedError(
             f"{what}: the CUDA kernels are built for n_digits in "
-            f"{KERNEL_DIGITS}, not {params.n_digits} ({params.name})")
+            f"{built}, not {params.n_digits} ({params.name})")
     if not x.is_cuda:
         raise ValueError(f"{what}: the kernel takes CUDA tensors, got one "
                          f"on {x.device}")
@@ -249,6 +271,13 @@ def _raw_stream(x) -> int:
     return torch.cuda.current_stream(index).cuda_stream
 
 
+def _align(nd: int) -> int:
+    """The mask of a row's address bits that must be zero: 16-byte rows at
+    an even digit count, 8-byte (one digit) at an odd one, whose rows the
+    kernels read digit by digit."""
+    return 15 if nd % 2 == 0 else 7
+
+
 def _rows(x, out_shape):
     """(tensor, rows, stride): row ``i % rows`` of the tensor, rows
     ``stride`` digits apart, is what broadcasting ``x`` to ``out_shape``
@@ -257,7 +286,8 @@ def _rows(x, out_shape):
     spaced (one component of an extension-field tensor, every other row of
     a table); any other layout or broadcast is materialised."""
     nd = x.shape[-1]
-    if x.shape == out_shape and x.is_contiguous() and not x.data_ptr() & 15:
+    align = _align(nd)
+    if x.shape == out_shape and x.is_contiguous() and not x.data_ptr() & align:
         return x, x.numel() // nd, nd     # the common case, a few 10^5/proof
     lead = x.shape[:-1]
     k = len(lead)
@@ -269,9 +299,9 @@ def _rows(x, out_shape):
         core = tuple(out_shape[:-1])
         k = len(core)
     stride = _row_stride(x, k)
-    if stride is None or x.data_ptr() & 15:
+    if stride is None or x.data_ptr() & align:
         x = x.contiguous()
-        if x.data_ptr() & 15:
+        if x.data_ptr() & align:
             x = x.clone()
         stride = nd
     rows = 1
@@ -282,7 +312,8 @@ def _rows(x, out_shape):
 
 def _row_stride(x, k: int):
     """Distance in digits between consecutive rows of the last ``k`` batch
-    axes of ``x`` if it is one positive even number, else None."""
+    axes of ``x`` if it is one positive number, even at an even digit
+    count, else None."""
     if x.stride(-1) != 1:
         return None
     stride = span = None
@@ -297,7 +328,8 @@ def _row_stride(x, k: int):
         span = x.stride(d) * size
     if stride is None:
         return x.shape[-1]
-    return stride if stride > 0 and stride % 2 == 0 else None
+    even = x.shape[-1] % 2 == 0
+    return stride if stride > 0 and (stride % 2 == 0 or not even) else None
 
 
 _kernel_fns: dict = {}
@@ -347,7 +379,7 @@ def _launch_binary(params: FpParams, a, b, name: str, op: int | None):
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (code {rc})")
     if n:
-        launch_counts[name] += 1
+        count_launch(name, nd)
     return out
 
 
@@ -360,7 +392,7 @@ def inv_bea_cuda(params: FpParams, a):
     """Launch the inverse kernel on a CUDA tensor."""
     _check_operand(params, a, "inv_bea")
     a_c = a.contiguous()
-    if a_c.data_ptr() & 15:
+    if a_c.data_ptr() & _align(params.n_digits):
         a_c = a_c.clone()
     out = torch.empty_like(a_c)
     n = out.numel() // params.n_digits
@@ -370,7 +402,7 @@ def inv_bea_cuda(params: FpParams, a):
     if rc != 0:
         raise RuntimeError(f"inv_bea: kernel launch failed (code {rc})")
     if n:
-        launch_counts["inv_bea"] += 1
+        count_launch("inv_bea", params.n_digits)
     return out
 
 
@@ -675,7 +707,7 @@ def pow_const_cuda(params: FpParams, a, exp_bits):
     """Launch the pow-chain kernel on a CUDA tensor: the whole chain in one
     launch, by a fixed window that its launcher picks from the exponent
     (``pow_window``)."""
-    _check_operand(params, a, "pow_const")
+    _check_operand(params, a, "pow_const", POW_DIGITS)
     bits = np.ascontiguousarray(np.asarray(exp_bits) != 0, dtype=np.uint8)
     if bits.ndim != 1 or bits.size > POW_MAX_BITS:
         raise ValueError(f"pow_const: the kernel takes one exponent of at "
@@ -692,7 +724,7 @@ def pow_const_cuda(params: FpParams, a, exp_bits):
     if rc != 0:
         raise RuntimeError(f"pow_const: kernel launch failed (code {rc})")
     if n:
-        launch_counts["pow_const"] += 1
+        count_launch("pow_const", params.n_digits)
     return out
 
 

@@ -29,7 +29,9 @@ The TPU kernels work on digit-major ``[128, lanes]`` tiles with flags as
 flags ``[N]`` bool, any N.  Operands may be strided views (the even and odd
 halves of a tree level) or a row expanded over the batch: the kernels take a
 row stride per operand.  The kernels exist for curves over the base field
-(``F.K == 1``) at 16, 24 and 48 digits; anything else on a GPU raises.
+(``F.K == 1``) at 16, 19, 24, 48 and 49 digits (``fp.KERNEL_DIGITS``: at
+19 and 49, MNT6-298 and SW6 G1, the top limb is one digit and the groups of
+K4 and K6 pad the limbs with zeros); anything else on a GPU raises.
 
 Each wrapper counts its launches in ``fields.fp.launch_counts`` (the
 inversion's three kernels each under its own key, ``inv_tree_up``,
@@ -47,7 +49,7 @@ import torch
 
 from ..fields import fp as fpmod
 from ..fields import towers as T
-from ..fields.fp import KERNEL_DIGITS, launch_counts
+from ..fields.fp import KERNEL_DIGITS
 from ..ops.limbs import DTYPE, limbs32
 
 INV_TILE = 512   # elements of a tile of the inversion kernels (csrc's B)
@@ -97,9 +99,11 @@ def _rows(params, x, n: int, what: str):
         raise ValueError(f"{what}: expected {n} rows, got {tuple(x.shape)}")
     fpmod._check_operand(params, x, what)
     stride = x.stride(0) if n > 1 else 0
-    if x.stride(1) != 1 or stride < 0 or stride % 2 or x.data_ptr() & 15:
+    align = fpmod._align(params.n_digits)
+    odd_stride = stride % 2 and params.n_digits % 2 == 0
+    if x.stride(1) != 1 or stride < 0 or odd_stride or x.data_ptr() & align:
         x = x.contiguous()
-        if x.data_ptr() & 15:
+        if x.data_ptr() & align:
             x = x.clone()
         stride = x.shape[1]
     return x, stride
@@ -134,12 +138,13 @@ def _same_device(tensors, what: str):
     return dev
 
 
-def _launched(rc: int, what: str, key: str, n: int | None = None):
-    """Raises for a failed launch, else counts it (and, given the batch
-    width n, counts it by width too)."""
+def _launched(rc: int, what: str, key: str, n: int | None = None,
+              nd: int | None = None):
+    """Raises for a failed launch, else counts it (given the digit count nd,
+    by digit count too, and given the batch width n, by width)."""
     if rc != 0:
         raise RuntimeError(f"{what}: kernel launch failed (code {rc})")
-    launch_counts[key] += 1
+    fpmod.count_launch(key, nd)
     if key in launch_widths:
         launch_widths[key][n] = launch_widths[key].get(n, 0) + 1
 
@@ -221,7 +226,7 @@ def proj_add_cuda(curve, P3, Q3):
         _table(ctypes.c_longlong, [s for _, s in ops]), _ptrs(outs), n,
         _curve_consts(curve), params.inv32,
         int(curve.a_is_zero), fpmod._raw_stream(outs[0]))
-    _launched(rc, "proj_add", "ec_proj_add", n)
+    _launched(rc, "proj_add", "ec_proj_add", n, nd)
     return tuple(outs)
 
 
@@ -298,7 +303,7 @@ def affine_pre_cuda(curve, x1, y1, x2, y2, inf1, inf2):
         num.data_ptr(), den.data_ptr(), inf3.data_ptr(), n,
         _curve_consts(curve), params.inv32,
         fpmod._raw_stream(num))
-    _launched(rc, "affine_pre", "ec_affine_pre", n)
+    _launched(rc, "affine_pre", "ec_affine_pre", n, nd)
     return num, den, inf3
 
 
@@ -328,7 +333,7 @@ def affine_post_cuda(curve, num, dinv, x1, y1, x2, y2, inf1, inf2, inf3):
         x3.data_ptr(), y3.data_ptr(), n,
         _curve_consts(curve), params.inv32,
         fpmod._raw_stream(x3))
-    _launched(rc, "affine_post", "ec_affine_post", n)
+    _launched(rc, "affine_post", "ec_affine_post", n, nd)
     return x3, y3
 
 
@@ -409,11 +414,13 @@ def inv_down_plain(params, tree, rinv, n: int):
     return inv.reshape(-1, tree.shape[-1])[:n]
 
 
-def unpack_limbs(words):
-    """Packed 32-bit limbs [..., nd / 2] int32 (the up kernel's trees) as
-    digits [..., nd]."""
+def unpack_limbs(words, nd: int | None = None):
+    """Packed 32-bit limbs [..., ceil(nd / 2)] int32 (the up kernel's trees)
+    as digits [..., nd] (nd: twice the limbs unless given; at an odd nd the
+    top limb's high half is dropped)."""
     w = words.to(DTYPE) & 0xFFFFFFFF
-    return torch.stack([w & 0xFFFF, w >> 16], dim=-1).flatten(-2)
+    out = torch.stack([w & 0xFFFF, w >> 16], dim=-1).flatten(-2)
+    return out if nd is None else out[..., :nd]
 
 
 def _inv_operand(params, a, what: str):
@@ -421,7 +428,7 @@ def _inv_operand(params, a, what: str):
     if a.dim() != 2:
         raise ValueError(f"{what}: expected [N, nd], got {tuple(a.shape)}")
     x = a.contiguous()
-    if x.data_ptr() & 15:
+    if x.data_ptr() & fpmod._align(params.n_digits):
         x = x.clone()
     return x
 
@@ -439,20 +446,21 @@ def _inv_consts(params) -> int:
 
 
 def _inv_launch(params, name, key, n, *ptrs, stream):
-    rc = fpmod._kernel(name)(params.n_digits, *ptrs, n, INV_TILE,
-                             _inv_consts(params), params.inv32, stream)
-    _launched(rc, name[3:], key, n)
+    nd = params.n_digits
+    rc = fpmod._kernel(name)(nd, *ptrs, n, INV_TILE, _inv_consts(params),
+                             params.inv32, stream)
+    _launched(rc, name[3:], key, n, nd)
 
 
 def inv_up_cuda(params, a):
     """Launch the up kernel on a CUDA batch [N, nd], N > ``INV_TILE``:
-    (the tiles' trees as packed limbs [tiles, 2 INV_TILE - 1, nd / 2]
-    int32, the tiles' products [tiles, nd])."""
+    (the tiles' trees as packed limbs [tiles, 2 INV_TILE - 1,
+    ceil(nd / 2)] int32, the tiles' products [tiles, nd])."""
     x = _inv_operand(params, a, "inv_up")
     n, nd = x.shape
     tiles = -(-n // INV_TILE)
-    tree = torch.empty((tiles, 2 * INV_TILE - 1, nd // 2), dtype=torch.int32,
-                       device=x.device)
+    tree = torch.empty((tiles, 2 * INV_TILE - 1, (nd + 1) // 2),
+                       dtype=torch.int32, device=x.device)
     roots = torch.empty((tiles, nd), dtype=DTYPE, device=x.device)
     _inv_launch(params, "gl_inv_tree_up", "inv_tree_up", n, x.data_ptr(),
                 tree.data_ptr(), roots.data_ptr(),
@@ -479,7 +487,7 @@ def inv_down_cuda(params, tree, rinv, n: int):
     rinv = _inv_operand(params, rinv, "inv_down")
     nd = params.n_digits
     tiles = -(-n // INV_TILE)
-    if tree.shape != (tiles, 2 * INV_TILE - 1, nd // 2) \
+    if tree.shape != (tiles, 2 * INV_TILE - 1, (nd + 1) // 2) \
             or tree.dtype != torch.int32 or not tree.is_contiguous() \
             or rinv.shape[0] != tiles:
         raise ValueError("inv_down: tree and rinv are not those of inv_up on "

@@ -223,7 +223,7 @@ def ecr_pre_cuda(curve, x1, y1, x2, y2, inf1, inf2):
         *(o.data_ptr() for o in outs), inf3.data_ptr(), dead.data_ptr(), n,
         RK.device_consts(C.p, dev).data_ptr(),
         C.device_block(dev).data_ptr(), fpmod._raw_stream(outs[0]))
-    EK._launched(rc, "ecr_pre", "ecr_pre", n)
+    EK._launched(rc, "ecr_pre", "ecr_pre", n, C.nd)
     return (*outs, inf3, dead)
 
 
@@ -306,7 +306,7 @@ def ecr_post_cuda(curve, num, dinv, x1r, y1r, x2r, x1, y1, x2, y2, inf1,
         x3.data_ptr(), y3.data_ptr(), n,
         RK.device_consts(C.p, dev).data_ptr(),
         C.device_block(dev).data_ptr(), fpmod._raw_stream(x3))
-    EK._launched(rc, "ecr_post", "ecr_post", n)
+    EK._launched(rc, "ecr_post", "ecr_post", n, C.nd)
     return x3, y3
 
 

@@ -72,9 +72,13 @@ def from_digits_batch(d) -> list:
 
 
 def limbs32(digits) -> np.ndarray:
-    """Host side: 16-bit digits [..., 2k] -> 32-bit limbs (uint32), flat,
-    two digits a limb: the form the kernels keep constants in."""
-    d = np.asarray(digits, dtype=np.uint32).reshape(-1)
+    """Host side: 16-bit digits [..., nd] -> 32-bit limbs (uint32), flat,
+    two digits a limb, ceil(nd / 2) an element (the top one half full at an
+    odd nd): the form the kernels keep constants in."""
+    d = np.asarray(digits, dtype=np.uint32)
+    if d.shape[-1] % 2:
+        d = np.concatenate([d, np.zeros(d.shape[:-1] + (1,), np.uint32)], -1)
+    d = d.reshape(-1)
     return d[0::2] | (d[1::2] << 16)
 
 

@@ -33,8 +33,9 @@ from __future__ import annotations
 import torch
 
 from ..fields import fp as fpmod
-from ..fields.fp import launch_counts
 from . import limbs
+
+KERNEL_DIGITS = (16, 24, 48)   # widths K9 is built for
 
 
 # ---------------------------------------------------------------------------
@@ -173,7 +174,7 @@ def permute_cuda(params, state):
     """Launch the Poseidon kernel on a CUDA state [B, 3, nd]: the whole
     permutation of every sponge in one launch."""
     F = params.field
-    fpmod._check_operand(F, state, "poseidon_permute")
+    fpmod._check_operand(F, state, "poseidon_permute", KERNEL_DIGITS)
     if params.t != 3:
         raise NotImplementedError(f"poseidon_permute: the kernel is built "
                                   f"for a state of 3, not {params.t}")
@@ -198,7 +199,7 @@ def permute_cuda(params, state):
         raise RuntimeError(f"poseidon_permute: kernel launch failed "
                            f"(code {rc})")
     if n:
-        launch_counts["poseidon_permute"] += 1
+        fpmod.count_launch("poseidon_permute", F.n_digits)
         launch_widths[n] = launch_widths.get(n, 0) + 1
     return out
 

@@ -216,7 +216,7 @@ def _launch(p: int, x, y, n: int, x_shift: int = 0, y_xor: int = 0):
         ctx.k, xc.data_ptr(), xs, x_shift, yc.data_ptr(), ys, y_xor,
         out.data_ptr(), n, consts.data_ptr(), fpmod._raw_stream(xc))
     if n:
-        EK._launched(rc, "rns_mont", "rns_mont", n)
+        EK._launched(rc, "rns_mont", "rns_mont", n, -(-p.bit_length() // 16))
     elif rc != 0:
         raise RuntimeError(f"rns_mont: kernel launch failed (code {rc})")
     return out

@@ -21,7 +21,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from ..curves.pairing_host import (HostMNTPairing, host_mnt4753_pairing,
-                                   host_mnt6753_pairing)
+                                   host_mnt6298_pairing, host_mnt6753_pairing)
 from ..relations.r1cs import ConstraintSystem
 from .groth16_host import (HostCurve, divide_by_vanishing, host_curves,
                            host_idft, lagrange_at)
@@ -280,6 +280,12 @@ def host_gm17_mnt4753() -> HostGM17:
 def host_gm17_mnt6753() -> HostGM17:
     g1, g2, fr = host_curves("mnt6753")
     return HostGM17(host_mnt6753_pairing(), g1, g2, fr)
+
+
+def host_gm17_mnt6298() -> HostGM17:
+    """GM17 over MNT6-298 (JAX ``gm17_host.host_gm17_mnt6298``)."""
+    g1, g2, fr = host_curves("mnt6298")
+    return HostGM17(host_mnt6298_pairing(), g1, g2, fr)
 
 
 def expected_gm17_proof(family: str, cs: ConstraintSystem, alpha: int,

@@ -31,7 +31,8 @@ from dataclasses import dataclass
 from .. import params as PP
 from ..curves.pairing_host import (HostMNTPairing, host_bls12_377_pairing,
                                    host_bls12_381_pairing,
-                                   host_mnt4753_pairing, host_mnt6753_pairing)
+                                   host_mnt4753_pairing, host_mnt6753_pairing,
+                                   host_mnt6298_pairing, host_sw6_pairing)
 from ..fields import host_ext
 from ..params._gen import curves_gen as CG, towers_gen as TG
 from ..relations.r1cs import ConstraintSystem
@@ -120,6 +121,9 @@ _FAMILIES = {
                   PP.BLS12_377_FR),
     "bls12_381": (CG.BLS12_381, TG.BLS12_381_FQ2, 2, PP.BLS12_381_FQ,
                   PP.BLS12_381_FR),
+    "sw6": (CG.SW6, TG.SW6_FQ3, 3, PP.SW6_FQ, PP.SW6_FR),
+    "mnt6298": (CG.MNT6298, TG.MNT6298_FQ3, 3, PP.MNT6298_FQ,
+                PP.MNT6298_FR),
 }
 
 
@@ -202,14 +206,15 @@ def qap_at(cs, t: int):
 # ---------------------------------------------------------------------------
 
 def expected_proof(family: str, cs, alpha: int, beta: int, gamma: int,
-                   delta: int, t: int, r: int, s: int) -> dict:
+                   delta: int, t: int, r: int, s: int, qap=None) -> dict:
     """The Groth16 proof of ``cs``'s assignment under the given toxic waste
     and blinding scalars: {"a": G1, "b": G2, "c": G1}, each an affine (x, y)
     of component lists in standard form.  ``gamma`` does not enter a proof
-    and is taken only so that the call mirrors setup."""
+    and is taken only so that the call mirrors setup.  ``qap``: ``qap_at(cs,
+    t)`` where the caller has it (a large circuit's takes seconds)."""
     g1, g2, fr = host_curves(family)
     p = fr.modulus
-    a, b, c, zt, _ = qap_at(cs, t)
+    a, b, c, zt, _ = qap if qap is not None else qap_at(cs, t)
     z = cs.assignment()
     ni = cs.num_inputs
     dot = lambda q: sum(x * y for x, y in zip(z, q)) % p
@@ -425,3 +430,15 @@ def host_groth16_bls12_377() -> HostGroth16:
 def host_groth16_bls12_381() -> HostGroth16:
     g1, g2, fr = host_curves("bls12_381")
     return HostGroth16(host_bls12_381_pairing(), g1, g2, fr)
+
+
+def host_groth16_sw6() -> HostGroth16:
+    """Groth16 over SW6: the outer proof of the BLS12-377 verifier circuit
+    (SW6's Fr is BLS12-377's Fq)."""
+    g1, g2, fr = host_curves("sw6")
+    return HostGroth16(host_sw6_pairing(), g1, g2, fr)
+
+
+def host_groth16_mnt6298() -> HostGroth16:
+    g1, g2, fr = host_curves("mnt6298")
+    return HostGroth16(host_mnt6298_pairing(), g1, g2, fr)

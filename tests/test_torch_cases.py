@@ -334,6 +334,28 @@ INV_LONGEST = {
         (0x110000400000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000,
          49, 1500),
     ],
+    # 298 bits, bound 20 passes; (a, passes, divsteps)
+    "mnt6298_fq": [
+        (0x3b0000000000000000000000000000000000000000000000000000000000000000000000000,
+         20, 593),
+        (0x3a0000000000000000000000000000000000000000000000000000000000000000000000000,
+         20, 593),
+        (0xa6000000000000000000000000000000000000000000000000000000000000000000000000,
+         20, 593),
+        (0x3b0200000000000000000000000000000000000000000000000000000000000000000000000,
+         20, 592),
+    ],
+    # 782 bits, bound 51 passes; (a, passes, divsteps)
+    "sw6_fq": [
+        (0x1800000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000,
+         51, 1561),
+        (0x810000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000,
+         51, 1559),
+        (0x1008200000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000,
+         51, 1553),
+        (0x100c200000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000000,
+         51, 1552),
+    ],
 }
 INV_NEGATIVE_ROWS = {
     # 253 bits, bound 17 passes; (a, passes with a negative x row, with a negative y row)
@@ -378,6 +400,28 @@ INV_NEGATIVE_ROWS = {
         (0x1c4c62d92c41110229022eee2cdadb7f997505b8fafed5eb7e8f96c97d87307fdb925e8a0ed8d99d124d9a15af79db26c5c28c859a99b3eebca9429212636b9dff97634993aa4d6c381bc3f004eaec1c568b7327324466ad0cc316e43ad27,
          0, 1),
         (0x1c4c62d92b34cc7f5f366ab9f70e8894b9180c4bee38d89f55ccaf07153f404e72887ace503a2f13c985065f971278bb0de6b9b3d0eab29ad4e6a027e65797ecd71763f6b5b47755ee7f25ca5e1919fd9a8f2b3c8cd0edc7e5b97d5af20b3,
+         0, 1),
+    ],
+    # 298 bits, bound 20 passes; (a, passes with a negative x row, with a negative y row)
+    "mnt6298_fq": [
+        (0x3bcf7bcd473a266249da7b0548ecaeec9635cf44194faf09b781ea9c803f4873e4bd0785bd7,
+         1, 1),
+        (0x3bcf7bcd473a266249da7b0548ecaeec9635cf44194fb494c07910c97ed01b9e08e18937f75,
+         1, 1),
+        (0x3bcf7bcd473a266249da01f65b35e417f3ccfe2d2c6e410542e54c153afa961291494f2ab65,
+         0, 1),
+        (0x3bcf7bcd473a266249da7b0548ecaeec9635cf4419433a661e6df6c1e3f8d3e030934a38bd9,
+         0, 1),
+    ],
+    # 782 bits, bound 51 passes; (a, passes with a negative x row, with a negative y row)
+    "sw6_fq": [
+        (0x3848c4d2263babf8941fe959283d8f526663bc5d176b746af0266a7223ee72023d07830c728d80f9d78bab3596c8617c579252a3fb77c79c1307b5dd07f142a80509fe056200b2dafe7aa0dfc5bb01a58d196143f7ff29e6366df93b4438a9f0081b,
+         1, 0),
+        (0x3848c4d2263babf8941fe959283d8f526663bc5d176b746af0266a7223ee72023d07830c728d80f9d78bab3596c8617c579252a3fb77c79c13201ad533049cfe6a399c2f7605b1c3d66745a0df5f02458e5ed8771242221c9ec2b265ae2e528bfb81,
+         1, 0),
+        (0x3848c4d2263babf8941fe959283d8f526663bc5d176b746af0266a7223ee72023d07830c728d80f9d78bab3596c8617c579252a3fb77c79c13201ad533049cfe6a399c2f76457a7f0dd4fb3156b950dbcd3caa0ccc5184ed8bf9700c0ed4ff67c061,
+         0, 1),
+        (0x3848c4d2263babf8941fe959283d8f526663bc5d176b746af0266a7223ee72023d07830c728d80f9d78bab3596c8617c577b20898cb64e6722676649828f9062494a85b8015aa40f0253204497fd8cde094105569c669baa9c331602d97d20481d75,
          0, 1),
     ],
 }
@@ -530,3 +574,55 @@ def host_alpha_beta(alpha: int, beta: int, family: str = "mnt4753") -> list:
     g1, g2, _ = host_curves(family)
     E = getattr(pairing_host, f"host_{family}_pairing")()
     return E.pairing(g1.mul(g1.gen, alpha), g2.mul(g2.gen, beta))
+
+
+# ---------------------------------------------------------------------------
+# MNT6-298 and SW6 pins (copies of the JAX package's tests' vectors)
+# ---------------------------------------------------------------------------
+
+# The proof A = [2]G1, B = G2, C = G1 over MNT6-298 as the reference writes
+# it (groth16/mod.rs:35-41 a | b | c; affine x | y | infinity byte;
+# Fp little-endian at the u64-limb width, 40 bytes at 298 bits), derived by
+# hand from the Rust format, not by any serializer of this repo: the copy
+# of tests/test_serialize.py's ``_GOLDEN_MNT6298_PROOF``.
+GOLDEN_MNT6298_PROOF = (
+    "5d700f8dcff8fce2c62f158bdb36429c06f26e1ad6f34d93432f402f7efe495e"
+    "f07823927d0000009ecd3e733fa2aac79e2dcc1c947f9b7169048111ae4a6716"
+    "3862de191e5dd8358e54d5e8600000000013684c7e2576ad44e6d23a744b40a7"
+    "ad3500d63c72aacb0249b4b3cc2b53ce562ba120734f030000fa800c5aac5cb1"
+    "a9ab90281b4fc8fe409310e05219685fb4b50aa7610ec5ee52aa0b6241cf0000"
+    "00ce1749bd91832501cbe267c76a051bf35c104e3cca0780b42f03b8cc3c4326"
+    "e3100e17991f01000091ccfe601b2c587a71e1830b7c480983c43e368bd3eb07"
+    "5e419cc705ad624dc63cf06859a60300006e5c68372c5baa2f4074cc17710ccb"
+    "2db85deacaacb31a45c2ef4ca2c10615dbe527845eca000000f7e7605c2f78af"
+    "7ba2552e7c645f71bb3ad87772193e1b9a62071394efa4c90283d82d5df70000"
+    "00007d44c0bb1ac0ebadbd84253971c6b4e0579bd7baf956ed61bab27104d9d1"
+    "692cfd24eefea402000028301dd9733d338a20971b5ec7e9715dc27ff0bffccb"
+    "69fd7abf37e0f4822fdbf645c2862903000000")
+
+
+def mnt6298_golden_points():
+    """(A, B, C) of ``GOLDEN_MNT6298_PROOF`` as affine python ints:
+    A = [2]G1 by one affine doubling, B = G2, C = G1."""
+    from gingerlib_tpu_torch import params as TP
+    from gingerlib_tpu_torch.params._gen import curves_gen
+    c = curves_gen.MNT6298
+    p = TP.MNT6298_FQ.modulus
+    lam = (3 * c["g1_x"] ** 2 + c["a"]) * pow(2 * c["g1_y"], -1, p) % p
+    x2 = (lam * lam - 2 * c["g1_x"]) % p
+    y2 = (lam * (c["g1_x"] - x2) - c["g1_y"]) % p
+    return (([x2], [y2]), (list(c["g2_x"]), list(c["g2_y"])),
+            ([c["g1_x"]], [c["g1_y"]]))
+
+
+# e(G1, G2) on SW6 over the 782-bit loop count of the reference's limbs, as
+# the JAX package pins it (tests/test_pairing.py ``_SW6_GT_G1G2``): six Fq
+# components of GT in Fq6 = Fq3[Y].
+SW6_GT_G1G2 = [
+    21513276534743943104596713219355341358586713169859452486127897976599692735060616914556926178706235507317114713031047417109370830075346515923127188102759328733824890991490185326609454475610828618953340885995411028181432145405960888527071,  # noqa: E501
+    3331045930537674940609774936387680192316337121936809450114623293876120286877388404447522199633789741945191865317116369422187070663596622775894893002601805076413995680304431019833374251106695693944386480657543171546768467566748674192911,  # noqa: E501
+    11447758708454340853313015968641938667166651209217552267064442654250258407084793146756921421255595255556019892491543143366685295176148323137283855161937599871310027107080200095589785395929182290749367795317736865548332342310137473351749,  # noqa: E501
+    18305928254593090350663007269621686111157160904682660775442009363678857433703535737285194697123029267744208069423075727037464825973232817539531779064628249581537180351629100080334131870318979946350459432200927722187777135789172908399986,  # noqa: E501
+    13510455650459054066626257897326294736324739865748725149120746804895181966826925043874560288157091482204127755322255295201024511891724356951129961637286053651716706929447854879952641313768535054413995315128456599734218739177820601741005,  # noqa: E501
+    1528013370049677800502710434937465820797994475938748217555709054687026461470730447934146372982198870493604138298507557692798681057320569912053772326445890407748418760317541865916830267009409988714017415552882338015098719034089622248902,  # noqa: E501
+]

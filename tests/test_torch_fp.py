@@ -226,14 +226,19 @@ def test_field_constants_match_jax():
                                   getattr(TF, attr)), (name, attr)
 
 
+UNBUILT_FQ = tfp.FpParams("mersenne_127", (1 << 127) - 1, generator=3)
+assert UNBUILT_FQ.n_digits not in tfp.KERNEL_DIGITS
+
+
 @pytest.mark.parametrize("wrapper", ["mont_mul_cuda", "inv_bea_cuda"])
 @pytest.mark.parametrize("fault,error", [
     ("cpu_tensor", ValueError), ("int32_digits", TypeError),
     ("wrong_width", ValueError), ("unbuilt_digit_count", NotImplementedError)])
 def test_kernel_wrappers_refuse(wrapper, fault, error):
     """The CUDA wrappers never compute on the CPU and take only the layout
-    the kernels were built for; everything else raises."""
-    TF = TP.MNT6298_FQ if fault == "unbuilt_digit_count" else TP.MNT4753_FQ
+    the kernels were built for; everything else raises (an 8-digit field,
+    2^127 - 1, is built at no width)."""
+    TF = UNBUILT_FQ if fault == "unbuilt_digit_count" else TP.MNT4753_FQ
     a = torch.from_numpy(tfp.fp_from_ints(TF, [3, 4]))
     if fault == "int32_digits":
         a = a.to(torch.int32)

@@ -1,5 +1,6 @@
 """The port's field, curve, pow-chain, Poseidon and RNS kernels against their
-plain PyTorch versions (the curve kernels also at MNT6-753 G1's constant),
+plain PyTorch versions (the curve kernels also at MNT6-753 G1's constant,
+and at the odd digit counts, 19 and 49, on MNT6-298 and SW6 G1),
 and the MNT4-753, MNT6-753, BLS12-377 and BLS12-381 pairings, Groth16
 verification, GM17 and the recursion's inner proof (through the bridge to
 the verifier circuit), the twisted-Edwards curves, Pedersen, Schnorr and
@@ -33,21 +34,41 @@ pytestmark = pytest.mark.gpu
 N = 64
 
 
-@pytest.fixture(scope="module", params=["bls12_377", "mnt4753", "mnt6753"])
-def curve(request):
+def _g1(name):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the curve kernels have no CPU form")
-    return getattr(CI, request.param + "_g1")()
+    return getattr(CI, name + "_g1")()
 
 
-@pytest.fixture(scope="module")
-def points(curve):
+def _multiples(curve):
     """N projective multiples of the generator and their affine form."""
     k = torch.randint(1, 1 << 16, (N, 1), dtype=torch.int64,
                       generator=torch.Generator().manual_seed(3))
     proj = curve.mul_scalar_digits(curve.generator((N,)),
                                    k.to(curve.device))
     return proj, curve.to_affine(proj)
+
+
+@pytest.fixture(scope="module", params=["bls12_377", "mnt4753", "mnt6753",
+                                        "mnt6298", "sw6"])
+def curve(request):
+    return _g1(request.param)
+
+
+@pytest.fixture(scope="module")
+def points(curve):
+    return _multiples(curve)
+
+
+# the RNS kernels (K7, K8) are built at 24 and 48 digits only
+@pytest.fixture(scope="module", params=["bls12_377", "mnt4753", "mnt6753"])
+def rcurve(request):
+    return _g1(request.param)
+
+
+@pytest.fixture(scope="module")
+def rpoints(rcurve):
+    return _multiples(rcurve)
 
 
 def test_proj_add_matches_plain(curve, points):
@@ -95,7 +116,7 @@ def test_inversion_kernels_match_plain_at_tile_edges(curve, n):
                             "inv_tree_down": 1}
         tree, roots = EK.inv_up_cuda(F, x)
         want_tree, want_roots = EK.inv_up_plain(F, x)
-        assert torch.equal(EK.unpack_limbs(tree), want_tree)
+        assert torch.equal(EK.unpack_limbs(tree, F.n_digits), want_tree)
         assert torch.equal(roots, want_roots)
         rinv = EK.inv_tail_cuda(F, roots)
         assert torch.equal(rinv, EK.inv_tail_plain(F, roots))
@@ -141,9 +162,10 @@ def test_msm_hybrid_matches_naive(curve, points):
     assert bool(curve.eq(got, tmsm.msm_naive(curve, xs, ys, sd)))
 
 
-def test_rns_batch_affine_add_matches_plain(curve, points):
+def test_rns_batch_affine_add_matches_plain(rcurve, rpoints):
     """K8 (pre, the K7 tree, post) on the special lanes: the plain RNS
     path's residues and digits, and the positional kernels' digits."""
+    curve, points = rcurve, rpoints
     rns_curve = getattr(CI, curve.name)(ec_rns=True)
     a_pt, b_pt = affine_pairs(curve, points[1])
     (x1, y1), inf1 = a_pt
@@ -166,10 +188,11 @@ def test_rns_batch_affine_add_matches_plain(curve, points):
         and torch.equal(ginf, winf)
 
 
-def test_msm_on_an_rns_curve(curve, points):
+def test_msm_on_an_rns_curve(rcurve, rpoints):
     """msm_affine over the RNS curve launches K7 and K8 and equals
     msm_naive; msm_hybrid over it launches neither."""
     from gingerlib_tpu_torch.fields import fp
+    curve, points = rcurve, rpoints
     rns_curve = getattr(CI, curve.name)(ec_rns=True)
     xs, ys = points[1]
     sd = torch.randint(0, 1 << 16, (N, 1), dtype=torch.int64,
@@ -275,9 +298,9 @@ def test_poseidon_permute_at_block_edges(cuda, name):
 
 
 @pytest.mark.parametrize("name", ["MNT4753_FQ", "BLS12_377_FQ",
-                                  "BLS12_377_FR"])
+                                  "BLS12_377_FR", "SW6_FQ", "MNT6298_FQ"])
 def test_inv_bea_on_the_hardest_inputs(cuda, name):
-    """K2 at 48, 24 and 16 digits on the inputs of the host test of its
+    """K2 at 48, 24, 16, 49 and 19 digits on the inputs of the host test of its
     inversion (2^k for every k, runs of ones, the inputs that take the most
     passes or negate a row): against python's pow, and on a few against
     the plain version."""
@@ -390,10 +413,11 @@ def test_rns_mont_chained_squarings_equal_pow(cuda):
 
 
 @pytest.mark.parametrize("n", [1, 15, 16, 17, 127, 128, 129])
-def test_rns_affine_kernels_at_tile_edges(curve, points, n):
+def test_rns_affine_kernels_at_tile_edges(rcurve, rpoints, n):
     """K8's pre and post against their plain versions on n lanes around
     the tile of 16, special lanes first (one lane: a doubling, then an
     ordinary pair), with the tree's inverses between them."""
+    curve, points = rcurve, rpoints
     rns_curve = getattr(CI, curve.name)(ec_rns=True)
     aff = tuple(torch.cat([c] * -(-max(n, 9) // N))[:max(n, 9)]
                 for c in points[1])
@@ -421,7 +445,9 @@ def test_rns_affine_kernels_at_tile_edges(curve, points, n):
 # ---------------------------------------------------------------------------
 
 TILE = 128                      # elements a K1 block
-FIELDS = ["MNT4753_FQ", "BLS12_377_FQ", "BLS12_377_FR"]   # 48, 24, 16 digits
+# 48, 24, 16 digits, and the odd counts 49 and 19
+FIELDS = ["MNT4753_FQ", "BLS12_377_FQ", "BLS12_377_FR", "SW6_FQ",
+          "MNT6298_FQ"]
 
 
 def _field(name):
@@ -440,8 +466,9 @@ def _carry_values(F):
     and p - 1 and their neighbours, all ones below a limb boundary."""
     p, R = F.modulus, 1 << (16 * F.n_digits)
     vals = [(R - 1) % p, p - 1, p - 2, R % p, 1, 2, (R - 1) // 3 % p]
-    vals += [((1 << (32 * k)) - 1) % p for k in range(1, F.n_digits // 2)]
-    vals += [(p - (1 << (32 * k))) % p for k in range(1, F.n_digits // 2)]
+    limbs = (F.n_digits + 1) // 2
+    vals += [((1 << (32 * k)) - 1) % p for k in range(1, limbs)]
+    vals += [(p - (1 << (32 * k))) % p for k in range(1, limbs)]
     return vals
 
 
@@ -940,6 +967,16 @@ def test_bls12_groth16_and_gm17_on_the_gpu(family):
     """Groth16 and GM17 over the 1-constraint circuit on the card: setup's
     GT is the host oracle's, each proof the closed-form one, verify
     accepts it and refuses a wrong input."""
+    _groth16_and_gm17_on_the_gpu(family)
+
+
+def test_mnt6298_groth16_and_gm17_on_the_gpu():
+    """The same over MNT6-298 (19 digits: G1, G2 over Fq3, GT in Fq6 and Fr
+    all at the odd width)."""
+    _groth16_and_gm17_on_the_gpu("mnt6298")
+
+
+def _groth16_and_gm17_on_the_gpu(family):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the field kernels have no CPU form")
     from gingerlib_tpu_torch.fields import fp
@@ -969,6 +1006,56 @@ def test_bls12_groth16_and_gm17_on_the_gpu(family):
         gm17_host.expected_gm17_proof(family, cs, **g_toxic, **rand)
     assert gm17.verify_proof(eng, params.vk, proof, inputs)
     assert not gm17.verify_proof(eng, params.vk, proof, wrong)
+
+
+# ---------------------------------------------------------------------------
+# SW6 and MNT6-298 (49 and 19 digits): the pairings and the golden bytes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("family", ["mnt6298", "sw6"])
+def test_odd_width_pairings_on_the_gpu(family):
+    """e(G1, G2) on the card against the python-int oracle (and SW6's
+    against the pinned GT of the reference's 782-bit loop); GT^r = 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the field kernels have no CPU form")
+    from gingerlib_tpu_torch.curves import pairing_host
+    from gingerlib_tpu_torch.fields import fp, towers as T
+    from gingerlib_tpu_torch.ops import limbs
+    from gingerlib_tpu_torch.proofs.groth16_host import host_curves
+    from test_torch_cases import SW6_GT_G1G2
+    E = getattr(CI, f"{family}_pairing")()
+    g1, g2, fr = host_curves(family)
+    fp.reset_launch_counts()
+    gt = E.pairing(E.g1.generator_affine, E.g2.generator_affine)
+    assert fp.launch_digits["mont_mul"].get(E.fp.n_digits, 0) > 0
+    want = getattr(pairing_host, f"host_{family}_pairing")().pairing(
+        g1.gen, g2.gen)
+    assert T.ext_to_ints(E.fqk, gt) == want
+    if family == "sw6":
+        assert want == SW6_GT_G1G2
+    r = fr.modulus
+    assert torch.equal(T.ext_pow_const(E.fqk, gt, limbs.bits_msb_first(
+        r, r.bit_length())), E.fqk.tensor("one", gt.device))
+
+
+def test_mnt6298_golden_proof_bytes_on_the_gpu():
+    """A = [2]G1, B = G2, C = G1 over MNT6-298 as CUDA tensors, written as
+    the hand-derived bytes and read back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gingerlib_tpu_torch.proofs import groth16
+    from gingerlib_tpu_torch.utils import serialize
+    from test_torch_cases import GOLDEN_MNT6298_PROOF, mnt6298_golden_points
+    eng = CI.mnt6298_engine()
+    a, b, c = mnt6298_golden_points()
+    proof = groth16.Proof(a=eng.g1.affine_from_ints(*a),
+                          b=eng.g2.affine_from_ints(*b),
+                          c=eng.g1.affine_from_ints(*c))
+    raw = serialize.proof_to_bytes(eng, proof)
+    assert raw == bytes.fromhex(GOLDEN_MNT6298_PROOF)
+    back, used = serialize.proof_from_bytes(eng, raw)
+    assert used == len(raw)
+    assert groth16.proof_to_ints(eng, back) == {"a": a, "b": b, "c": c}
 
 
 # ---------------------------------------------------------------------------

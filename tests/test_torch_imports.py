@@ -62,8 +62,8 @@ def test_sources_found():
 
 # the public names of the MNT6-753 and GM17 slice, of the recursion's (the
 # gadgets, the host Groth16, the bridge, the circuits), of the BLS12
-# slice's and of the twisted-Edwards and signatures slice's, module by
-# module
+# slice's, of the twisted-Edwards and signatures slice's and of the SW6
+# and MNT6-298 slice's, module by module
 PUBLIC = {
     "curves.twisted_edwards": ["TECurveOps", "products"],
     "curves.points": ["lanes", "stack", "unstack", "mul_ints",
@@ -94,6 +94,16 @@ PUBLIC = {
                          "pedersen_commitment_from_numpy"],
     "circuits#te": ["schnorr_verification_circuit",
                     "pedersen_commitment_circuit"],
+    "curves.instances#odd": ["sw6_towers", "mnt6298_towers", "sw6_g1",
+                             "sw6_g2", "mnt6298_g1", "mnt6298_g2",
+                             "find_wnaf", "sw6_pairing", "mnt6298_pairing",
+                             "sw6_engine", "mnt6298_engine"],
+    "curves.pairing_host#odd": ["SW6_W1", "host_sw6_pairing",
+                                "host_mnt6298_pairing"],
+    "proofs.groth16_host#odd": ["host_groth16_sw6", "host_groth16_mnt6298"],
+    "proofs.gm17_host#odd": ["host_gm17_mnt6298"],
+    "fields.fp#odd": ["KERNEL_DIGITS", "POW_DIGITS", "launch_digits",
+                      "count_launch"],
     "curves.pairing_bls12": ["Bls12Pairing"],
     "fields.towers#bls12": ["build_bls12_towers"],
     "fields.host_ext#bls12": ["frob_table_fp6_3over2", "frob_table_fp12",

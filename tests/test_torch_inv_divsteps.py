@@ -3,7 +3,8 @@
 inversion tree's tail K6; K9 runs its group form, which
 tests/test_torch_inv_divsteps_grp.py holds), compiled for the host with g++
 and held to python's ``pow(a, -1, p)``, at 8, 12 and 24 limbs (BLS12-377 Fr
-and Fq, MNT4-753 Fq and Fr):
+and Fq, MNT4-753 Fq and Fr) and at the odd digit counts' 10 and 25
+(MNT6-298 Fq, 19 digits; SW6 Fq, 49: the top limb half full):
 
     python -m pytest tests/test_torch_inv_divsteps.py -q
 
@@ -32,7 +33,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
 import divsteps_model  # noqa: E402
 
 FIELDS = {F.name: F for F in (PP.BLS12_377_FR, PP.BLS12_377_FQ,
-                              PP.MNT4753_FQ, PP.MNT4753_FR)}
+                              PP.MNT4753_FQ, PP.MNT4753_FR, PP.MNT6298_FQ,
+                              PP.SW6_FQ)}
 
 # Reads "L n", L limbs of p and -p^-1 mod 2^32, then n inputs of L limbs
 # (hex words, low first), and prints for each input the passes run and the
@@ -62,8 +64,9 @@ int main() {
   int L;
   unsigned long long n;
   while (scanf("%d %llu", &L, &n) == 2) {
-    int rc = L == 8 ? run<8>(n) : L == 12 ? run<12>(n)
-           : L == 24 ? run<24>(n) : 2;
+    int rc = L == 8 ? run<8>(n) : L == 10 ? run<10>(n)
+           : L == 12 ? run<12>(n) : L == 24 ? run<24>(n)
+           : L == 25 ? run<25>(n) : 2;
     if (rc) return rc;
   }
   return 0;
@@ -87,7 +90,7 @@ def driver(tmp_path_factory):
 
 def inverses(exe, F, values) -> list:
     """[(inverse, passes)] of the compiled function on ``values``."""
-    limbs = F.n_digits // 2
+    limbs = (F.n_digits + 1) // 2
     p = F.modulus
 
     def words(v):

@@ -29,7 +29,8 @@ from gingerlib_tpu_torch.proofs import groth16 as tgroth16
 from gingerlib_tpu_torch.proofs import groth16_host as thost
 from gingerlib_tpu_torch.utils import serialize as TS
 from gingerlib_tpu_torch.utils.convert import params_from_numpy
-from test_torch_cases import mnt4753_anchor, mnt6753_anchor
+from test_torch_cases import (GOLDEN_MNT6298_PROOF, mnt4753_anchor,
+                              mnt6298_golden_points, mnt6753_anchor)
 
 torch.set_num_threads(1)
 CPU = "cpu"
@@ -80,7 +81,8 @@ def point_arrays(curve, pts):
 
 
 @pytest.mark.parametrize("field", ["MNT4753_FQ", "MNT6753_FQ",
-                                   "BLS12_377_FQ", "BLS12_377_FR"])
+                                   "BLS12_377_FQ", "BLS12_377_FR",
+                                   "SW6_FQ", "MNT6298_FQ"])
 def test_fp_bytes_match_jax(field):
     jp, tp = getattr(JP, field), getattr(TP, field)
     d = rand_elems(tp, 8, seed=len(field))
@@ -96,7 +98,9 @@ def test_fp_bytes_match_jax(field):
 
 
 @pytest.mark.parametrize("name", ["bls12_377_g1", "mnt4753_g1",
-                                  "mnt4753_g2", "mnt6753_g1", "mnt6753_g2"])
+                                  "mnt4753_g2", "mnt6753_g1", "mnt6753_g2",
+                                  "sw6_g1", "sw6_g2", "mnt6298_g1",
+                                  "mnt6298_g2"])
 def test_affine_bytes_match_jax(name):
     jc, tc = getattr(JCI, name)(), getattr(TCI, name)(CPU)
     xs, ys, _ = point_arrays(tc, host_points(name, [1, 2, 5]))
@@ -376,6 +380,26 @@ def test_mnt6753_proof_and_vk_bytes_match_jax():
     back, off = TS.vk_from_bytes(teng, raw, device=CPU)
     assert off == len(raw) and TS.vk_to_bytes(teng, back) == raw
     assert torch.equal(back.alpha_g1_beta_g2, vk.alpha_g1_beta_g2)
+
+
+def test_mnt6298_golden_proof_bytes():
+    """The hand-derived bytes of A = [2]G1, B = G2, C = G1 over MNT6-298
+    (19 digits, 40-byte elements; the JAX package's golden vector), written
+    from the points byte for byte, and read back to the same points."""
+    teng = TCI.mnt6298_engine(CPU)
+    a, b, c = mnt6298_golden_points()
+    g1 = point_arrays(teng.g1, [a, c])
+    g2 = point_arrays(teng.g2, [b])
+    t = lambda x: torch.from_numpy(x)                      # noqa: E731
+    proof = tgroth16.Proof(a=(t(g1[0][0]), t(g1[1][0])),
+                           b=(t(g2[0][0]), t(g2[1][0])),
+                           c=(t(g1[0][1]), t(g1[1][1])))
+    raw = TS.proof_to_bytes(teng, proof)
+    assert raw == bytes.fromhex(GOLDEN_MNT6298_PROOF)
+    assert len(raw) == (2 * 40 + 1) * 2 + 6 * 40 + 1
+    back, off = TS.proof_from_bytes(teng, raw, device=CPU)
+    assert off == len(raw) and all(torch.equal(g, w) for g, w in zip(
+        (*back.a, *back.b, *back.c), (*proof.a, *proof.b, *proof.c)))
 
 
 @pytest.mark.parametrize("family", ["bls12_377", "bls12_381"])

@@ -148,7 +148,7 @@ def main():
         __file__))))
     from gingerlib_tpu_torch import params as PP
     fields = (PP.BLS12_377_FR, PP.BLS12_377_FQ, PP.MNT4753_FQ,
-              PP.MNT4753_FR)
+              PP.MNT4753_FR, PP.MNT6298_FQ, PP.SW6_FQ)
     for title, search, what in (
             ("INV_LONGEST", lambda p: longest(p, args.seed, args.evals),
              "passes, divsteps"),

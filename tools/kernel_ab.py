@@ -323,7 +323,8 @@ def main():
                 return fp.inv_mod(fq, x)
             stream = torch.cuda.current_stream().cuda_stream
             consts = fq.kernel_consts.ctypes.data
-            pre = torch.empty((n, nd // 2), dtype=torch.int32, device=dev)
+            pre = torch.empty((n, (nd + 1) // 2), dtype=torch.int32,
+                              device=dev)
             roots = torch.empty((-(-n // 8), nd), dtype=torch.int64,
                                 device=dev)
             out = torch.empty_like(x)
